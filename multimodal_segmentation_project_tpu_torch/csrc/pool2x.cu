@@ -1,0 +1,67 @@
+// 2x2x2 stride-2 max pool on channel-first bf16 volumes, floor semantics for
+// odd extents (the trailing plane, row or column is dropped, as torch
+// MaxPool3d and the JAX reshape+max chain do).
+//
+// Replaces: multimodal_segmentation_project_tpu/ops/pool.py _fwd_pool_kernel
+//   (public op max_pool2x_cf, forward).
+//
+// Design: one thread per output voxel reads its 8 inputs and writes their
+// maximum; neighbouring threads take neighbouring output columns, so a warp
+// reads two contiguous 64-byte runs per input row and writes one 64-byte
+// run. A max selects one of its inputs, so the result is exact. NaN wins,
+// as with jnp.maximum.
+//
+// What bounds it on an H100: device-memory bandwidth. It reads the input
+// once and writes an eighth of it; there is no arithmetic to speak of. The
+// TPU kernel's W-duplicated rows, lane rolls and 0/1 selection-matrix
+// compaction existed only for the TPU's lane layout and are not carried
+// over.
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+
+__device__ __forceinline__ bf16 nan_max(bf16 m, bf16 v) {
+  const float fm = __bfloat162float(m), fv = __bfloat162float(v);
+  return (fv > fm || fv != fv) ? v : m;
+}
+
+__global__ void __launch_bounds__(THREADS)
+pool2x_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, long long BC, int D, int H,
+              int W, int Do, int Ho, int Wo) {
+  const long long n = BC * Do * Ho * Wo;
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
+  const int wo = int(i % Wo);
+  long long t = i / Wo;
+  const int ho = int(t % Ho);
+  t /= Ho;
+  const int dd = int(t % Do);
+  const long long bc = t / Do;
+  const size_t plane = size_t(H) * W;
+  const bf16* p = x + (size_t(bc) * D + 2 * dd) * plane + size_t(2 * ho) * W + 2 * wo;
+  bf16 m = p[0];
+  m = nan_max(m, p[1]);
+  m = nan_max(m, p[W]);
+  m = nan_max(m, p[W + 1]);
+  m = nan_max(m, p[plane]);
+  m = nan_max(m, p[plane + 1]);
+  m = nan_max(m, p[plane + W]);
+  m = nan_max(m, p[plane + W + 1]);
+  y[i] = m;
+}
+
+}  // namespace
+
+MMSEG_API int mmseg_pool2x(const void* x, void* y, int B, int C, int D, int H, int W,
+                           void* stream) {
+  const int Do = D / 2, Ho = H / 2, Wo = W / 2;
+  const long long n = (long long)B * C * Do * Ho * Wo;
+  if (n == 0) return int(cudaSuccess);
+  const unsigned blocks = unsigned((n + THREADS - 1) / THREADS);
+  pool2x_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<bf16*>(y), (long long)B * C, D, H, W, Do, Ho,
+      Wo);
+  return int(cudaGetLastError());
+}

@@ -1,0 +1,5 @@
+"""The port's models."""
+
+from multimodal_segmentation_project_tpu_torch.models.unet3d import DoubleConv, UNet3D
+
+__all__ = ["DoubleConv", "UNet3D"]

@@ -1,0 +1,143 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled at first use, in one ``nvcc`` call, into
+one shared library with a plain C interface, which is then loaded with
+``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/torch_kernels/libmmseg_kernels_<hash>.so csrc/*.cu
+
+The library lands in ``build/torch_kernels/`` at the root of the checkout
+under a name keyed by a hash of the sources and the flags, so an edited
+kernel is rebuilt and an unchanged one is loaded as it is. Nothing is
+built or loaded when this module is imported.
+
+Each C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`launch` calls one on a tensor's device and stream and raises on a
+non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argtypes of every C entry point (restype is int: a cudaError_t)
+_SIGNATURES = {
+    "mmseg_conv3_bias_relu": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "mmseg_pool2x": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "mmseg_upconv_d2s": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "mmseg_head1x1": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing, or it failed on the kernel sources."""
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libmmseg_kernels_{h.hexdigest()[:16]}.so"
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise KernelBuildError(
+        "nvcc not found (not on PATH, nor under $CUDA_HOME/bin or /usr/local/cuda/bin): "
+        "the port's CUDA kernels cannot be built on this machine"
+    )
+
+
+def build() -> Path:
+    """Compile the library if no build of the current sources exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.mmseg_error_string.argtypes = (ctypes.c_int,)
+            lib.mmseg_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(name: str, code: int) -> None:
+    """Raise if a kernel launch reported a CUDA error."""
+    if code != 0:
+        text = load().mmseg_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} at launch: {text}")
+
+
+def require(name: str, t, dtype, ndim: int) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and rank
+    ``ndim``: what the kernel behind ``name`` takes."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got one on {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the CUDA kernel takes {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected a rank-{ndim} tensor, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
+
+
+def launch(name: str, entry: str, t, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and the current stream,
+    on the device of ``t``; raise if the launch reported a CUDA error."""
+    import torch
+
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        check(name, getattr(load(), entry)(*args, stream))
