@@ -8,17 +8,32 @@ Phases, each printing one line per check; any failure exits non-zero:
 1. device: a CUDA device must be present; prints its name, the
    ``nvidia-smi`` name and power limit, and the torch and CUDA versions;
 2. build: compiles every kernel of ``multimodal_segmentation_project_tpu_torch/csrc``
-   with nvcc, from the sources in this checkout;
-3. kernels: each kernel against its plain PyTorch version at every shape the
-   192^3 eval forward gives it, in bf16, on seeded inputs; prints the error
-   against the stated tolerance and the median time of both over distinct
-   inputs (CUDA events);
+   with nvcc (one process per source, in parallel), from this checkout;
+3. kernels: each kernel against its plain PyTorch version at every shape
+   the 192^3 eval forward and train step give it, in bf16, on seeded
+   inputs; prints the error against the stated tolerance, the median time
+   of the kernel, of its plain version and of one library call over
+   distinct inputs (CUDA events), and its bound: the larger of its bytes
+   over 3.35 TB/s and its FLOPs over 989 TFLOP/s;
 4. slice: writes two synthetic 192^3 CT cases and a seeded default-width
-   UNet3D ``.pth``, runs the port's eval CLI (``workloads.test_model.main``)
-   on the GPU, checks its artifacts and that every forward launched exactly
-   11 conv, 3 pool, 3 upconv and 1 head kernel;
-5. parity: the GPU's bf16 forward against the port's fp32 plain forward on
-   the CPU, one 64^3 volume at full width.
+   UNet3D ``.pth``, runs the port's eval CLI (``workloads.test_model``) on
+   the GPU, checks its artifacts and that every forward launched exactly
+   11 conv, 4 pool, 3 upconv and 1 head kernel;
+5. parity: the GPU's bf16 eval forward against the port's fp32 plain
+   forward on the CPU, one 64^3 volume at full width;
+6. train: writes two train, one val and one test synthetic 192^3 CT case,
+   runs the port's train CLI (``workloads.train_unet``) as
+   ``run_training.sh`` does (batch 1, bf16, ce_tversky, augmentation on)
+   for two epochs, checks finite losses and the launches of every kernel
+   per train step and per validation forward, evaluates the best
+   checkpoint with the eval CLI; then times the train step (median over
+   distinct inputs, host clock around ``torch.cuda.synchronize()``),
+   reports the peak allocated memory, and breaks a few steps' device time
+   down from a ``torch.profiler`` trace;
+7. train parity: one train step at 128^3 and full width, GPU bf16 against
+   CPU fp32 and against the CPU bf16 emulation, from the same weights: the
+   loss and every parameter's gradient, and a control that the check
+   refuses a zeroed deep gradient.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Scratch files go to
@@ -28,6 +43,7 @@ last line is ``{"ok": true, "device": {...}}``. Scratch files go to
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -38,9 +54,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SCRATCH = ROOT / "build" / "chip_smoke"
 SEED = 0
-N_TIMED = 5  # distinct inputs per timed kernel / plain call
+N_TIMED = 5  # distinct inputs per timed kernel / plain / library call
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, same source
+FP32_FLOPS = 67e12         # fp32 outside the tensor cores, same source
 
-# (Cin, Cout, S) of every conv3x3x3_cf_relu launch in the 192^3 eval forward
+# (Cin, Cout, S) of every 3x3x3 conv with Cin, Cout <= 64 at 192^3 input
 CONV_SHAPES = [
     (1, 16, 192), (16, 16, 192),                       # enc0
     (16, 32, 96), (32, 32, 96),                        # enc1
@@ -49,33 +68,50 @@ CONV_SHAPES = [
     (64, 32, 96), (32, 32, 96),                        # dec2
     (32, 16, 192), (16, 16, 192),                      # dec3
 ]
-POOL_SHAPES = [(16, 192), (32, 96), (64, 48)]          # (C, S) in
+# the dx convs of the train step: every conv but the image's, Cin/Cout swapped
+DX_SHAPES = [(cout, cin, s) for cin, cout, s in CONV_SHAPES if cin > 1]
+POOL_SHAPES = [(16, 192), (32, 96), (64, 48), (128, 24)]     # (C, S in)
 UPCONV_SHAPES = [(128, 64, 24), (64, 32, 48), (32, 16, 96)]  # (Cin, Cout, S in)
-HEAD_SHAPES = [(16, 4, 192)]                           # (Cin, classes, S)
-PER_FORWARD = {"conv3x3x3_cf_relu": 11, "max_pool2x_cf": 3, "upconv2x_cf": 3, "head1x1_cf": 1}
-KERNEL_INFO = {
-    "conv3x3x3_cf_relu": (
-        "multimodal_segmentation_project_tpu_torch/csrc/conv3_bias_relu.cu",
-        "multimodal_segmentation_project_tpu/ops/pallas_conv.py:314",
-    ),
-    "max_pool2x_cf": (
-        "multimodal_segmentation_project_tpu_torch/csrc/pool2x.cu",
-        "multimodal_segmentation_project_tpu/ops/pool.py:65",
-    ),
-    "upconv2x_cf": (
-        "multimodal_segmentation_project_tpu_torch/csrc/upconv_d2s.cu",
-        "multimodal_segmentation_project_tpu/ops/upconv.py:69",
-    ),
-    "head1x1_cf": (
-        "multimodal_segmentation_project_tpu_torch/csrc/head1x1.cu",
-        "multimodal_segmentation_project_tpu/ops/head.py:39",
-    ),
+HEAD_SHAPES = [(16, 4, 192)]                                 # (Cin, classes, S)
+HEAD_DX_SHAPES = [(4, 16, 192)]                              # (classes, Cin, S)
+
+# launches per eval forward and per train step (default widths, 192^3)
+PER_FORWARD = {"conv3x3x3_cf_relu": 11, "max_pool2x_cf": 4, "upconv2x_cf": 3, "head1x1_cf": 1}
+PER_STEP = {"conv3x3x3_cf": 11, "conv3x3x3_cf_dx": 10, "conv3x3x3_cf_dw": 11,
+            "max_pool2x_cf": 4, "max_pool2x_cf_bwd": 4, "upconv2x_cf": 3, "head1x1_cf": 1,
+            "head1x1_cf_dx": 1}
+KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
+    "conv3x3x3_cf_relu": ("multimodal_segmentation_project_tpu_torch/csrc/conv3.cu",
+                          "multimodal_segmentation_project_tpu/ops/pallas_conv.py:314"),
+    "conv3x3x3_cf": ("multimodal_segmentation_project_tpu_torch/csrc/conv3.cu",
+                     "multimodal_segmentation_project_tpu/ops/pallas_conv.py:293"),
+    "conv3x3x3_cf_dx": ("multimodal_segmentation_project_tpu_torch/csrc/conv3.cu",
+                        "multimodal_segmentation_project_tpu/ops/pallas_conv.py:293"),
+    "conv3x3x3_cf_dw": ("multimodal_segmentation_project_tpu_torch/csrc/conv3_dw.cu",
+                        "multimodal_segmentation_project_tpu/ops/pallas_conv.py:468"),
+    "max_pool2x_cf": ("multimodal_segmentation_project_tpu_torch/csrc/pool2x.cu",
+                      "multimodal_segmentation_project_tpu/ops/pool.py:65"),
+    "max_pool2x_cf_bwd": ("multimodal_segmentation_project_tpu_torch/csrc/pool2x.cu",
+                          "multimodal_segmentation_project_tpu/ops/pool.py:145"),
+    "upconv2x_cf": ("multimodal_segmentation_project_tpu_torch/csrc/upconv_d2s.cu",
+                    "multimodal_segmentation_project_tpu/ops/upconv.py:69"),
+    "head1x1_cf": ("multimodal_segmentation_project_tpu_torch/csrc/head1x1.cu",
+                   "multimodal_segmentation_project_tpu/ops/head.py:39"),
+    "head1x1_cf_dx": ("multimodal_segmentation_project_tpu_torch/csrc/head1x1.cu",
+                      "multimodal_segmentation_project_tpu/ops/head.py:39"),
 }
-# conv/upconv: the kernel and the plain version round once, at the same
-# point, from fp32 sums taken in different orders, so they may differ by
-# one bf16 ulp; 2**-7 * max|plain| bounds one ulp at the largest output.
-BF16_ONE_ULP = 2.0**-7
+# conv/upconv/head-dx: the kernel and the plain version round to bf16 once,
+# at the same point, from fp32 sums taken in different orders, so an output
+# may differ by one bf16 ulp of its value. The training conv rounds twice,
+# the conv's cast and then the bias added in bf16: the cast may differ by
+# one ulp of the conv's value and the sum by one more of its own. Both are
+# checked element by element (_elementwise_ok), with a floor for fp32
+# sum-order noise near zero.
+BF16_ONE_ULP = "1 bf16 ulp"
+BF16_TWO_ROUNDINGS = "1 bf16 ulp of the conv + 1 of the output"
+ELEMENTWISE = (BF16_ONE_ULP, BF16_TWO_ROUNDINGS)
 HEAD_TOL = 1e-5  # fp32 logits: sum order only, scaled by max|plain|
+DW_TOL = 1e-3    # fp32 sums of up to 7.1M bf16 products in another order
 
 
 class SmokeFailure(RuntimeError):
@@ -141,35 +177,81 @@ def _time_ms(fn, inputs) -> float:
     return statistics.median(times)
 
 
-def _errors(label: str, kern, plain, inputs, tol: float):
+def _bf16_ulp(t):
+    """The bf16 ulp of each element's magnitude (8 significant bits)."""
+    import torch
+
+    m = t.float().abs()
+    _, exp = torch.frexp(m)  # m = mantissa * 2**exp, mantissa in [0.5, 1)
+    return torch.where(m > 0, torch.ldexp(torch.ones_like(m), exp - 8), 0.0)
+
+
+def _elementwise_ok(tol, got, want, args) -> bool:
+    """Every element within its allowance under ``tol`` (a key of
+    ELEMENTWISE), plus 2**-16 * max|want| for an fp32 sum-order difference
+    on a value near zero (where the sum cancels, the ulp of the result is
+    far below the rounding error of its summands). The allowance is one
+    ulp of the larger of the two values, and for the training conv one
+    more of its fp32 conv before the cast and the bias (x, w = args)."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.ops import conv3
+
+    allowed = _bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+    if tol == BF16_TWO_ROUNDINGS:
+        c = conv3.conv_fp32(args[0], args[1])
+        allowed += _bf16_ulp(torch.maximum(c.abs(), c.to(torch.bfloat16).float().abs()))
+    floor = 2.0**-16 * want.float().abs().max()
+    return bool(((got.float() - want.float()).abs() <= allowed + floor).all())
+
+
+def _errors(label: str, kern, plain, inputs, tol):
     """(max abs error, max error scaled by max|plain|, within tolerance) of
-    the kernel against its plain version over ``inputs``; tol 0 means exact."""
+    the kernel against its plain version over ``inputs``. ``tol`` is a key
+    of ELEMENTWISE (each element within its bf16 allowance), 0 (exact) or
+    a bound on the scaled error."""
     import torch
 
     err = rel = 0.0
+    ok = True
     for args in inputs:
         got, want = kern(*args), plain(*args)
         torch.cuda.synchronize()
         fail_unless(got.shape == want.shape and got.dtype == want.dtype,
                     f"{label}: {tuple(got.shape)}/{got.dtype} vs "
                     f"{tuple(want.shape)}/{want.dtype}")
+        fail_unless(bool(torch.isfinite(want).all()), f"{label}: non-finite plain result")
         e = (got.float() - want.float()).abs().max().item()
         err = max(err, e)
         rel = max(rel, e / max(want.float().abs().max().item(), 1e-30))
-    return err, rel, (rel <= tol if tol > 0 else err == 0.0)
+        if tol in ELEMENTWISE:
+            ok = ok and _elementwise_ok(tol, got, want, args)
+    if tol == 0.0:
+        ok = err == 0.0
+    elif tol not in ELEMENTWISE:
+        ok = rel <= tol
+    return err, rel, ok
+
+
+def _tol_label(tol) -> str:
+    if tol in ELEMENTWISE:
+        return f"each element within {tol}"
+    return "== 0 (exact)" if tol == 0.0 else f"<= {tol:.3g} scaled"
 
 
 def _count(shapes) -> list:
-    """Unique shapes in first-seen order, each with its launches per forward."""
+    """Unique shapes in first-seen order, each with its launches per pass."""
     out: dict = {}
     for shape in shapes:
         out[shape] = out.get(shape, 0) + 1
     return list(out.items())
 
 
-def phase_kernels() -> dict:
-    """Each kernel vs its plain version at every slice shape."""
+def _kernel_plan():
+    """name -> (kernel, plain, library call, inputs(shape), shapes, tolerance,
+    work(shape) = (bytes, FLOPs, peak FLOP/s), library label)."""
     import torch
+    import torch.nn.functional as F
 
     from multimodal_segmentation_project_tpu_torch.ops import conv3, head, pool, upconv
 
@@ -179,13 +261,32 @@ def phase_kernels() -> dict:
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
+    def conv_w(cin, cout):
+        return randn(3, 3, 3, cin, cout, scale=(2.0 / (27 * cin)) ** 0.5, dtype=torch.float32)
+
     def conv_inputs(cin, cout, s):
-        w = randn(3, 3, 3, cin, cout, scale=(2.0 / (27 * cin)) ** 0.5, dtype=torch.float32)
-        b = randn(cout, scale=0.1, dtype=torch.float32)
+        w, b = conv_w(cin, cout), randn(cout, scale=0.1, dtype=torch.float32)
         return [(randn(1, cin, s, s, s), w, b) for _ in range(N_TIMED)]
+
+    def dx_inputs(gc, xc, s):  # cotangent channels (the conv's Cout), dx channels
+        w = conv_w(xc, gc)
+        return [(randn(1, gc, s, s, s), w) for _ in range(N_TIMED)]
+
+    def dw_inputs(cin, cout, s):
+        return [(randn(1, cin, s, s, s), randn(1, cout, s, s, s, scale=1e-2))
+                for _ in range(N_TIMED)]
 
     def pool_inputs(c, s):
         return [(randn(1, c, s, s, s),) for _ in range(N_TIMED)]
+
+    def pool_bwd_inputs(c, s):
+        """Inputs rounded to integers in [-4, 4]: most windows hold tied maxima."""
+        out = []
+        for _ in range(N_TIMED):
+            x = (randn(1, c, s, s, s, scale=2.0, dtype=torch.float32).round()
+                 .clamp(-4, 4).to(torch.bfloat16))
+            out.append((x, pool.max_pool2x_cf(x), randn(1, c, s // 2, s // 2, s // 2)))
+        return out
 
     def upconv_inputs(cin, cout, s):
         k = randn(2, 2, 2, cin, cout, scale=(1.0 / cin) ** 0.5, dtype=torch.float32)
@@ -197,60 +298,167 @@ def phase_kernels() -> dict:
         b = randn(co, scale=0.1, dtype=torch.float32)
         return [(randn(1, cin, s, s, s), k, b) for _ in range(N_TIMED)]
 
-    plan = {
+    def head_dx_inputs(co, cin, s):
+        k = randn(cin, co, scale=(1.0 / cin) ** 0.5, dtype=torch.float32)
+        return [(randn(1, co, s, s, s, scale=1e-3, dtype=torch.float32), k)
+                for _ in range(N_TIMED)]
+
+    # library calls: one PyTorch call computing the same function, bf16
+    def lib_conv(x, w, b):
+        return F.conv3d(x, w.permute(4, 3, 0, 1, 2).to(x.dtype), b.to(x.dtype), padding=1)
+
+    def lib_dx(g, w):
+        return F.conv3d(g, conv3.flip_transpose(w).permute(4, 3, 0, 1, 2).to(g.dtype),
+                        padding=1)
+
+    def lib_dw(x, g):
+        return torch.nn.grad.conv3d_weight(x, (g.shape[1], x.shape[1], 3, 3, 3), g, padding=1)
+
+    def lib_pool_bwd(x, y, g):
+        _, idx = F.max_pool3d(x, 2, 2, return_indices=True)
+        return torch.ops.aten.max_pool3d_with_indices_backward(
+            g, x, [2, 2, 2], [2, 2, 2], [0, 0, 0], [1, 1, 1], False, idx)
+
+    def lib_upconv(x, k, b):
+        return F.conv_transpose3d(x, k.permute(3, 4, 0, 1, 2).to(x.dtype), b.to(x.dtype),
+                                  stride=2)
+
+    def lib_head(x, k, b):
+        return F.conv3d(x, k.t()[:, :, None, None, None].to(x.dtype), b.to(x.dtype))
+
+    def lib_head_dx(ct, k):
+        return F.conv3d(ct, k[:, :, None, None, None])
+
+    no_grad = torch.no_grad()
+
+    def ng(fn):
+        def call(*a):
+            with no_grad:
+                return fn(*a)
+        return call
+
+    def v(s):
+        return float(s) ** 3
+
+    # each input read once, each output written once; FLOPs of the function
+    def conv_work(cin, cout, s):  # x and out bf16, w fp32; also dx and dW
+        nbytes = 2 * v(s) * (cin + cout) + 27 * cin * cout * 4
+        return nbytes, 2 * 27 * cin * cout * v(s), BF16_FLOPS
+
+    def pool_work(c, s):
+        return 2 * c * v(s) * (1 + 1 / 8), 0.0, BF16_FLOPS
+
+    def pool_bwd_work(c, s):  # x, y, g read, dx written
+        return 2 * c * v(s) * (2 + 2 / 8), 0.0, BF16_FLOPS
+
+    def upconv_work(cin, cout, s):
+        return 2 * v(s) * (cin + 8 * cout), 2 * 8 * cin * cout * v(s), BF16_FLOPS
+
+    def head_work(cin, co, s):  # bf16 in, fp32 out, fp32 FMAs
+        return v(s) * (2 * cin + 4 * co), 2 * cin * co * v(s), FP32_FLOPS
+
+    def head_dx_work(co, cin, s):  # fp32 in, bf16 out
+        return v(s) * (4 * co + 2 * cin), 2 * cin * co * v(s), FP32_FLOPS
+
+    return {
         "conv3x3x3_cf_relu": (conv3.conv3x3x3_cf_relu, conv3.conv3x3x3_cf_relu_reference,
-                              conv_inputs, CONV_SHAPES, BF16_ONE_ULP),
-        "max_pool2x_cf": (pool.max_pool2x_cf, pool.max_pool2x_cf_reference,
-                          pool_inputs, POOL_SHAPES, 0.0),
-        "upconv2x_cf": (upconv.upconv2x_cf, upconv.upconv2x_cf_reference,
-                        upconv_inputs, UPCONV_SHAPES, BF16_ONE_ULP),
-        "head1x1_cf": (head.head1x1_cf, head.head1x1_cf_reference,
-                       head_inputs, HEAD_SHAPES, HEAD_TOL),
-    }
+                              lib_conv, conv_inputs, CONV_SHAPES, BF16_ONE_ULP, conv_work,
+                              "F.conv3d bf16 (no ReLU)"),
+        "conv3x3x3_cf": (ng(conv3.conv3x3x3_cf), conv3.conv3x3x3_cf_reference, lib_conv,
+                         conv_inputs, CONV_SHAPES, BF16_TWO_ROUNDINGS, conv_work,
+                         "F.conv3d bf16"),
+        "conv3x3x3_cf_dx": (conv3.conv3x3x3_cf_dx, conv3.conv3x3x3_cf_dx_reference, lib_dx,
+                            dx_inputs, DX_SHAPES, BF16_ONE_ULP, conv_work, "F.conv3d bf16"),
+        "conv3x3x3_cf_dw": (conv3.conv3x3x3_cf_dw, conv3.conv3x3x3_cf_dw_reference, lib_dw,
+                            dw_inputs, CONV_SHAPES, DW_TOL, conv_work,
+                            "torch.nn.grad.conv3d_weight bf16"),
+        "max_pool2x_cf": (ng(pool.max_pool2x_cf), pool.max_pool2x_cf_reference,
+                          lambda x: F.max_pool3d(x, 2, 2), pool_inputs, POOL_SHAPES, 0.0,
+                          pool_work, "F.max_pool3d bf16"),
+        "max_pool2x_cf_bwd": (pool.max_pool2x_cf_bwd, pool.max_pool2x_cf_bwd_reference,
+                              lib_pool_bwd, pool_bwd_inputs, POOL_SHAPES, 0.0, pool_bwd_work,
+                              "F.max_pool3d backward bf16 (first-match ties, not the same "
+                              "function)"),
+        "upconv2x_cf": (ng(upconv.upconv2x_cf), upconv.upconv2x_cf_reference, lib_upconv,
+                        upconv_inputs, UPCONV_SHAPES, BF16_ONE_ULP, upconv_work,
+                        "F.conv_transpose3d bf16"),
+        "head1x1_cf": (ng(head.head1x1_cf), head.head1x1_cf_reference, lib_head, head_inputs,
+                       HEAD_SHAPES, HEAD_TOL, head_work, "1x1x1 F.conv3d bf16"),
+        "head1x1_cf_dx": (lambda ct, k: head.head1x1_cf_dx(ct, k, torch.bfloat16),
+                          lambda ct, k: head.head1x1_cf_dx_reference(ct, k, torch.bfloat16),
+                          lib_head_dx, head_dx_inputs, HEAD_DX_SHAPES, BF16_ONE_ULP,
+                          head_dx_work, "1x1x1 F.conv3d fp32"),
+    }, randn
+
+
+def phase_kernels() -> dict:
+    """Each kernel vs its plain version at every slice shape."""
+    import torch
+
+    plan, randn = _kernel_plan()
     results = {}
-    for name, (kern, plain, make, shapes, tol) in plan.items():
-        tot_ms = tot_plain = max_abs = 0.0
+    for name, (kern, plain, lib, make, shapes, tol, work, lib_label) in plan.items():
+        tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms"), 0.0)
+        max_abs = bytes_ms = ops_ms = 0.0
         for shape, mult in _count(shapes):
             inputs = make(*shape)
             err, rel, ok = _errors(f"{name} {shape}", kern, plain, inputs, tol)
             ms = _time_ms(kern, inputs)
             plain_ms = _time_ms(plain, inputs)
-            tol_s = f"<= {tol:.3g} scaled" if tol > 0 else "== 0 (exact)"
-            print(f"[kernel] {name} {shape} x{mult}/forward: max_abs_err {err:.4g} "
-                  f"scaled {rel:.4g} {tol_s} {'ok' if ok else 'FAIL'} | "
-                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms", flush=True)
+            lib_ms = _time_ms(lib, inputs)
+            nbytes, flops, peak = work(*shape)
+            b_ms = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+            bytes_ms += mult * nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms += mult * flops / peak * 1e3
+            print(f"[kernel] {name} {shape} x{mult}: max_abs_err {err:.4g} scaled {rel:.4g}, "
+                  f"{_tol_label(tol)}: {'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms, library {lib_ms:.4f} ms "
+                  f"({lib_label})", flush=True)
             fail_unless(ok, f"{name} {shape}: error {err} (scaled {rel}) over tolerance")
             max_abs = max(max_abs, err)
-            tot_ms += mult * ms
-            tot_plain += mult * plain_ms
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                             ("library_ms", lib_ms)):
+                tot[key] += mult * val
             del inputs
             torch.cuda.empty_cache()
-        results[name] = {"max_abs_err": max_abs, "ms": tot_ms, "plain_ms": tot_plain}
-        print(f"[kernel] {name}: summed over one 192^3 forward: kernel {tot_ms:.4f} ms, "
-              f"plain {tot_plain:.4f} ms", flush=True)
+        results[name] = {"max_abs_err": max_abs, **tot,
+                         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        print(f"[kernel] {name}: summed over one pass (eval forward or train step): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()), flush=True)
 
     # ragged shapes the slice does not reach: batch 2, odd extents, partial
     # channel chunks and channel groups; correctness only
+    f32 = torch.float32
+    x_odd = (randn(2, 3, 5, 7, 9, scale=2.0, dtype=f32).round().to(torch.bfloat16))
     edges = [
-        ("conv3x3x3_cf_relu", (randn(2, 3, 5, 7, 37),
-                               randn(3, 3, 3, 3, 8, scale=0.2, dtype=torch.float32),
-                               randn(8, scale=0.1, dtype=torch.float32))),
-        ("conv3x3x3_cf_relu", (randn(1, 40, 3, 9, 20),
-                               randn(3, 3, 3, 40, 20, scale=0.05, dtype=torch.float32),
-                               randn(20, scale=0.1, dtype=torch.float32))),
+        ("conv3x3x3_cf_relu", (randn(2, 3, 5, 7, 37), randn(3, 3, 3, 3, 8, scale=0.2, dtype=f32),
+                               randn(8, scale=0.1, dtype=f32))),
+        ("conv3x3x3_cf", (randn(1, 40, 3, 9, 20), randn(3, 3, 3, 40, 20, scale=0.05, dtype=f32),
+                          randn(20, scale=0.1, dtype=f32))),
+        ("conv3x3x3_cf_dx", (randn(2, 20, 3, 9, 37), randn(3, 3, 3, 40, 20, scale=0.05,
+                                                           dtype=f32))),
+        ("conv3x3x3_cf_dw", (randn(2, 40, 3, 9, 37), randn(2, 20, 3, 9, 37))),
         ("max_pool2x_cf", (randn(2, 3, 5, 7, 9),)),
-        ("upconv2x_cf", (randn(2, 70, 3, 5, 7),
-                         randn(2, 2, 2, 70, 20, scale=0.1, dtype=torch.float32),
-                         randn(20, scale=0.1, dtype=torch.float32))),
-        ("head1x1_cf", (randn(2, 5, 3, 5, 7), randn(5, 3, dtype=torch.float32),
-                        randn(3, dtype=torch.float32))),
+        ("max_pool2x_cf_bwd", (x_odd, plan["max_pool2x_cf"][1](x_odd), randn(2, 3, 2, 3, 4))),
+        ("upconv2x_cf", (randn(2, 70, 3, 5, 7), randn(2, 2, 2, 70, 20, scale=0.1, dtype=f32),
+                         randn(20, scale=0.1, dtype=f32))),
+        ("head1x1_cf", (randn(2, 5, 3, 5, 7), randn(5, 3, dtype=f32), randn(3, dtype=f32))),
+        ("head1x1_cf_dx", (randn(2, 3, 3, 5, 7, dtype=f32), randn(40, 3, dtype=f32))),
     ]
     for name, args in edges:
-        kern, plain, _, _, tol = plan[name]
+        kern, plain, *_, tol, _, _ = plan[name]
         label = f"{name} edge input {tuple(args[0].shape)}"
         err, rel, ok = _errors(label, kern, plain, [args], tol)
         print(f"[kernel] {label}: scaled err {rel:.4g} {'ok' if ok else 'FAIL'}", flush=True)
         fail_unless(ok, f"{label}: error {err} over tolerance")
+
+    # dW sums per-block partials in a fixed order: the same bits every run
+    dw = plan["conv3x3x3_cf_dw"][0]
+    x, g = randn(1, 32, 192, 192, 192), randn(1, 16, 192, 192, 192, scale=1e-2)
+    same = torch.equal(dw(x, g), dw(x, g))
+    print(f"[kernel] conv3x3x3_cf_dw (32, 16, 192) run twice on the same inputs: "
+          f"{'the same bits' if same else 'DIFFERENT bits'}", flush=True)
+    fail_unless(same, "conv3x3x3_cf_dw is not deterministic")
     return results
 
 
@@ -284,7 +492,16 @@ def write_case(path_img: Path, path_lbl: Path, size: int, seed: int) -> None:
     save_nifti(lbl.astype(np.int16), str(path_lbl), affine=affine)
 
 
-def make_model(dtype, seed: int = SEED):
+def write_split(root: Path, split: str, n: int, size: int, seed: int) -> None:
+    case_dir = root / split / "synth_ct"
+    (case_dir / "images").mkdir(parents=True)
+    (case_dir / "labels").mkdir(parents=True)
+    for i in range(n):
+        write_case(case_dir / "images" / f"case{i:02d}.nii",
+                   case_dir / "labels" / f"case{i:02d}.nii", size, seed=seed + i)
+
+
+def make_model(dtype, seed: int = SEED, dropout_rate: float = 0.0):
     """Default-width UNet3D with seeded He-normal weights and seeded,
     non-trivial eval BatchNorm statistics (so the fold is exercised)."""
     import torch
@@ -293,7 +510,7 @@ def make_model(dtype, seed: int = SEED):
 
     gen = torch.Generator().manual_seed(seed)
     model = UNet3D(in_channels=1, out_channels=4, features=(16, 32, 64, 128),
-                   dropout_rate=0.0, dtype=dtype, generator=gen)
+                   dropout_rate=dropout_rate, dtype=dtype, generator=gen)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, torch.nn.BatchNorm3d):
@@ -305,47 +522,15 @@ def make_model(dtype, seed: int = SEED):
     return model.eval()
 
 
-def phase_slice(n_cases: int = 2, size: int = 192) -> dict:
-    """The port's eval CLI on the GPU; checks its artifacts and returns the
-    kernel launch counts of its run."""
+def _check_eval_results(exp: Path, model_name: str, n_cases: int, size: int) -> list:
+    """The eval CLI's artifacts under ``exp``; returns its per-volume times."""
     import csv
 
     import numpy as np
-    import torch
 
-    from multimodal_segmentation_project_tpu_torch import ops
     from multimodal_segmentation_project_tpu_torch.data import load_nifti
-    from multimodal_segmentation_project_tpu_torch.engine.checkpoint import save_pth
-    from multimodal_segmentation_project_tpu_torch.workloads import test_model
 
-    shutil.rmtree(SCRATCH, ignore_errors=True)
-    case_dir = SCRATCH / "data" / "test" / "synth_ct"
-    (case_dir / "images").mkdir(parents=True)
-    (case_dir / "labels").mkdir(parents=True)
-    t0 = time.perf_counter()
-    for i in range(n_cases):
-        write_case(case_dir / "images" / f"case{i:02d}.nii",
-                   case_dir / "labels" / f"case{i:02d}.nii", size, seed=SEED + i)
-    pth = save_pth(str(SCRATCH / "unet3d_seed0.pth"), make_model(torch.bfloat16))
-    print(f"[slice] wrote {n_cases} synthetic {size}^3 CT cases and {Path(pth).name} "
-          f"in {time.perf_counter() - t0:.2f} s", flush=True)
-
-    exp = SCRATCH / "exp"
-    args = test_model.build_parser().parse_args([
-        "--model_path", pth, "--data_root", str(SCRATCH / "data"),
-        "--experiment_dir", str(exp), "--model_name", "smoke", "--no_visualizations",
-    ])
-    ops.reset_launch_counts()
-    test_model.main(args)
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    n_forwards = 1 + n_cases  # the untimed warm-up, then one per case (batch 1)
-    print(f"[slice] launches over {n_forwards} forwards: {counts}", flush=True)
-    for name, per in PER_FORWARD.items():
-        fail_unless(counts[name] == per * n_forwards,
-                    f"{name}: {counts[name]} launches, want {per} x {n_forwards} forwards")
-
-    (rd,) = exp.glob("test_results_smoke_*")
+    (rd,) = exp.glob(f"test_results_{model_name}_*")
     metrics = json.loads((rd / "metrics" / "metrics.json").read_text())
     for key in ("mean_dice_overall", "mean_iou_overall", "total_inference_time"):
         fail_unless(np.isfinite(metrics.get(key, np.nan)), f"metrics.json: {key} missing")
@@ -359,12 +544,52 @@ def phase_slice(n_cases: int = 2, size: int = 192) -> dict:
         fail_unless(img.data.dtype == np.uint8 and img.data.shape == (size,) * 3,
                     f"{p.name}: {img.data.dtype} {img.data.shape}")
         fail_unless(set(np.unique(img.data)) <= {0, 1, 2, 3}, f"{p.name}: labels outside 0..3")
-    per_volume = [float(r["inference_time"]) for r in rows]
-    print(f"[slice] artifacts ok in {rd.relative_to(ROOT)}: metrics.json, "
-          f"{len(rows)} CSV rows, {len(preds)} uint8 predictions | mean dice "
-          f"{metrics['mean_dice_overall']:.4f} | per-volume inference (host clock, "
-          f"H2D + forward + argmax + metrics + D2H) {[round(t, 4) for t in per_volume]} s",
+    print(f"[eval] artifacts ok in {rd.relative_to(ROOT)}: metrics.json, {len(rows)} CSV rows, "
+          f"{len(preds)} uint8 predictions | mean dice {metrics['mean_dice_overall']:.4f}",
           flush=True)
+    return [float(r["inference_time"]) for r in rows]
+
+
+def _run_eval_cli(pth: str, data: Path, exp: Path, model_name: str, n_cases: int,
+                  size: int) -> dict:
+    """The eval CLI on the GPU; checks per-forward launches and artifacts."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch import ops
+    from multimodal_segmentation_project_tpu_torch.workloads import test_model
+
+    args = test_model.build_parser().parse_args([
+        "--model_path", pth, "--data_root", str(data), "--experiment_dir", str(exp),
+        "--model_name", model_name, "--no_visualizations",
+    ])
+    ops.reset_launch_counts()
+    test_model.main(args)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    n_forwards = 1 + n_cases  # the untimed warm-up, then one per case (batch 1)
+    print(f"[eval] launches over {n_forwards} forwards: {counts}", flush=True)
+    for name, n in counts.items():
+        want = PER_FORWARD.get(name, 0) * n_forwards
+        fail_unless(n == want, f"{name}: {n} launches, want {want} over {n_forwards} forwards")
+    per_volume = _check_eval_results(exp, model_name, n_cases, size)
+    print(f"[eval] per-volume inference (host clock, H2D + forward + argmax + metrics + D2H) "
+          f"{[round(t, 4) for t in per_volume]} s", flush=True)
+    return counts
+
+
+def phase_slice(n_cases: int = 2, size: int = 192) -> dict:
+    """The port's eval CLI on the GPU with a seeded, BN-folded model."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.engine.checkpoint import save_pth
+
+    data = SCRATCH / "eval_data"
+    t0 = time.perf_counter()
+    write_split(data, "test", n_cases, size, SEED)
+    pth = save_pth(str(SCRATCH / "unet3d_seed0.pth"), make_model(torch.bfloat16))
+    print(f"[slice] wrote {n_cases} synthetic {size}^3 CT cases and {Path(pth).name} "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    counts = _run_eval_cli(pth, data, SCRATCH / "eval_exp", "smoke", n_cases, size)
 
     # the forward alone, device-resident input, CUDA events, distinct inputs
     model = make_model(torch.bfloat16).cuda()
@@ -391,16 +616,24 @@ PARITY_LOGIT_TOL = 0.05   # max |gpu - cpu| / max |cpu|
 PARITY_ARGMAX_MIN = 0.98  # share of voxels with the same class
 
 
-def phase_parity() -> None:
+def _parity_case(seed: int, s: int):
     import numpy as np
     import torch
 
     from multimodal_segmentation_project_tpu_torch.data import load_nifti, preprocess_ct
 
+    img_p, lbl_p = SCRATCH / f"parity_img{seed}.nii", SCRATCH / f"parity_lbl{seed}.nii"
+    write_case(img_p, lbl_p, s, seed=seed)
+    img = preprocess_ct(load_nifti(str(img_p)).data.astype(np.float32))
+    lbl = load_nifti(str(lbl_p)).data.astype(np.int32)
+    return torch.from_numpy(img)[None, None], torch.from_numpy(lbl)[None]
+
+
+def phase_parity() -> None:
+    import torch
+
     s = PARITY_SIZE
-    write_case(SCRATCH / "parity_img.nii", SCRATCH / "parity_lbl.nii", s, seed=SEED + 100)
-    img = preprocess_ct(load_nifti(str(SCRATCH / "parity_img.nii")).data.astype(np.float32))
-    x = torch.from_numpy(img)[None, None]
+    x, _ = _parity_case(SEED + 100, s)
     with torch.inference_mode():
         want = make_model(torch.float32)(x)
         got = make_model(torch.bfloat16).cuda()(x.cuda()).cpu()
@@ -415,27 +648,304 @@ def phase_parity() -> None:
     fail_unless(ok, "slice parity over tolerance")
 
 
+TRAIN_SPLITS = {"train": 2, "val": 1, "test": 1}
+TRAIN_EPOCHS = 2
+N_STEPS_TIMED = 6
+N_STEPS_PROFILED = 3
+
+
+def _kernel_category(name: str) -> str:
+    """Device-time category of a kernel in the profiler trace."""
+    for key, cat in (("conv3_dw", "conv3_dw (dW kernel)"),
+                     ("conv3_kernel", "conv3 (forward and dx kernel)"),
+                     ("pool2x_bwd", "pool2x_bwd kernel"), ("pool2x", "pool2x kernel"),
+                     ("upconv_d2s", "upconv_d2s kernel"), ("head1x1", "head1x1 kernels"),
+                     ("Memcpy", "memcpy / memset"), ("Memset", "memcpy / memset")):
+        if key in name:
+            return cat
+    low = name.lower()
+    if any(k in low for k in ("cudnn", "xmma", "conv", "implicit", "wgrad", "dgrad")):
+        return "cuDNN (deep region convs and their layout kernels)"
+    if any(k in low for k in ("gemm", "cutlass", "sm90")):
+        return "matmul (upconv backward)"
+    if "reduce" in low:
+        return "reductions (BatchNorm, losses, metrics)"
+    if "cat" in low:
+        return "torch.cat (skip concat)"
+    return "elementwise and other torch kernels"
+
+
+def _profile_steps(step, state, inputs) -> None:
+    """Device time of a few train steps by kernel category, and the device's
+    idle share over the window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for images, labels, gen in inputs:
+            step(state, images, labels, gen)
+        torch.cuda.synchronize()
+    spans, cats = [], {}
+    for evt in prof.events():
+        if "cuda" not in str(getattr(evt, "device_type", "")).lower():
+            continue
+        start, end = evt.time_range.start, evt.time_range.end
+        if end <= start:
+            continue
+        spans.append((start, end))
+        cat = _kernel_category(evt.name)
+        n, t = cats.get(cat, (0, 0.0))
+        cats[cat] = (n + 1, t + (end - start))
+    fail_unless(bool(spans), "the profiler recorded no device time")
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    n = len(inputs)
+    total = sum(t for _, t in cats.values())
+    for cat, (cnt, t) in sorted(cats.items(), key=lambda kv: -kv[1][1]):
+        print(f"[profile] {cat}: {t / n / 1e3:.3f} ms/step ({t / total * 100:.1f} %), "
+              f"{cnt / n:.0f} launches/step", flush=True)
+    print(f"[profile] {n} steps: device busy {busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms "
+          f"window, idle share {1 - busy / window:.4f}; summed kernel time "
+          f"{total / n / 1e3:.3f} ms/step", flush=True)
+
+
+def phase_train(size: int = 192) -> dict:
+    """The port's train CLI at full width on the GPU, then the step alone.
+    The CLI runs run_training.sh's recipe (batch 1, lr 1e-3, wd 1e-4,
+    bf16, ce_tversky, early stopping) with gradient accumulation 2, not 8,
+    so that its four steps apply two AdamW updates."""
+    import csv
+
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch import ops
+    from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
+    from multimodal_segmentation_project_tpu_torch.engine.steps import make_train_step
+    from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
+    from multimodal_segmentation_project_tpu_torch.workloads import train_unet
+
+    data, exp = SCRATCH / "train_data", SCRATCH / "train_exp"
+    t0 = time.perf_counter()
+    for i, (split, n) in enumerate(TRAIN_SPLITS.items()):
+        write_split(data, split, n, size, SEED + 10 * (i + 1))
+    print(f"[train] wrote {TRAIN_SPLITS} synthetic {size}^3 CT cases in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    args = train_unet.build_parser().parse_args([
+        "--data_root", str(data), "--experiment_dir", str(exp), "--batch_size", "1",
+        "--epochs", str(TRAIN_EPOCHS), "--lr", "1e-3", "--weight_decay", "1e-4",
+        "--gradient_accumulation_steps", "2", "--mixed_precision", "bf16",
+        "--loss", "ce_tversky", "--early_stopping", "--patience", "10", "--seed", "42",
+    ])
+    args.experiment_name = "smoke_train"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    train_unet.main(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    steps = TRAIN_SPLITS["train"] * TRAIN_EPOCHS
+    evals = TRAIN_SPLITS["val"] * TRAIN_EPOCHS
+    print(f"[train] CLI: {TRAIN_EPOCHS} epochs, {steps} steps and {evals} validation forwards "
+          f"in {secs:.2f} s; launches {counts}", flush=True)
+    for name, n in counts.items():
+        want = PER_STEP.get(name, 0) * steps + PER_FORWARD.get(name, 0) * evals
+        fail_unless(n == want, f"{name}: {n} launches, want {want} ({PER_STEP.get(name, 0)}"
+                               f"/step, {PER_FORWARD.get(name, 0)}/forward)")
+    with open(exp / "smoke_train" / "logs" / "train_log.csv") as f:
+        rows = list(csv.DictReader(f))
+    fail_unless(len(rows) == TRAIN_EPOCHS, f"train_log.csv has {len(rows)} rows")
+    for r in rows:
+        for key in ("train_loss", "val_loss", "train_dice", "val_dice"):
+            fail_unless(math.isfinite(float(r[key])), f"epoch {r['epoch']}: {key} {r[key]}")
+    print("[train] epochs (loss, dice): " + "; ".join(
+        f"{r['epoch']}: train {float(r['train_loss']):.4f}/{float(r['train_dice']):.4f} "
+        f"val {float(r['val_loss']):.4f}/{float(r['val_dice']):.4f}" for r in rows), flush=True)
+    best = exp / "smoke_train" / "checkpoints" / "best_model_smoke_train.pth"
+    fail_unless(best.exists(), f"no best checkpoint at {best}")
+    _run_eval_cli(str(best), data, SCRATCH / "train_eval_exp", "smoke_trained",
+                  TRAIN_SPLITS["test"], size)
+
+    # the step alone: distinct device-resident inputs, as the CLI runs it
+    model = make_model(torch.bfloat16, dropout_rate=0.1).cuda()
+    state = TrainState(model, 1e-3, 1e-4)
+    step = make_train_step(get_loss_fn("ce_tversky"), augment=True, nan_guard=True)
+    dgen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def batch(i):
+        images = torch.rand(1, 1, size, size, size, generator=dgen, device="cuda")
+        labels = torch.randint(0, 4, (1, size, size, size), generator=dgen, device="cuda",
+                               dtype=torch.int32)
+        return images, labels, torch.Generator().manual_seed(i)
+
+    for i in range(2):  # warm-up: cuDNN's algorithm choice, allocator growth
+        step(state, *batch(i))
+    times = []
+    for i in range(N_STEPS_TIMED):
+        images, labels, gen = batch(100 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, images, labels, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        fail_unless(math.isfinite(float(metrics["loss"])), f"timed step {i}: non-finite loss")
+    torch.cuda.reset_peak_memory_stats()
+    step(state, *batch(200))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(times)
+    print(f"[train] step at {size}^3, batch 1, bf16, ce_tversky, augmentation on: median "
+          f"{med:.3f} ms over {N_STEPS_TIMED} distinct inputs (host clock around "
+          f"synchronize; all {[round(t, 3) for t in times]}) | peak allocated {peak:.2f} GiB",
+          flush=True)
+    _profile_steps(step, state, [batch(300 + i) for i in range(N_STEPS_PROFILED)])
+    return counts
+
+
+# train parity: one step at 128^3, full width, dropout 0, augmentation off,
+# from the same weights, three ways: CPU fp32 plain (the function), CPU bf16
+# plain (the bf16 emulation: the port's plain path, which rounds to bf16
+# where the kernels round) and the GPU's bf16 kernels. bf16 leaves the deep
+# levels' gradients far from fp32: the cotangent is rounded to bf16 before
+# each train-mode BatchNorm's backward subtracts its mean and projection,
+# which cancel most of it, level after level. In CPU runs of the emulation
+# against fp32 on this phase's inputs, the norm-relative gradient error was
+# 0.001-0.03 at the first level and 0.37-0.51 at the two deepest, at 64^3
+# and at 128^3 alike; the same amplification moves the GPU off the
+# emulation by about half as much, since its fp32 sums run in another
+# order (0.23 at most at the bottleneck, on the H100). So each gradient is
+# held to two bounds, both from the emulation's own error e there:
+# - GPU vs fp32: <= 2e + 0.02 (the function, as far as bf16 allows);
+# - GPU vs the emulation: <= min(e + 0.02, 0.3) (a missing or garbled
+#   gradient, deep ones included: a zeroed one is 1.0 off);
+# and the loss, scaled, GPU vs fp32. A conv bias that feeds a BatchNorm
+# (true gradient 0) is held by its gradient norm against its weight's.
+# Controls zero and halve two deep gradients on the GPU side, the C = 128
+# level's conv (behind the deep pool's backward) and the first upconv; the
+# check must refuse each.
+TRAIN_PARITY_SIZE = 128
+TRAIN_LOSS_TOL = 0.01        # |gpu - cpu| / |cpu|
+TRAIN_GRAD_FACTOR, TRAIN_GRAD_FLOOR, TRAIN_GRAD_EMU_CAP = 2.0, 0.02, 0.3
+TRAIN_BN_BIAS_RATIO = 0.01   # ||db|| / ||dW|| of a conv that feeds a BatchNorm
+TRAIN_CONTROLS = ("encoder.3.double_conv.0.weight", "upconvs.0.weight")
+
+
+def bn_fed_bias(name: str) -> bool:
+    """Conv biases followed by a train-mode BatchNorm: their true gradient is 0."""
+    return name.endswith(("double_conv.0.bias", "double_conv.4.bias"))
+
+
+def train_grads(model, x, y):
+    """(loss, {param name: gradient}) of one train-mode ce_tversky step."""
+    from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = get_loss_fn("ce_tversky")(model(x), y)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+
+
+def grad_rel(got: dict, want: dict) -> dict:
+    """Norm-relative error of each gradient but the BN-fed biases'."""
+    return {n: float((got[n] - w).norm() / w.norm()) for n, w in want.items()
+            if not bn_fed_bias(n)}
+
+
+def grad_failures(rel_fp32: dict, rel_emu: dict, bounds: tuple) -> list:
+    """The gradients over either bound."""
+    b_fp32, b_emu = bounds
+    return [n for n in rel_fp32 if rel_fp32[n] > b_fp32[n] or rel_emu[n] > b_emu[n]]
+
+
+def phase_train_parity() -> None:
+    import torch
+
+    s = TRAIN_PARITY_SIZE
+    x, y = _parity_case(SEED + 200, s)
+    cpu = make_model(torch.float32)
+    emu, gpu = make_model(torch.bfloat16), make_model(torch.bfloat16)
+    emu.load_state_dict(cpu.state_dict())
+    gpu.load_state_dict(cpu.state_dict())
+    loss_w, want = train_grads(cpu, x, y)
+    loss_e, emul = train_grads(emu, x, y)
+    loss_g, got = train_grads(gpu.cuda(), x.cuda(), y.cuda())
+    fail_unless(math.isfinite(loss_g), "non-finite loss on the GPU")
+    loss_err = abs(loss_g - loss_w) / abs(loss_w)
+    rel_e, rel_g, rel_ge = grad_rel(emul, want), grad_rel(got, want), grad_rel(got, emul)
+    bounds = ({n: TRAIN_GRAD_FACTOR * e + TRAIN_GRAD_FLOOR for n, e in rel_e.items()},
+              {n: min(e + TRAIN_GRAD_FLOOR, TRAIN_GRAD_EMU_CAP) for n, e in rel_e.items()})
+    ratio = {n: float(g.norm() / got[n[: -len("bias")] + "weight"].norm())
+             for n, g in got.items() if bn_fed_bias(n)}
+    levels: dict = {}  # encoder.0, ..., bottleneck, upconvs.0, ..., final_conv
+    for n in rel_g:
+        level = n.split(".double_conv")[0] if ".double_conv" in n else n.rsplit(".", 1)[0]
+        levels.setdefault(level, []).append(n)
+    for level, names in levels.items():
+        print(f"[train-parity] {level}: largest norm-relative gradient error, GPU vs fp32 "
+              f"{max(rel_g[n] for n in names):.4g}, emulation vs fp32 "
+              f"{max(rel_e[n] for n in names):.4g}, GPU vs emulation "
+              f"{max(rel_ge[n] for n in names):.4g}", flush=True)
+    failed = grad_failures(rel_g, rel_ge, bounds)
+    worst_b = max(ratio, key=ratio.get)
+    ok = loss_err <= TRAIN_LOSS_TOL and not failed and ratio[worst_b] <= TRAIN_BN_BIAS_RATIO
+    near = [max(rel, key=lambda n: rel[n] / b[n]) for rel, b in zip((rel_g, rel_ge), bounds)]
+    print(f"[train-parity] {s}^3 full width, one step, GPU bf16 kernels vs CPU fp32 plain: "
+          f"loss {loss_g:.6f} vs {loss_w:.6f}, scaled error {loss_err:.4g} (<= {TRAIN_LOSS_TOL}; "
+          f"emulation {abs(loss_e - loss_w) / abs(loss_w):.4g}) | gradients, nearest their "
+          f"bounds: GPU vs fp32 {near[0]} {rel_g[near[0]]:.4g} <= {bounds[0][near[0]]:.4g}, "
+          f"GPU vs emulation {near[1]} {rel_ge[near[1]]:.4g} <= {bounds[1][near[1]]:.4g}; "
+          f"over a bound: {failed or 'none'} | BN-fed bias gradient norm / weight gradient "
+          f"norm at most {ratio[worst_b]:.4g} ({worst_b}, <= {TRAIN_BN_BIAS_RATIO}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    fail_unless(ok, "train parity over tolerance")
+    for name in TRAIN_CONTROLS:  # the check must refuse a missing or garbled deep gradient
+        for how, scale in (("zeroed", 0.0), ("halved", 0.5)):
+            bad = {**got, name: got[name] * scale}
+            rel_bad = grad_rel(bad, emul)
+            refused = name in grad_failures(grad_rel(bad, want), rel_bad, bounds)
+            print(f"[train-parity] control, {name} gradient {how}: GPU vs emulation "
+                  f"{rel_bad[name]:.4g}, bound {bounds[1][name]:.4g}: "
+                  f"{'refused' if refused else 'ACCEPTED'}", flush=True)
+            fail_unless(refused, f"the parity check accepts a {how} {name} gradient")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         name, _ = phase_device()
         phase_build()
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+        SCRATCH.mkdir(parents=True)
         kernels = phase_kernels()
-        launches = phase_slice()
+        phase_slice()
         phase_parity()
+        launches = phase_train()
+        phase_train_parity()
     except Exception as e:  # every phase's failure fails the run
         import traceback
 
         traceback.print_exc()
         print(f"[FAIL] {type(e).__name__}: {e}", flush=True)
         return 1
+    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     import torch
 
+    # launches: the count of each kernel over the train CLI's run (its
+    # train steps and its validation forwards), this slice's main path
     report = {"kernels": [
         {"name": kname, "route": "cuda", "source": KERNEL_INFO[kname][0],
          "replaces": KERNEL_INFO[kname][1], "launches": launches[kname],
-         "max_abs_err": kernels[kname]["max_abs_err"], "ms": kernels[kname]["ms"],
-         "plain_ms": kernels[kname]["plain_ms"]}
-        for kname in PER_FORWARD
+         **{k: kernels[kname][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}}
+        for kname in KERNEL_INFO
     ]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,9 +1,14 @@
 // 2x2x2 stride-2 max pool on channel-first bf16 volumes, floor semantics for
 // odd extents (the trailing plane, row or column is dropped, as torch
-// MaxPool3d and the JAX reshape+max chain do).
+// MaxPool3d and the JAX reshape+max chain do), and its backward.
 //
-// Replaces: multimodal_segmentation_project_tpu/ops/pool.py _fwd_pool_kernel
-//   (public op max_pool2x_cf, forward).
+// Replaces: multimodal_segmentation_project_tpu/ops/pool.py
+//   * _fwd_pool_kernel (public op max_pool2x_cf, forward): pool2x_kernel;
+//   * _bwd_kernel (its custom-VJP backward): pool2x_bwd_kernel,
+//       dx[v] = g[v/2] * [x[v] == y[v/2]] / count(v/2),
+//     equal shares to the window's tied maxima (JAX's convention, not
+//     torch's first match), with the tie count and g / count in fp32 and
+//     one cast, as the TPU kernel computes them.
 //
 // Design: one thread per output voxel reads its 8 inputs and writes their
 // maximum; neighbouring threads take neighbouring output columns, so a warp
@@ -11,11 +16,16 @@
 // run. A max selects one of its inputs, so the result is exact. NaN wins,
 // as with jnp.maximum.
 //
-// What bounds it on an H100: device-memory bandwidth. It reads the input
-// once and writes an eighth of it; there is no arithmetic to speak of. The
-// TPU kernel's W-duplicated rows, lane rolls and 0/1 selection-matrix
-// compaction existed only for the TPU's lane layout and are not carried
-// over.
+// The backward uses one thread per pooled voxel too: it reads y and g once
+// and its 8 inputs, and writes their 8 gradients. The wrapper zero-fills dx
+// first where an extent is odd (the dropped tail gets no gradient).
+//
+// What bounds both on an H100: device-memory bandwidth. The forward reads
+// the input once and writes an eighth of it; the backward reads x and an
+// eighth of it twice (y, g) and writes x's size. There is no arithmetic to
+// speak of. The TPU kernels' W-duplicated rows, lane rolls and 0/1
+// selection-matrix compaction existed only for the TPU's lane layout and
+// are not carried over; neither is the TPU backward's W in [48, 512] gate.
 #include "common.cuh"
 
 namespace {
@@ -52,6 +62,36 @@ pool2x_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, long long BC, in
   y[i] = m;
 }
 
+__global__ void __launch_bounds__(THREADS)
+pool2x_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
+                  const bf16* __restrict__ g, bf16* __restrict__ dx, long long BC, int D, int H,
+                  int W, int Do, int Ho, int Wo) {
+  const long long n = BC * Do * Ho * Wo;
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
+  const int wo = int(i % Wo);
+  long long t = i / Wo;
+  const int ho = int(t % Ho);
+  t /= Ho;
+  const int dd = int(t % Do);
+  const long long bc = t / Do;
+  const size_t plane = size_t(H) * W;
+  const size_t base = (size_t(bc) * D + 2 * dd) * plane + size_t(2 * ho) * W + 2 * wo;
+  const size_t off[8] = {0, 1, size_t(W), size_t(W) + 1,
+                         plane, plane + 1, plane + W, plane + W + 1};
+  const float yv = __bfloat162float(y[i]);
+  float m[8];
+  float cnt = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    m[k] = __bfloat162float(x[base + off[k]]) == yv ? 1.0f : 0.0f;
+    cnt += m[k];
+  }
+  const float scale = __bfloat162float(g[i]) / cnt;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) dx[base + off[k]] = __float2bfloat16(m[k] * scale);
+}
+
 }  // namespace
 
 MMSEG_API int mmseg_pool2x(const void* x, void* y, int B, int C, int D, int H, int W,
@@ -63,5 +103,17 @@ MMSEG_API int mmseg_pool2x(const void* x, void* y, int B, int C, int D, int H, i
   pool2x_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<bf16*>(y), (long long)B * C, D, H, W, Do, Ho,
       Wo);
+  return int(cudaGetLastError());
+}
+
+MMSEG_API int mmseg_pool2x_bwd(const void* x, const void* y, const void* g, void* dx, int B,
+                               int C, int D, int H, int W, void* stream) {
+  const int Do = D / 2, Ho = H / 2, Wo = W / 2;
+  const long long n = (long long)B * C * Do * Ho * Wo;
+  if (n == 0) return int(cudaSuccess);
+  const unsigned blocks = unsigned((n + THREADS - 1) / THREADS);
+  pool2x_bwd_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(y), static_cast<const bf16*>(g),
+      static_cast<bf16*>(dx), (long long)B * C, D, H, W, Do, Ho, Wo);
   return int(cudaGetLastError());
 }

@@ -1,32 +1,46 @@
 """3D U-Net in PyTorch: the reference module layout, the JAX package's eval
-forward.
+and train-mode forwards.
 
 Port of ``multimodal_segmentation_project_tpu/models/unet3d.py:UNet3D``.
 The submodules carry the reference state-dict keys
 (``encoder.{i}.double_conv.{0,1,4,5}``, ``bottleneck``, ``upconvs.{i}``,
 ``decoder.{i}``, ``final_conv``), so a reference ``.pth`` loads with
 ``load_state_dict(strict=True)`` and ``engine.interop`` carries weights to
-and from the JAX package.
+and from the JAX package. Every op is routed by channel width alone:
 
-Eval forward (the only forward of this slice): each BatchNorm is folded
-per channel into its conv's weights and bias, in fp32, as the JAX package
-folds at ``unet3d.py:427-440``; then every op is routed by channel width
-alone:
-
-* a 3x3x3 conv with Cin, Cout <= 64 -> ``ops.conv3.conv3x3x3_cf_relu``;
-* a pool over C <= 64 channels -> ``ops.pool.max_pool2x_cf``;
+* a 3x3x3 conv with Cin, Cout <= 64 -> ``ops.conv3`` (eval:
+  ``conv3x3x3_cf_relu``, BN folded; train: ``conv3x3x3_cf``, whose
+  backward runs the dx and dW kernels);
+* every pool, at every width -> ``ops.pool.max_pool2x_cf`` (forward and
+  backward kernels);
 * an upconv with Cout <= 64 -> ``ops.upconv.upconv2x_cf``;
-* the 1x1x1 head -> ``ops.head.head1x1_cf``;
+* the 1x1x1 head -> ``ops.head.head1x1_cf`` (its backward runs the dx kernel);
 * everything wider is the deep region (enc3, the bottleneck, dec0 and
   dec1's 128->64 conv at the default widths), which runs as the library's
-  conv, transpose conv and a plain max in the working dtype, as the JAX
-  package runs it as XLA. Its BatchNorm is folded too (flax applies it
-  unfolded there); in fp32 that moves the logits by rounding only.
+  conv and transpose conv in the working dtype, as the JAX package runs it
+  as XLA.
 
-At 192^3 and default widths this is 11 conv, 3 pool, 3 upconv and 1 head
-kernel launch per forward on a GPU. On the CPU the same ops run their
-plain PyTorch versions. ``dtype`` is the compute dtype (bf16 on the GPU,
-fp32 in the CPU tests); parameters stay fp32.
+Eval forward (``model.eval()``): each BatchNorm is folded per channel into
+its conv's weights and bias, in fp32, as the JAX package folds at
+``unet3d.py:427-440``; in the deep region too (flax applies it unfolded
+there; in fp32 that moves the logits by rounding only). At 192^3 and
+default widths this is 11 conv, 4 pool, 3 upconv and 1 head kernel launch
+per forward on a GPU.
+
+Train-mode forward (``model.train()``): the JAX package's unfused
+DoubleConv, [conv -> BatchNorm with batch statistics -> ReLU -> Dropout3d]
+x 2, which computes the same function as its fused Pallas DoubleConv (in
+fp32; the fused form rounds the statistics' input to bf16 elsewhere). The
+statistics are fp32 over the conv's output in the working dtype, the
+variance is the biased max(E[y^2] - E[y]^2, 0), and the running statistics
+update as flax's do (momentum 0.9 on the old value, the biased variance).
+Dropout3d draws one keep mask per (batch, channel) from the ``generator``
+passed to :meth:`UNet3D.forward`. A 192^3 train step at default widths
+launches 11 conv forward, 10 dx (not the image's), 11 dW, 4 pool forward,
+4 pool backward, 3 upconv, 1 head and 1 head-dx kernel on a GPU.
+
+On the CPU the same ops run their plain versions. ``dtype`` is the compute
+dtype (bf16 on the GPU, fp32 in the CPU tests); parameters stay fp32.
 """
 
 from __future__ import annotations
@@ -38,6 +52,39 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from multimodal_segmentation_project_tpu_torch.ops import conv3, head, pool, upconv
+
+
+FLAX_MOMENTUM = 0.9  # weight of the old value in the running statistics
+
+
+def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm3d) -> torch.Tensor:
+    """Train-mode BatchNorm as flax computes it: fp32 batch statistics over
+    (B, D, H, W), the biased variance max(E[y^2] - E[y]^2, 0), output
+    (y - mean) * scale / sqrt(var + eps) + bias in fp32. Updates the running
+    statistics in place with flax's momentum and the biased variance."""
+    yf = y.float()
+    dims = (0, 2, 3, 4)
+    mean = yf.mean(dims)
+    var = torch.clamp(yf.square().mean(dims) - mean.square(), min=0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(FLAX_MOMENTUM * bn.running_mean + (1 - FLAX_MOMENTUM) * mean)
+        bn.running_var.copy_(FLAX_MOMENTUM * bn.running_var + (1 - FLAX_MOMENTUM) * var)
+        bn.num_batches_tracked += 1
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (yf - mean.reshape(1, -1, 1, 1, 1)) * mul.reshape(1, -1, 1, 1, 1) + bn.bias.reshape(
+        1, -1, 1, 1, 1)
+
+
+def dropout3d(z: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Channel dropout: one keep mask per (batch, channel), drawn on the
+    generator's device, kept values scaled by 1 / (1 - rate)."""
+    if rate <= 0.0:
+        return z
+    keep = 1.0 - rate
+    dev = generator.device if generator is not None else torch.device("cpu")
+    mask = torch.rand(z.shape[:2], generator=generator, device=dev) < keep
+    mask = mask.to(z.device, non_blocking=True)[:, :, None, None, None]
+    return torch.where(mask, z / keep, torch.zeros((), dtype=z.dtype, device=z.device))
 
 
 class DoubleConv(nn.Module):
@@ -77,6 +124,25 @@ class DoubleConv(nn.Module):
                 wt = w.permute(4, 3, 0, 1, 2).to(dtype)
                 x = torch.relu(F.conv3d(x, wt, b.to(dtype), padding=1))
         return x
+
+    def forward_train(self, x: torch.Tensor, dtype: torch.dtype,
+                      generator: torch.Generator | None = None) -> torch.Tensor:
+        for ci, bi, di in ((0, 1, 3), (4, 5, 7)):
+            conv, bn = self.double_conv[ci], self.double_conv[bi]
+            x = x.to(dtype)
+            if conv3.supported(conv.in_channels, conv.out_channels):
+                y = conv3.conv3x3x3_cf(x, conv.weight.permute(2, 3, 4, 1, 0), conv.bias)
+            else:  # deep region
+                y = F.conv3d(x, conv.weight.to(dtype), conv.bias.to(dtype), padding=1)
+            z = torch.relu(batch_norm_train(y, bn))
+            x = dropout3d(z, self.double_conv[di].p, generator).to(dtype)
+        return x
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.training:
+            return self.forward_train(x, dtype, generator)
+        return self.forward_eval(x, dtype)
 
 
 class UNet3D(nn.Module):
@@ -128,20 +194,20 @@ class UNet3D(nn.Module):
             elif isinstance(m, nn.BatchNorm3d):
                 m.reset_parameters()
 
-    def forward(self, x: torch.Tensor, return_features: bool = False):
-        if self.training:
-            raise RuntimeError(
-                "UNet3D has only its eval forward so far: call model.eval() first"
-            )
+    def forward(self, x: torch.Tensor, return_features: bool = False,
+                generator: torch.Generator | None = None):
+        """Logits (and the bottleneck's global-average feature vector with
+        ``return_features``). In train mode ``generator`` draws the
+        Dropout3d masks."""
         dt = self.dtype
         # the kernels take contiguous NCDHW; NIfTI volumes decode Fortran-ordered
         x = x.to(dt).contiguous()
         skips = []
         for enc in self.encoder:
-            x = enc.forward_eval(x, dt)
+            x = enc(x, dt, generator)
             skips.append(x)
-            x = pool.max_pool2x_cf(x) if pool.supported(x.shape[1]) else pool.max_pool2x_cf_reference(x)
-        x = self.bottleneck.forward_eval(x, dt)
+            x = pool.max_pool2x_cf(x)
+        x = self.bottleneck(x, dt, generator)
         feat = x.float().mean(dim=(2, 3, 4)) if return_features else None
 
         for up, dec, skip in zip(self.upconvs, self.decoder, reversed(skips)):
@@ -155,7 +221,7 @@ class UNet3D(nn.Module):
                 x = F.interpolate(
                     x.float(), size=skip.shape[2:], mode="trilinear", align_corners=False
                 ).to(dt)
-            x = dec.forward_eval(torch.cat([skip, x], dim=1), dt)
+            x = dec(torch.cat([skip, x], dim=1), dt, generator)
 
         kernel = self.final_conv.weight[:, :, 0, 0, 0].t()  # (Cin, classes)
         logits = head.head1x1_cf(x, kernel, self.final_conv.bias)

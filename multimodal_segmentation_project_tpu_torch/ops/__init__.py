@@ -1,17 +1,30 @@
-"""Ops of the port. The four kernel ops each launch a hand-written CUDA
-kernel on CUDA tensors and run their plain PyTorch version on CPU tensors;
-each counts its kernel launches in a ``launches`` attribute."""
+"""Ops of the port. Each kernel op launches a hand-written CUDA kernel on
+CUDA tensors and runs its plain PyTorch version on CPU tensors; each counts
+its kernel launches in a ``launches`` attribute. The differentiable ops
+(the training conv, the pool, the upconv and the head) count their
+forward launches on themselves and their backward kernels on the wrappers
+named here."""
 
-from multimodal_segmentation_project_tpu_torch.ops.conv3 import conv3x3x3_cf_relu
-from multimodal_segmentation_project_tpu_torch.ops.head import head1x1_cf
-from multimodal_segmentation_project_tpu_torch.ops.pool import max_pool2x_cf
+from multimodal_segmentation_project_tpu_torch.ops.conv3 import (
+    conv3x3x3_cf,
+    conv3x3x3_cf_dw,
+    conv3x3x3_cf_dx,
+    conv3x3x3_cf_relu,
+)
+from multimodal_segmentation_project_tpu_torch.ops.head import head1x1_cf, head1x1_cf_dx
+from multimodal_segmentation_project_tpu_torch.ops.pool import max_pool2x_cf, max_pool2x_cf_bwd
 from multimodal_segmentation_project_tpu_torch.ops.upconv import upconv2x_cf
 
 KERNEL_OPS = {
     "conv3x3x3_cf_relu": conv3x3x3_cf_relu,
+    "conv3x3x3_cf": conv3x3x3_cf,
+    "conv3x3x3_cf_dx": conv3x3x3_cf_dx,
+    "conv3x3x3_cf_dw": conv3x3x3_cf_dw,
     "max_pool2x_cf": max_pool2x_cf,
+    "max_pool2x_cf_bwd": max_pool2x_cf_bwd,
     "upconv2x_cf": upconv2x_cf,
     "head1x1_cf": head1x1_cf,
+    "head1x1_cf_dx": head1x1_cf_dx,
 }
 
 

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled at first use, in one ``nvcc`` call, into
-one shared library with a plain C interface, which is then loaded with
-``ctypes``:
+Every ``csrc/*.cu`` is compiled at first use into one shared library with
+a plain C interface, which is then loaded with ``ctypes``. The sources
+compile in parallel, one ``nvcc`` process each, and one more call links
+them:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/torch_kernels/libmmseg_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -c csrc/<name>.cu -o <name>.o                          (all at once)
+    nvcc -shared -o build/torch_kernels/libmmseg_kernels_<hash>.so *.o
 
 The library lands in ``build/torch_kernels/`` at the root of the checkout
 under a name keyed by a hash of the sources and the flags, so an edited
@@ -31,7 +33,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -39,9 +41,13 @@ _I = ctypes.c_int
 # name -> argtypes of every C entry point (restype is int: a cudaError_t)
 _SIGNATURES = {
     "mmseg_conv3_bias_relu": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "mmseg_conv3": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "mmseg_conv3_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "mmseg_pool2x": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "mmseg_pool2x_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mmseg_upconv_d2s": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "mmseg_head1x1": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P),
+    "mmseg_head1x1_dx": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P),
 }
 
 _lock = threading.Lock()
@@ -77,6 +83,19 @@ def find_nvcc() -> str:
     )
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, proc, (out, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}\n{err}"
+            )
+
+
 def build() -> Path:
     """Compile the library if no build of the current sources exists."""
     out = library_path()
@@ -84,16 +103,19 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                  for src, obj in zip(sources, objs)])
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 

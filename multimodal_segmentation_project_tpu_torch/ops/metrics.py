@@ -1,9 +1,11 @@
-"""Per-organ evaluation metrics, in plain torch on the tensors' device.
+"""Segmentation metrics, in plain torch on the tensors' device.
 
 Port of ``multimodal_segmentation_project_tpu/ops/metrics.py``'s
-``per_class_dice_iou`` and ``per_class_dice_iou_per_sample``: eps = 1e-5
-on numerator and denominator, and an organ absent from the target scores
-0.0 (the reference eval's convention).
+``per_class_dice_iou``, ``per_class_dice_iou_per_sample`` (eval: an organ
+absent from the target scores 0.0, the reference eval's convention) and
+``segmentation_metrics`` (train and val: the macro average over the
+foreground classes PRESENT in the target, 0 when none is). eps = 1e-5 on
+numerator and denominator throughout.
 """
 
 from __future__ import annotations
@@ -49,3 +51,27 @@ def per_class_dice_iou(
     flat_l = labels.reshape(1, -1)
     out = per_class_dice_iou_per_sample(flat_p, flat_l, num_classes)
     return {k: v[0] for k, v in out.items()}
+
+
+def segmentation_metrics(logits: torch.Tensor, labels: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Train/val 'dice', 'iou' and 'acc' of one batch, as 0-d fp32 tensors:
+    argmax over the class axis, global sums over the batch, macro average
+    over the foreground classes present in the target."""
+    pred = logits.argmax(dim=1)
+    inter, psum, tsum = [], [], []
+    for c in range(1, logits.shape[1]):
+        pm, tm = pred == c, labels == c
+        inter.append((pm & tm).sum().float())
+        psum.append(pm.sum().float())
+        tsum.append(tm.sum().float())
+    inter, psum, tsum = torch.stack(inter), torch.stack(psum), torch.stack(tsum)
+    present = tsum > 0
+    valid = present.sum().clamp(min=1).float()
+    zero = torch.zeros((), device=logits.device)
+    dice = (2.0 * inter + EPS) / (psum + tsum + EPS)
+    iou = (inter + EPS) / (psum + tsum - inter + EPS)
+    return {
+        "dice": torch.where(present, dice, zero).sum() / valid,
+        "iou": torch.where(present, iou, zero).sum() / valid,
+        "acc": (pred == labels).float().mean(),
+    }

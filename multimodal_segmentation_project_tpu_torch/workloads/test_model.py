@@ -40,13 +40,16 @@ from multimodal_segmentation_project_tpu_torch.data import (
     CombinedDataset,
     DataLoader,
     load_nifti_header,
-    parse_features,
-    parse_modalities,
     save_nifti,
 )
 from multimodal_segmentation_project_tpu_torch.engine.checkpoint import load_pth
 from multimodal_segmentation_project_tpu_torch.models.unet3d import UNet3D
 from multimodal_segmentation_project_tpu_torch.ops.metrics import per_class_dice_iou_per_sample
+from multimodal_segmentation_project_tpu_torch.workloads.common import (
+    parse_features,
+    parse_modalities,
+    resolve_device,
+)
 
 ORGAN_COLORS = {1: (1.0, 0.0, 0.0), 2: (1.0, 0.65, 0.0), 3: (0.0, 0.5, 0.0)}
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -70,25 +73,6 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu', which runs the plain PyTorch ops")
     return parser
-
-
-def resolve_device(name: str, precision: str) -> torch.device:
-    """The requested device; never a silent fall back to the CPU."""
-    device = torch.device(name)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available on this machine. The eval runs on a GPU; "
-                "pass --device cpu to run the plain PyTorch path on the CPU."
-            )
-        if precision != "bf16":
-            raise ValueError(
-                "the GPU kernels of this eval take bf16: use --precision bf16 on the GPU "
-                "(--precision fp32 runs with --device cpu)"
-            )
-    elif device.type != "cpu":
-        raise ValueError(f"unsupported device {name!r}: use 'cuda' or 'cpu'")
-    return device
 
 
 def _sync(device: torch.device) -> None:

@@ -15,7 +15,7 @@ import torch
 import multimodal_segmentation_project_tpu_torch as port
 from multimodal_segmentation_project_tpu_torch import ops
 from multimodal_segmentation_project_tpu_torch.ops import _build, conv3, head, pool, upconv
-from multimodal_segmentation_project_tpu_torch.workloads import test_model
+from multimodal_segmentation_project_tpu_torch.workloads import test_model, train_unet
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -30,6 +30,7 @@ def _port_modules():
 def test_port_imports_without_jax_flax_optax():
     modules = _port_modules()
     assert f"{port.__name__}.workloads.test_model" in modules
+    assert f"{port.__name__}.workloads.train_unet" in modules
     code = (
         "import sys, importlib\n"
         "for m in ('jax', 'flax', 'optax'):\n"
@@ -48,15 +49,16 @@ def test_port_imports_without_jax_flax_optax():
 
 
 def test_only_the_data_module_takes_code_from_the_jax_package():
-    """The port borrows the JAX package's host-side data stack through
-    ``data.py`` and its class constants in ``__init__.py``, nothing else;
-    chip_smoke.py imports the port and no module of the JAX package."""
+    """No module of the port imports JAX, flax, optax or anything of the JAX
+    package (its data stack and CLI helpers are the port's own copies), and
+    neither does chip_smoke.py."""
     imports = re.compile(
         r"^\s*(?:from|import)\s+(jax|flax|optax|multimodal_segmentation_project_tpu)\b", re.M)
     pkg_dir = Path(port.__file__).parent
     borrowing = sorted(str(p.relative_to(pkg_dir)) for p in pkg_dir.rglob("*.py")
                        if imports.search(p.read_text()))
-    assert borrowing == ["__init__.py", "data.py"]
+    assert borrowing == []
+    assert (pkg_dir / "data" / "dataset.py").exists()
     assert not imports.search((ROOT / "chip_smoke.py").read_text())
 
 
@@ -68,6 +70,18 @@ def test_eval_cli_refuses_cuda_without_a_gpu():
     assert test_model.resolve_device("cpu", "fp32") == torch.device("cpu")
 
 
+def test_train_cli_takes_the_jax_clis_flags_and_defaults():
+    """The JAX train CLI's flags parse here with the same defaults, plus
+    --device (default cuda)."""
+    from multimodal_segmentation_project_tpu.workloads import train_unet as jax_train
+
+    argv = ["--data_root", "d"]
+    mine = vars(train_unet.build_parser().parse_args(argv))
+    ref = vars(jax_train.build_parser().parse_args(argv))
+    assert mine.pop("device") == "cuda"
+    assert mine == ref
+
+
 @pytest.mark.parametrize(
     "op,args",
     [
@@ -75,6 +89,11 @@ def test_eval_cli_refuses_cuda_without_a_gpu():
         (pool.max_pool2x_cf, lambda t: (t(1, 2, 4, 4, 4),)),
         (upconv.upconv2x_cf, lambda t: (t(1, 2, 4, 4, 4), t(2, 2, 2, 2, 4), t(4))),
         (head.head1x1_cf, lambda t: (t(1, 2, 4, 4, 4), t(2, 4), t(4))),
+        (conv3.conv3x3x3_cf, lambda t: (t(1, 2, 4, 4, 4), t(3, 3, 3, 2, 4), t(4))),
+        (conv3.conv3x3x3_cf_dx, lambda t: (t(1, 4, 4, 4, 4), t(3, 3, 3, 2, 4))),
+        (conv3.conv3x3x3_cf_dw, lambda t: (t(1, 2, 4, 4, 4), t(1, 4, 4, 4, 4))),
+        (pool.max_pool2x_cf_bwd, lambda t: (t(1, 2, 4, 4, 4), t(1, 2, 2, 2, 2), t(1, 2, 2, 2, 2))),
+        (head.head1x1_cf_dx, lambda t: (t(1, 4, 4, 4, 4), t(2, 4), torch.bfloat16)),
     ],
 )
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors(op, args):

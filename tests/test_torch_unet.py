@@ -129,7 +129,28 @@ def test_trees_state_dict_round_trip_is_exact():
             assert a.dtype == b.dtype and np.array_equal(a, b), path
 
 
-def test_train_mode_forward_is_refused():
-    model = UNet3D(features=FEATURES, dtype=torch.float32)
-    with pytest.raises(RuntimeError, match="eval"):
-        model(torch.zeros(1, 1, 8, 8, 8))
+def test_train_mode_forward_matches_jax():
+    """Train mode, dropout 0, at 18^3 through XLA (the resize guard fires):
+    logits, bottleneck features and the updated BatchNorm running
+    statistics (flax's momentum and biased variance)."""
+    _, params, stats = _jax_weights("xla", seed=7)
+    jmodel = JaxUNet3D(out_channels=4, features=FEATURES, dropout_rate=0.0, dtype=jnp.float32,
+                       conv_impl="xla")
+    x = np.random.default_rng(8).normal(size=(2, 1, 18, 18, 18)).astype(np.float32)
+    (want, want_feat), upd = jmodel.apply({"params": params, "batch_stats": stats},
+                                          jnp.asarray(x), train=True, return_features=True,
+                                          mutable=["batch_stats"])
+    model = UNet3D(in_channels=1, out_channels=4, features=FEATURES, dropout_rate=0.0,
+                   dtype=torch.float32)
+    model.load_state_dict(trees_to_state_dict(params, stats), strict=True)
+    model.train()
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits, feat = model(torch.from_numpy(x), return_features=True)
+    assert sum(ops.launch_counts().values()) == 0
+    _close(logits.numpy(), want)
+    _close(feat.numpy(), want_feat)
+    want_sd = trees_to_state_dict(params, _numpy_tree(upd["batch_stats"]))
+    for name, value in model.state_dict().items():
+        if "running" in name:
+            _close(value.numpy(), want_sd[name].numpy())
