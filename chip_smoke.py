@@ -25,15 +25,17 @@ Phases, each printing one line per check; any failure exits non-zero:
    runs the port's train CLI (``workloads.train_unet``) as
    ``run_training.sh`` does (batch 1, bf16, ce_tversky, augmentation on)
    for two epochs, checks finite losses and the launches of every kernel
-   per train step and per validation forward, evaluates the best
+   per train step (the fused DoubleConv's kernels in enc0-enc2, dec2 and
+   dec3, the per-conv chain in dec1) and per validation forward, evaluates the best
    checkpoint with the eval CLI; then times the train step (median over
    distinct inputs, host clock around ``torch.cuda.synchronize()``),
    reports the peak allocated memory, and breaks a few steps' device time
    down from a ``torch.profiler`` trace;
 7. train parity: one train step at 128^3 and full width, GPU bf16 against
    CPU fp32 and against the CPU bf16 emulation, from the same weights: the
-   loss and every parameter's gradient, and a control that the check
-   refuses a zeroed deep gradient.
+   loss and every parameter's gradient, and controls that the check
+   refuses a zeroed or halved deep gradient and a fused block's bn0
+   scale gradient.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Scratch files go to
@@ -59,7 +61,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, same source
 FP32_FLOPS = 67e12         # fp32 outside the tensor cores, same source
 
-# (Cin, Cout, S) of every 3x3x3 conv with Cin, Cout <= 64 at 192^3 input
+# (Cin, Cout, S) of every 3x3x3 conv with Cin, Cout <= 64 at 192^3 input:
+# the eval forward's
 CONV_SHAPES = [
     (1, 16, 192), (16, 16, 192),                       # enc0
     (16, 32, 96), (32, 32, 96),                        # enc1
@@ -68,8 +71,15 @@ CONV_SHAPES = [
     (64, 32, 96), (32, 32, 96),                        # dec2
     (32, 16, 192), (16, 16, 192),                      # dec3
 ]
-# the dx convs of the train step: every conv but the image's, Cin/Cout swapped
-DX_SHAPES = [(cout, cin, s) for cin, cout, s in CONV_SHAPES if cin > 1]
+# the train step's: conv0 and conv1 of the fused blocks (enc0-enc2, dec2,
+# dec3), and dec1's conv1 on the per-conv chain
+CONV0_SHAPES = [(1, 16, 192), (16, 32, 96), (32, 64, 48), (64, 32, 96), (32, 16, 192)]
+CONV1_SHAPES = [(16, 16, 192), (32, 32, 96), (64, 64, 48), (32, 32, 96), (16, 16, 192)]
+TRAIN_CONV_SHAPES = [(64, 64, 48)]
+# the plain dx convs of the train step: every conv0 but the image's, and
+# dec1.conv1, Cin/Cout swapped; the boundary convs' dx is the dx epilogue's
+DX_SHAPES = [(cout, cin, s) for cin, cout, s in CONV0_SHAPES + TRAIN_CONV_SHAPES if cin > 1]
+DW_SHAPES = CONV0_SHAPES + TRAIN_CONV_SHAPES
 POOL_SHAPES = [(16, 192), (32, 96), (64, 48), (128, 24)]     # (C, S in)
 UPCONV_SHAPES = [(128, 64, 24), (64, 32, 48), (32, 16, 96)]  # (Cin, Cout, S in)
 HEAD_SHAPES = [(16, 4, 192)]                                 # (Cin, classes, S)
@@ -77,18 +87,24 @@ HEAD_DX_SHAPES = [(4, 16, 192)]                              # (classes, Cin, S)
 
 # launches per eval forward and per train step (default widths, 192^3)
 PER_FORWARD = {"conv3x3x3_cf_relu": 11, "max_pool2x_cf": 4, "upconv2x_cf": 3, "head1x1_cf": 1}
-PER_STEP = {"conv3x3x3_cf": 11, "conv3x3x3_cf_dx": 10, "conv3x3x3_cf_dw": 11,
-            "max_pool2x_cf": 4, "max_pool2x_cf_bwd": 4, "upconv2x_cf": 3, "head1x1_cf": 1,
-            "head1x1_cf_dx": 1}
+PER_STEP = {"conv3x3x3_cf_stats": 5, "conv3x3x3_cf_boundary_stats": 5, "conv3x3x3_cf": 1,
+            "conv3x3x3_cf_dx": 5, "conv3x3x3_cf_dx_epilogue": 5, "conv3x3x3_cf_dw": 6,
+            "conv3x3x3_cf_dw_prologue": 5, "max_pool2x_cf": 4, "max_pool2x_cf_bwd": 4,
+            "upconv2x_cf": 3, "head1x1_cf": 1, "head1x1_cf_dx": 1}
+CONV3 = "multimodal_segmentation_project_tpu_torch/csrc/conv3.cu"
+CONV3_DW = "multimodal_segmentation_project_tpu_torch/csrc/conv3_dw.cu"
+PALLAS_CONV = "multimodal_segmentation_project_tpu/ops/pallas_conv.py"
+
 KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
-    "conv3x3x3_cf_relu": ("multimodal_segmentation_project_tpu_torch/csrc/conv3.cu",
-                          "multimodal_segmentation_project_tpu/ops/pallas_conv.py:314"),
-    "conv3x3x3_cf": ("multimodal_segmentation_project_tpu_torch/csrc/conv3.cu",
-                     "multimodal_segmentation_project_tpu/ops/pallas_conv.py:293"),
-    "conv3x3x3_cf_dx": ("multimodal_segmentation_project_tpu_torch/csrc/conv3.cu",
-                        "multimodal_segmentation_project_tpu/ops/pallas_conv.py:293"),
-    "conv3x3x3_cf_dw": ("multimodal_segmentation_project_tpu_torch/csrc/conv3_dw.cu",
-                        "multimodal_segmentation_project_tpu/ops/pallas_conv.py:468"),
+    "conv3x3x3_cf_relu": (CONV3, f"{PALLAS_CONV}:314"),
+    "conv3x3x3_cf": (CONV3, f"{PALLAS_CONV}:293"),
+    "conv3x3x3_cf_dx": (CONV3, f"{PALLAS_CONV}:293"),
+    "conv3x3x3_cf_dw": (CONV3_DW, f"{PALLAS_CONV}:468"),
+    "conv3x3x3_cf_stats": (CONV3, f"{PALLAS_CONV}:341"),
+    "conv3x3x3_cf_boundary_stats": (CONV3, f"{PALLAS_CONV}:1039"),
+    "conv3x3x3_cf_dx_epilogue": (CONV3, f"{PALLAS_CONV}:886"),
+    "conv3x3x3_cf_dw_prologue": (CONV3_DW, f"{PALLAS_CONV}:799"),
+    "conv3x3x3_cf_boundary": (CONV3, f"{PALLAS_CONV}:732"),
     "max_pool2x_cf": ("multimodal_segmentation_project_tpu_torch/csrc/pool2x.cu",
                       "multimodal_segmentation_project_tpu/ops/pool.py:65"),
     "max_pool2x_cf_bwd": ("multimodal_segmentation_project_tpu_torch/csrc/pool2x.cu",
@@ -106,12 +122,32 @@ KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
 # the conv's cast and then the bias added in bf16: the cast may differ by
 # one ulp of the conv's value and the sum by one more of its own. Both are
 # checked element by element (_elementwise_ok), with a floor for fp32
-# sum-order noise near zero.
+# sum-order noise near zero. The fused DoubleConv's kernels return more
+# than one output: kernels 3 and 4 (conv + stats) y, rounded once, and the
+# per-channel sums s1, s2 of y and y^2; the dx epilogue (5) dy, rounded
+# once, and the per-(batch, channel) sums da, dt of du x and du.
 BF16_ONE_ULP = "1 bf16 ulp"
 BF16_TWO_ROUNDINGS = "1 bf16 ulp of the conv + 1 of the output"
 ELEMENTWISE = (BF16_ONE_ULP, BF16_TWO_ROUNDINGS)
+STATS = "y: 1 bf16 ulp; s1, s2: sum |dy| + STATS_TOL sum |y|"
+DX_EPILOGUE = "dy: 1 bf16 ulp; da, dt: DADT_TOL sum |du x|, sum |du|"
 HEAD_TOL = 1e-5  # fp32 logits: sum order only, scaled by max|plain|
 DW_TOL = 1e-3    # fp32 sums of up to 7.1M bf16 products in another order
+# s1, s2 per channel: the kernel and the plain version sum their own y, which
+# may differ by an ulp here and there, so a channel's sums may differ by
+# sum |y_kernel - y_plain| (of y^2 for s2) plus the fp32 sum-order error of
+# up to 7.1M terms (the kernel: warp trees, 8 warps, ~100 partials per
+# thread and a tree of 256; at most ~130 roundings deep, under 1e-5 of the
+# sum of |terms|). A block's partials lost would move a 192^3 channel's sum
+# by 1/27648 = 3.6e-5 of it.
+STATS_TOL = 1e-5
+# da, dt per (batch, channel): both sides mask the same fp32 u = x a + t,
+# so they differ only by du = dr, the dx conv's fp32 sum over up to 27 * 64
+# bf16 products in another order, and by the order of the sum over the
+# volume; those errors are independent from voxel to voxel and average out
+# (at most 5e-8 of the sums of |terms| on the H100 at the train step's
+# shapes). A block's partials lost would move a 96^3 entry by 1/3456 of it.
+DADT_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -192,31 +228,72 @@ def _elementwise_ok(tol, got, want, args) -> bool:
     on a value near zero (where the sum cancels, the ulp of the result is
     far below the rounding error of its summands). The allowance is one
     ulp of the larger of the two values, and for the training conv one
-    more of its fp32 conv before the cast and the bias (x, w = args)."""
+    more of its fp32 conv before the cast and the bias (x, w = args; for
+    the boundary conv x, w, b, a, t = args and the conv's input is the
+    prologue of x)."""
     import torch
 
-    from multimodal_segmentation_project_tpu_torch.ops import conv3
+    from multimodal_segmentation_project_tpu_torch.ops import conv3, conv3_fused
 
     allowed = _bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
     if tol == BF16_TWO_ROUNDINGS:
-        c = conv3.conv_fp32(args[0], args[1])
+        x = args[0] if len(args) < 5 else conv3_fused.prologue_reference(args[0], *args[3:5])
+        c = conv3.conv_fp32(x, args[1])
         allowed += _bf16_ulp(torch.maximum(c.abs(), c.to(torch.bfloat16).float().abs()))
     floor = 2.0**-16 * want.float().abs().max()
     return bool(((got.float() - want.float()).abs() <= allowed + floor).all())
 
 
+def _sums_ratio(tol, got, want, args) -> float:
+    """The largest error of the fp32 sums (the outputs after the first) of
+    a fused kernel over its bound under ``tol`` (STATS or DX_EPILOGUE),
+    entry by entry; within tolerance when <= 1."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.ops import conv3
+
+    f64 = torch.float64
+    if tol == STATS:  # per channel, over (B, D, H, W)
+        dims = (0, 2, 3, 4)
+        yk, yp = got[0].to(f64), want[0].to(f64)
+        terms = [(yk, yp), (yk * yk, yp * yp)]
+        bounds = [(k - p).abs().sum(dims) + STATS_TOL * p.abs().sum(dims) for k, p in terms]
+    else:  # per (batch, channel), over (D, H, W): du from the plain arithmetic
+        g, w, x, a, t = args
+        dims = (2, 3, 4)
+        xf = x.float()
+        u = xf * a[:, :, None, None, None] + t[:, :, None, None, None]
+        du = torch.where(u > 0, conv3.conv_fp32(g, conv3.flip_transpose(w)), 0.0)
+        bounds = [DADT_TOL * (du * xf).abs().to(f64).sum(dims),
+                  DADT_TOL * du.abs().to(f64).sum(dims)]
+    worst = 0.0
+    for k, p, bound in zip(got[1:], want[1:], bounds):
+        err = (k.to(f64) - p.to(f64)).abs()
+        worst = max(worst, (err / bound.clamp_min(1e-30)).max().item())
+    return worst
+
+
 def _errors(label: str, kern, plain, inputs, tol):
-    """(max abs error, max error scaled by max|plain|, within tolerance) of
-    the kernel against its plain version over ``inputs``. ``tol`` is a key
-    of ELEMENTWISE (each element within its bf16 allowance), 0 (exact) or
-    a bound on the scaled error."""
+    """(max abs error, max error scaled by max|plain|, within tolerance,
+    worst sum error over its bound or None) of the kernel against its plain
+    version over ``inputs``. ``tol`` is a key of ELEMENTWISE (each element
+    within its bf16 allowance), STATS or DX_EPILOGUE (a bf16 output within
+    one ulp per element and fp32 sums within their bounds), 0 (exact) or a
+    bound on the scaled error; the errors are those of the first output."""
     import torch
 
     err = rel = 0.0
+    sums = None
     ok = True
     for args in inputs:
         got, want = kern(*args), plain(*args)
         torch.cuda.synchronize()
+        elem_tol = tol
+        if tol in (STATS, DX_EPILOGUE):
+            ratio = _sums_ratio(tol, got, want, args)
+            sums = max(sums or 0.0, ratio)
+            ok = ok and ratio <= 1.0
+            got, want, elem_tol = got[0], want[0], BF16_ONE_ULP
         fail_unless(got.shape == want.shape and got.dtype == want.dtype,
                     f"{label}: {tuple(got.shape)}/{got.dtype} vs "
                     f"{tuple(want.shape)}/{want.dtype}")
@@ -224,18 +301,18 @@ def _errors(label: str, kern, plain, inputs, tol):
         e = (got.float() - want.float()).abs().max().item()
         err = max(err, e)
         rel = max(rel, e / max(want.float().abs().max().item(), 1e-30))
-        if tol in ELEMENTWISE:
-            ok = ok and _elementwise_ok(tol, got, want, args)
+        if elem_tol in ELEMENTWISE:
+            ok = ok and _elementwise_ok(elem_tol, got, want, args)
     if tol == 0.0:
         ok = err == 0.0
-    elif tol not in ELEMENTWISE:
+    elif not isinstance(tol, str):
         ok = rel <= tol
-    return err, rel, ok
+    return err, rel, ok, sums
 
 
 def _tol_label(tol) -> str:
-    if tol in ELEMENTWISE:
-        return f"each element within {tol}"
+    if isinstance(tol, str):
+        return f"each element within {tol}" if tol in ELEMENTWISE else tol
     return "== 0 (exact)" if tol == 0.0 else f"<= {tol:.3g} scaled"
 
 
@@ -249,11 +326,13 @@ def _count(shapes) -> list:
 
 def _kernel_plan():
     """name -> (kernel, plain, library call, inputs(shape), shapes, tolerance,
-    work(shape) = (bytes, FLOPs, peak FLOP/s), library label)."""
+    work(shape) = (bytes, FLOPs, peak FLOP/s[, fp32 FLOPs besides]), library
+    label)."""
     import torch
     import torch.nn.functional as F
 
-    from multimodal_segmentation_project_tpu_torch.ops import conv3, head, pool, upconv
+    from multimodal_segmentation_project_tpu_torch.ops import conv3, conv3_fused, head, pool
+    from multimodal_segmentation_project_tpu_torch.ops import upconv
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -274,6 +353,26 @@ def _kernel_plan():
 
     def dw_inputs(cin, cout, s):
         return [(randn(1, cin, s, s, s), randn(1, cout, s, s, s, scale=1e-2))
+                for _ in range(N_TIMED)]
+
+    def affine(c, n=1):
+        """A boundary conv's (a, t) as the fused block makes them: BatchNorm's
+        scale / std and shift, t of both signs, Dropout3d's 0.1 folded in."""
+        m = (torch.rand(n, c, generator=gen, device=dev) >= 0.1).float() / 0.9
+        a = (torch.rand(n, c, generator=gen, device=dev) + 0.5) * m
+        return a, torch.randn(n, c, generator=gen, device=dev) * 0.5 * m
+
+    def boundary_inputs(cin, cout, s):
+        w, b = conv_w(cin, cout), randn(cout, scale=0.1, dtype=torch.float32)
+        return [(randn(1, cin, s, s, s), w, b, *affine(cin)) for _ in range(N_TIMED)]
+
+    def dx_epilogue_inputs(cin, cout, s):  # the boundary conv's channels
+        w = conv_w(cin, cout)
+        return [(randn(1, cout, s, s, s, scale=1e-2), w, randn(1, cin, s, s, s), *affine(cin))
+                for _ in range(N_TIMED)]
+
+    def dw_prologue_inputs(cin, cout, s):
+        return [(randn(1, cin, s, s, s), randn(1, cout, s, s, s, scale=1e-2), *affine(cin))
                 for _ in range(N_TIMED)]
 
     def pool_inputs(c, s):
@@ -314,6 +413,16 @@ def _kernel_plan():
     def lib_dw(x, g):
         return torch.nn.grad.conv3d_weight(x, (g.shape[1], x.shape[1], 3, 3, 3), g, padding=1)
 
+    # the fused kernels' conv part only: no single call computes the fusion
+    def lib_boundary(x, w, b, a, t):
+        return lib_conv(x, w, b)
+
+    def lib_dx_epilogue(g, w, x, a, t):
+        return lib_dx(g, w)
+
+    def lib_dw_prologue(x, g, a, t):
+        return lib_dw(x, g)
+
     def lib_pool_bwd(x, y, g):
         _, idx = F.max_pool3d(x, 2, 2, return_indices=True)
         return torch.ops.aten.max_pool3d_with_indices_backward(
@@ -345,6 +454,26 @@ def _kernel_plan():
         nbytes = 2 * v(s) * (cin + cout) + 27 * cin * cout * 4
         return nbytes, 2 * 27 * cin * cout * v(s), BF16_FLOPS
 
+    # the fused kernels: the conv's, and the fp32 work of the prologue (mul,
+    # add, max per input element) and the epilogues (stats: bias add, square,
+    # two sums per output; dx mask: mul, add, compare, mul, two products and
+    # two sums per output)
+    def stats_work(cin, cout, s):
+        return (*conv_work(cin, cout, s), 4 * cout * v(s))
+
+    def boundary_stats_work(cin, cout, s):
+        return (*conv_work(cin, cout, s), (3 * cin + 4 * cout) * v(s))
+
+    def boundary_work(cin, cout, s):
+        return (*conv_work(cin, cout, s), (3 * cin + 1 * cout) * v(s))
+
+    def dx_epilogue_work(cin, cout, s):  # g and x read, dy written
+        nbytes = 2 * v(s) * (cout + 2 * cin) + 27 * cin * cout * 4
+        return nbytes, 2 * 27 * cin * cout * v(s), BF16_FLOPS, 8 * cin * v(s)
+
+    def dw_prologue_work(cin, cout, s):
+        return (*conv_work(cin, cout, s), 3 * cin * v(s))
+
     def pool_work(c, s):
         return 2 * c * v(s) * (1 + 1 / 8), 0.0, BF16_FLOPS
 
@@ -365,13 +494,35 @@ def _kernel_plan():
                               lib_conv, conv_inputs, CONV_SHAPES, BF16_ONE_ULP, conv_work,
                               "F.conv3d bf16 (no ReLU)"),
         "conv3x3x3_cf": (ng(conv3.conv3x3x3_cf), conv3.conv3x3x3_cf_reference, lib_conv,
-                         conv_inputs, CONV_SHAPES, BF16_TWO_ROUNDINGS, conv_work,
+                         conv_inputs, TRAIN_CONV_SHAPES, BF16_TWO_ROUNDINGS, conv_work,
                          "F.conv3d bf16"),
         "conv3x3x3_cf_dx": (conv3.conv3x3x3_cf_dx, conv3.conv3x3x3_cf_dx_reference, lib_dx,
                             dx_inputs, DX_SHAPES, BF16_ONE_ULP, conv_work, "F.conv3d bf16"),
         "conv3x3x3_cf_dw": (conv3.conv3x3x3_cf_dw, conv3.conv3x3x3_cf_dw_reference, lib_dw,
-                            dw_inputs, CONV_SHAPES, DW_TOL, conv_work,
+                            dw_inputs, DW_SHAPES, DW_TOL, conv_work,
                             "torch.nn.grad.conv3d_weight bf16"),
+        "conv3x3x3_cf_stats": (ng(conv3_fused.conv3x3x3_cf_stats),
+                               conv3_fused.conv3x3x3_cf_stats_reference, lib_conv, conv_inputs,
+                               CONV0_SHAPES, STATS, stats_work,
+                               "F.conv3d bf16, conv part only"),
+        "conv3x3x3_cf_boundary_stats": (ng(conv3_fused.conv3x3x3_cf_boundary_stats),
+                                        conv3_fused.conv3x3x3_cf_boundary_stats_reference,
+                                        lib_boundary, boundary_inputs, CONV1_SHAPES, STATS,
+                                        boundary_stats_work, "F.conv3d bf16, conv part only"),
+        "conv3x3x3_cf_dx_epilogue": (conv3_fused.conv3x3x3_cf_dx_epilogue,
+                                     conv3_fused.conv3x3x3_cf_dx_epilogue_reference,
+                                     lib_dx_epilogue, dx_epilogue_inputs, CONV1_SHAPES,
+                                     DX_EPILOGUE, dx_epilogue_work,
+                                     "F.conv3d bf16 of the dx, conv part only"),
+        "conv3x3x3_cf_dw_prologue": (conv3_fused.conv3x3x3_cf_dw_prologue,
+                                     conv3_fused.conv3x3x3_cf_dw_prologue_reference,
+                                     lib_dw_prologue, dw_prologue_inputs, CONV1_SHAPES, DW_TOL,
+                                     dw_prologue_work,
+                                     "torch.nn.grad.conv3d_weight bf16, conv part only"),
+        "conv3x3x3_cf_boundary": (ng(conv3_fused.conv3x3x3_cf_boundary),
+                                  conv3_fused.conv3x3x3_cf_boundary_reference, lib_boundary,
+                                  boundary_inputs, CONV1_SHAPES, BF16_TWO_ROUNDINGS,
+                                  boundary_work, "F.conv3d bf16, conv part only"),
         "max_pool2x_cf": (ng(pool.max_pool2x_cf), pool.max_pool2x_cf_reference,
                           lambda x: F.max_pool3d(x, 2, 2), pool_inputs, POOL_SHAPES, 0.0,
                           pool_work, "F.max_pool3d bf16"),
@@ -402,17 +553,20 @@ def phase_kernels() -> dict:
         max_abs = bytes_ms = ops_ms = 0.0
         for shape, mult in _count(shapes):
             inputs = make(*shape)
-            err, rel, ok = _errors(f"{name} {shape}", kern, plain, inputs, tol)
+            err, rel, ok, sums = _errors(f"{name} {shape}", kern, plain, inputs, tol)
             ms = _time_ms(kern, inputs)
             plain_ms = _time_ms(plain, inputs)
             lib_ms = _time_ms(lib, inputs)
-            nbytes, flops, peak = work(*shape)
-            b_ms = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+            nbytes, flops, peak, *fp32_flops = work(*shape)
+            op_s = flops / peak + sum(fp32_flops) / FP32_FLOPS
+            b_ms = max(nbytes / HBM_BYTES_PER_S, op_s) * 1e3
             bytes_ms += mult * nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms += mult * flops / peak * 1e3
-            print(f"[kernel] {name} {shape} x{mult}: max_abs_err {err:.4g} scaled {rel:.4g}, "
-                  f"{_tol_label(tol)}: {'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms, library {lib_ms:.4f} ms "
+            ops_ms += mult * op_s * 1e3
+            sums_label = "" if sums is None else f", sums at {sums:.4g} of their bound"
+            print(f"[kernel] {name} {shape} x{mult}: max_abs_err {err:.4g} scaled {rel:.4g}"
+                  f"{sums_label}, {_tol_label(tol)}: {'ok' if ok else 'FAIL'} | "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms, "
+                  f"library {lib_ms:.4f} ms "
                   f"({lib_label})", flush=True)
             fail_unless(ok, f"{name} {shape}: error {err} (scaled {rel}) over tolerance")
             max_abs = max(max_abs, err)
@@ -423,7 +577,8 @@ def phase_kernels() -> dict:
             torch.cuda.empty_cache()
         results[name] = {"max_abs_err": max_abs, **tot,
                          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-        print(f"[kernel] {name}: summed over one pass (eval forward or train step): "
+        print(f"[kernel] {name}: summed over one pass (eval forward or train step; "
+              f"kernel 12 over the train step's conv1 shapes): "
               + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()), flush=True)
 
     # ragged shapes the slice does not reach: batch 2, odd extents, partial
@@ -444,21 +599,49 @@ def phase_kernels() -> dict:
                          randn(20, scale=0.1, dtype=f32))),
         ("head1x1_cf", (randn(2, 5, 3, 5, 7), randn(5, 3, dtype=f32), randn(3, dtype=f32))),
         ("head1x1_cf_dx", (randn(2, 3, 3, 5, 7, dtype=f32), randn(40, 3, dtype=f32))),
+        ("conv3x3x3_cf_stats", (randn(2, 40, 3, 9, 20),
+                                randn(3, 3, 3, 40, 20, scale=0.05, dtype=f32),
+                                randn(20, scale=0.1, dtype=f32))),
     ]
+    a2, t2 = (randn(2, 40, scale=s, dtype=f32) for s in (1.0, 0.5))
+    w40 = randn(3, 3, 3, 40, 20, scale=0.05, dtype=f32)
+    for name in ("conv3x3x3_cf_boundary_stats", "conv3x3x3_cf_boundary"):
+        edges.append((name, (randn(2, 40, 3, 9, 37), w40, randn(20, scale=0.1, dtype=f32),
+                             a2, t2)))
+    edges.append(("conv3x3x3_cf_dx_epilogue", (randn(2, 20, 3, 9, 37, scale=1e-2), w40,
+                                               randn(2, 40, 3, 9, 37), a2, t2)))
+    edges.append(("conv3x3x3_cf_dw_prologue", (randn(2, 40, 3, 9, 37), randn(2, 20, 3, 9, 37),
+                                               a2, t2)))
     for name, args in edges:
         kern, plain, *_, tol, _, _ = plan[name]
         label = f"{name} edge input {tuple(args[0].shape)}"
-        err, rel, ok = _errors(label, kern, plain, [args], tol)
+        err, rel, ok, _ = _errors(label, kern, plain, [args], tol)
         print(f"[kernel] {label}: scaled err {rel:.4g} {'ok' if ok else 'FAIL'}", flush=True)
         fail_unless(ok, f"{label}: error {err} over tolerance")
 
-    # dW sums per-block partials in a fixed order: the same bits every run
-    dw = plan["conv3x3x3_cf_dw"][0]
-    x, g = randn(1, 32, 192, 192, 192), randn(1, 16, 192, 192, 192, scale=1e-2)
-    same = torch.equal(dw(x, g), dw(x, g))
-    print(f"[kernel] conv3x3x3_cf_dw (32, 16, 192) run twice on the same inputs: "
-          f"{'the same bits' if same else 'DIFFERENT bits'}", flush=True)
-    fail_unless(same, "conv3x3x3_cf_dw is not deterministic")
+    # the kernels that sum across blocks sum per-block partials in a fixed
+    # order: the same bits every run
+    x32, x16 = randn(1, 32, 192, 192, 192), randn(1, 16, 192, 192, 192)
+    g16 = randn(1, 16, 192, 192, 192, scale=1e-2)
+    a16, t16 = randn(1, 16, dtype=f32) + 1.0, randn(1, 16, scale=0.5, dtype=f32)
+    w16, b16 = randn(3, 3, 3, 16, 16, scale=0.1, dtype=f32), randn(16, scale=0.1, dtype=f32)
+    twice = [
+        ("conv3x3x3_cf_dw", (32, 16, 192), (x32, g16)),
+        ("conv3x3x3_cf_stats", (32, 16, 192),
+         (x32, randn(3, 3, 3, 32, 16, scale=0.05, dtype=f32), b16)),
+        ("conv3x3x3_cf_boundary_stats", (16, 16, 192), (x16, w16, b16, a16, t16)),
+        ("conv3x3x3_cf_dx_epilogue", (16, 16, 192), (g16, w16, x16, a16, t16)),
+        ("conv3x3x3_cf_dw_prologue", (16, 16, 192), (x16, g16, a16, t16)),
+    ]
+    for name, shape, args in twice:
+        kern = plan[name][0]
+        first, second = kern(*args), kern(*args)
+        if isinstance(first, torch.Tensor):
+            first, second = (first,), (second,)
+        same = all(torch.equal(u, v) for u, v in zip(first, second))
+        print(f"[kernel] {name} {shape} run twice on the same inputs: "
+              f"{'the same bits' if same else 'DIFFERENT bits'}", flush=True)
+        fail_unless(same, f"{name} is not deterministic")
     return results
 
 
@@ -654,10 +837,15 @@ N_STEPS_TIMED = 6
 N_STEPS_PROFILED = 3
 
 
+OTHER_CATEGORY = "elementwise and other torch kernels"
+
+
 def _kernel_category(name: str) -> str:
     """Device-time category of a kernel in the profiler trace."""
-    for key, cat in (("conv3_dw", "conv3_dw (dW kernel)"),
-                     ("conv3_kernel", "conv3 (forward and dx kernel)"),
+    for key, cat in (("conv3_dw", "conv3_dw (dW kernels, plain and prologue: partial sums + "
+                                  "reduce)"),
+                     ("conv3_stats_reduce", "conv3_stats_reduce (the fused convs' channel sums)"),
+                     ("conv3_kernel", "conv3 (forward, fused stats/boundary and dx kernels)"),
                      ("pool2x_bwd", "pool2x_bwd kernel"), ("pool2x", "pool2x kernel"),
                      ("upconv_d2s", "upconv_d2s kernel"), ("head1x1", "head1x1 kernels"),
                      ("Memcpy", "memcpy / memset"), ("Memset", "memcpy / memset")):
@@ -672,12 +860,13 @@ def _kernel_category(name: str) -> str:
         return "reductions (BatchNorm, losses, metrics)"
     if "cat" in low:
         return "torch.cat (skip concat)"
-    return "elementwise and other torch kernels"
+    return OTHER_CATEGORY
 
 
 def _profile_steps(step, state, inputs) -> None:
-    """Device time of a few train steps by kernel category, and the device's
-    idle share over the window."""
+    """Device time of a few train steps by kernel category, the largest
+    elementwise kernels by name, and the device's idle share over the
+    window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -685,9 +874,12 @@ def _profile_steps(step, state, inputs) -> None:
         for images, labels, gen in inputs:
             step(state, images, labels, gen)
         torch.cuda.synchronize()
-    spans, cats = [], {}
+    spans, cats, other = [], {}, {}
     for evt in prof.events():
-        if "cuda" not in str(getattr(evt, "device_type", "")).lower():
+        # device kernels and copies only: a user annotation's device-side span
+        # (Optimizer.step#AdamW.step) overlaps the kernels it launched
+        if ("cuda" not in str(getattr(evt, "device_type", "")).lower()
+                or getattr(evt, "is_user_annotation", False)):
             continue
         start, end = evt.time_range.start, evt.time_range.end
         if end <= start:
@@ -696,6 +888,9 @@ def _profile_steps(step, state, inputs) -> None:
         cat = _kernel_category(evt.name)
         n, t = cats.get(cat, (0, 0.0))
         cats[cat] = (n + 1, t + (end - start))
+        if cat == OTHER_CATEGORY:
+            n, t = other.get(evt.name, (0, 0.0))
+            other[evt.name] = (n + 1, t + (end - start))
     fail_unless(bool(spans), "the profiler recorded no device time")
     spans.sort()
     busy, cur_s, cur_e = 0.0, *spans[0]
@@ -712,6 +907,9 @@ def _profile_steps(step, state, inputs) -> None:
     for cat, (cnt, t) in sorted(cats.items(), key=lambda kv: -kv[1][1]):
         print(f"[profile] {cat}: {t / n / 1e3:.3f} ms/step ({t / total * 100:.1f} %), "
               f"{cnt / n:.0f} launches/step", flush=True)
+    for name, (cnt, t) in sorted(other.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"[profile]   of which {t / n / 1e3:.3f} ms/step, {cnt / n:.0f} launches/step: "
+              f"{name[:160]}", flush=True)
     print(f"[profile] {n} steps: device busy {busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms "
           f"window, idle share {1 - busy / window:.4f}; summed kernel time "
           f"{total / n / 1e3:.3f} ms/step", flush=True)
@@ -827,14 +1025,17 @@ def phase_train(size: int = 192) -> dict:
 #   gradient, deep ones included: a zeroed one is 1.0 off);
 # and the loss, scaled, GPU vs fp32. A conv bias that feeds a BatchNorm
 # (true gradient 0) is held by its gradient norm against its weight's.
-# Controls zero and halve two deep gradients on the GPU side, the C = 128
-# level's conv (behind the deep pool's backward) and the first upconv; the
-# check must refuse each.
+# Controls zero and halve three gradients on the GPU side: two deep ones,
+# the C = 128 level's conv (behind the deep pool's backward) and the first
+# upconv, and a fused block's BatchNorm0 scale (enc0's, reached only through
+# the folded affine's (da, dt) and the statistics' cotangents); the check
+# must refuse each.
 TRAIN_PARITY_SIZE = 128
 TRAIN_LOSS_TOL = 0.01        # |gpu - cpu| / |cpu|
 TRAIN_GRAD_FACTOR, TRAIN_GRAD_FLOOR, TRAIN_GRAD_EMU_CAP = 2.0, 0.02, 0.3
 TRAIN_BN_BIAS_RATIO = 0.01   # ||db|| / ||dW|| of a conv that feeds a BatchNorm
-TRAIN_CONTROLS = ("encoder.3.double_conv.0.weight", "upconvs.0.weight")
+TRAIN_CONTROLS = ("encoder.3.double_conv.0.weight", "upconvs.0.weight",
+                  "encoder.0.double_conv.1.weight")
 
 
 def bn_fed_bias(name: str) -> bool:
@@ -906,7 +1107,7 @@ def phase_train_parity() -> None:
           f"norm at most {ratio[worst_b]:.4g} ({worst_b}, <= {TRAIN_BN_BIAS_RATIO}) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     fail_unless(ok, "train parity over tolerance")
-    for name in TRAIN_CONTROLS:  # the check must refuse a missing or garbled deep gradient
+    for name in TRAIN_CONTROLS:  # the check must refuse a missing or garbled gradient
         for how, scale in (("zeroed", 0.0), ("halved", 0.5)):
             bad = {**got, name: got[name] * scale}
             rel_bad = grad_rel(bad, emul)

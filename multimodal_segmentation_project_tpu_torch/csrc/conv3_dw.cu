@@ -6,10 +6,16 @@
 // with x zero outside the volume (the SAME halo).
 //
 // Replaces: multimodal_segmentation_project_tpu/ops/pallas_conv.py
-//   _dw_kernel_shared (the dW of conv3x3x3_cf's backward, _conv_dw_shared).
+//   * _dw_kernel_shared (the dW of conv3x3x3_cf's backward, _conv_dw_shared,
+//     and of conv3x3x3_cf_stats's): conv3_dw_partial_kernel<.., false>;
+//   * _dw_kernel_prologue (the dW of the fused boundary ops,
+//     _conv_dw_prologue): conv3_dw_partial_kernel<.., true>, the same
+//     product with the input staged as bf16(relu(x * a + t)), a, t fp32 per
+//     (batch, channel), the halo kept 0 (conv3_tile.cuh).
 //
-// Layout: x (B, Cin, D, H, W) bf16, g (B, Cout, D, H, W) bf16, dW
-// (27, Cin, Cout) fp32 = (3, 3, 3, Cin, Cout), all contiguous. The wrapper
+// Layout: x (B, Cin, D, H, W) bf16, g (B, Cout, D, H, W) bf16, a, t (B, Cin)
+// fp32 (prologue only), dW (27, Cin, Cout) fp32 = (3, 3, 3, Cin, Cout), all
+// contiguous. The wrapper
 // allocates the fp32 scratch `partial` of nblk * ceil(Cin/16) * 27 * 16 *
 // Cout16 values (ops/conv3.py:dw_partial_blocks picks nblk).
 //
@@ -36,7 +42,9 @@
 // 0.14 ms. Like the forward kernel it stages with scalar shared-memory
 // stores and runs staging and MMAs in synchronised phases, so it is bound
 // by the staging and its latency. At Cout = 64 the accumulators take 128
-// registers a thread, so one 256-thread block fits on an SM.
+// registers a thread, so one 256-thread block fits on an SM. The prologue
+// adds two fp32 operations and a cast per staged element and no bytes: the
+// activated input of the boundary conv is never written to device memory.
 #include <mma.h>
 
 #include "conv3_tile.cuh"
@@ -55,9 +63,10 @@ constexpr size_t dw_smem_bytes() {
   return size_t(X_ELEMS + COUT * GLD) * sizeof(bf16);
 }
 
-template <int COUT>
+template <int COUT, bool PRO>
 __global__ void __launch_bounds__(THREADS)
 conv3_dw_partial_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                        const float* __restrict__ a, const float* __restrict__ t,
                         float* __restrict__ partial, int Cin, int Cout, int D, int H, int W,
                         int tiles_w, int tiles_h, int tiles_d, int n_tiles) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -77,9 +86,9 @@ conv3_dw_partial_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
 #pragma unroll
     for (int nf = 0; nf < NF; ++nf) wmma::fill_fragment(acc[j][nf], 0.0f);
 
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int tw = t % tiles_w;
-    int r = t / tiles_w;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int tw = tile % tiles_w;
+    int r = tile / tiles_w;
     const int th = r % tiles_h;
     r /= tiles_h;
     const int td = r % tiles_d;
@@ -87,7 +96,7 @@ conv3_dw_partial_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
     const int d0 = td * TD, h0 = th * TH, w0 = tw * TW;
 
     __syncthreads();  // every warp is done with the previous tile
-    stage_halo(xs, x, b, c0, Cin, D, H, W, d0, h0, w0);
+    stage_halo<PRO>(xs, x, a, t, b, c0, Cin, D, H, W, d0, h0, w0);
     for (int i = threadIdx.x; i < COUT * TM; i += THREADS) {
       const int co = i / TM;
       const int m = i - co * TM;
@@ -151,18 +160,20 @@ conv3_dw_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dw
   dw[i] = s;
 }
 
-template <int COUT>
-cudaError_t launch(const void* x, const void* g, void* partial, void* dw, int B, int Cin,
-                   int Cout, int D, int H, int W, int nblk, cudaStream_t stream) {
+template <int COUT, bool PRO>
+cudaError_t launch(const void* x, const void* g, const void* a, const void* t, void* partial,
+                   void* dw, int B, int Cin, int Cout, int D, int H, int W, int nblk,
+                   cudaStream_t stream) {
   const int smem = int(dw_smem_bytes<COUT>());
-  cudaError_t err = cudaFuncSetAttribute(conv3_dw_partial_kernel<COUT>,
+  cudaError_t err = cudaFuncSetAttribute(conv3_dw_partial_kernel<COUT, PRO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH, tiles_d = (D + TD - 1) / TD;
   const int n_tiles = B * tiles_d * tiles_h * tiles_w;
   const int nchunk = (Cin + CK - 1) / CK;
-  conv3_dw_partial_kernel<COUT><<<dim3(nblk, nchunk), THREADS, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<float*>(partial),
+  conv3_dw_partial_kernel<COUT, PRO><<<dim3(nblk, nchunk), THREADS, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<const float*>(a),
+      static_cast<const float*>(t), static_cast<float*>(partial),
       Cin, Cout, D, H, W, tiles_w, tiles_h, tiles_d, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -173,17 +184,32 @@ cudaError_t launch(const void* x, const void* g, void* partial, void* dw, int B,
   return cudaGetLastError();
 }
 
+template <bool PRO>
+int dispatch(const void* x, const void* g, const void* a, const void* t, void* partial,
+             void* dw, int B, int Cin, int Cout, int D, int H, int W, int nblk, void* stream) {
+  if (nblk < 1) return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((Cout + 15) / 16) {
+    case 1: return launch<16, PRO>(x, g, a, t, partial, dw, B, Cin, Cout, D, H, W, nblk, s);
+    case 2: return launch<32, PRO>(x, g, a, t, partial, dw, B, Cin, Cout, D, H, W, nblk, s);
+    case 3: return launch<48, PRO>(x, g, a, t, partial, dw, B, Cin, Cout, D, H, W, nblk, s);
+    case 4: return launch<64, PRO>(x, g, a, t, partial, dw, B, Cin, Cout, D, H, W, nblk, s);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 MMSEG_API int mmseg_conv3_dw(const void* x, const void* g, void* partial, void* dw, int B,
                              int Cin, int Cout, int D, int H, int W, int nblk, void* stream) {
-  if (nblk < 1) return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((Cout + 15) / 16) {
-    case 1: return launch<16>(x, g, partial, dw, B, Cin, Cout, D, H, W, nblk, s);
-    case 2: return launch<32>(x, g, partial, dw, B, Cin, Cout, D, H, W, nblk, s);
-    case 3: return launch<48>(x, g, partial, dw, B, Cin, Cout, D, H, W, nblk, s);
-    case 4: return launch<64>(x, g, partial, dw, B, Cin, Cout, D, H, W, nblk, s);
-    default: return int(cudaErrorInvalidValue);
-  }
+  return dispatch<false>(x, g, nullptr, nullptr, partial, dw, B, Cin, Cout, D, H, W, nblk,
+                         stream);
+}
+
+// Kernel 6: dW of the conv of bf16(relu(x * a + t)), a, t (B, Cin) fp32.
+MMSEG_API int mmseg_conv3_dw_prologue(const void* x, const void* g, const void* a,
+                                      const void* t, void* partial, void* dw, int B, int Cin,
+                                      int Cout, int D, int H, int W, int nblk, void* stream) {
+  if (a == nullptr || t == nullptr) return int(cudaErrorInvalidValue);
+  return dispatch<true>(x, g, a, t, partial, dw, B, Cin, Cout, D, H, W, nblk, stream);
 }

@@ -9,6 +9,12 @@
 // fragment of the forward, column-major (channel, voxel) for the dW
 // product. Loads outside the volume, and channels past Cin, are zero: that
 // is the SAME halo, and no padded copy of x exists.
+//
+// The optional prologue (PRO = true) stages bf16(max(x * a + t, 0)) in
+// place of x, with fp32 a, t per (batch, channel): the preceding conv's
+// training-mode BatchNorm, ReLU and Dropout3d folded into one affine. It
+// runs only on voxels inside the volume, so the halo stays 0 (relu(t) is
+// not 0 where t > 0); that is the bounds test the plain staging has anyway.
 #pragma once
 
 #include "common.cuh"
@@ -26,11 +32,23 @@ constexpr int WR = TW + 2;    // haloed tile columns
 constexpr int X_ELEMS = DR * HR * WR * CK;
 constexpr int THREADS = 32 * TD * TH;  // one warp per output row
 
+// The prologue's value of one voxel: x * a + t rounded after each fp32
+// operation (no FMA contraction, as the plain version computes it), ReLU
+// that keeps a NaN (as jnp.maximum does), one cast.
+__device__ __forceinline__ bf16 prologue(bf16 v, float a, float t) {
+  float u = __fadd_rn(__fmul_rn(__bfloat162float(v), a), t);
+  u = u < 0.0f ? 0.0f : u;
+  return __float2bfloat16(u);
+}
+
 // Stage channels [c0, c0 + 16) of the haloed input tile whose output
-// corner is (d0, h0, w0) in batch element b.
+// corner is (d0, h0, w0) in batch element b; with PRO, through the
+// prologue with a, t of shape (B, Cin).
+template <bool PRO>
 __device__ __forceinline__ void stage_halo(bf16* __restrict__ xs, const bf16* __restrict__ x,
-                                           int b, int c0, int Cin, int D, int H, int W,
-                                           int d0, int h0, int w0) {
+                                           const float* __restrict__ a,
+                                           const float* __restrict__ t, int b, int c0, int Cin,
+                                           int D, int H, int W, int d0, int h0, int w0) {
   const size_t hw = size_t(H) * W;
   const size_t vol = hw * D;
   for (int i = threadIdx.x; i < X_ELEMS; i += THREADS) {
@@ -42,8 +60,11 @@ __device__ __forceinline__ void stage_halo(bf16* __restrict__ xs, const bf16* __
     const int ci = r / DR;
     const int gd = d0 + zz - 1, gh = h0 + yy - 1, gw = w0 + xx - 1;
     bf16 v = bf16_zero();
-    if (c0 + ci < Cin && gd >= 0 && gd < D && gh >= 0 && gh < H && gw >= 0 && gw < W)
-      v = x[(size_t(b) * Cin + c0 + ci) * vol + size_t(gd) * hw + size_t(gh) * W + gw];
+    if (c0 + ci < Cin && gd >= 0 && gd < D && gh >= 0 && gh < H && gw >= 0 && gw < W) {
+      const int c = c0 + ci;
+      v = x[(size_t(b) * Cin + c) * vol + size_t(gd) * hw + size_t(gh) * W + gw];
+      if (PRO) v = prologue(v, a[b * Cin + c], t[b * Cin + c]);
+    }
     xs[((zz * HR + yy) * WR + xx) * CK + ci] = v;
   }
 }

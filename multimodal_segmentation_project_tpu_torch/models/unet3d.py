@@ -10,7 +10,8 @@ and from the JAX package. Every op is routed by channel width alone:
 
 * a 3x3x3 conv with Cin, Cout <= 64 -> ``ops.conv3`` (eval:
   ``conv3x3x3_cf_relu``, BN folded; train: ``conv3x3x3_cf``, whose
-  backward runs the dx and dW kernels);
+  backward runs the dx and dW kernels), and in train mode a DoubleConv
+  whose two convs both are -> ``ops.conv3_fused`` (the fused block);
 * every pool, at every width -> ``ops.pool.max_pool2x_cf`` (forward and
   backward kernels);
 * an upconv with Cout <= 64 -> ``ops.upconv.upconv2x_cf``;
@@ -27,17 +28,28 @@ there; in fp32 that moves the logits by rounding only). At 192^3 and
 default widths this is 11 conv, 4 pool, 3 upconv and 1 head kernel launch
 per forward on a GPU.
 
-Train-mode forward (``model.train()``): the JAX package's unfused
-DoubleConv, [conv -> BatchNorm with batch statistics -> ReLU -> Dropout3d]
-x 2, which computes the same function as its fused Pallas DoubleConv (in
-fp32; the fused form rounds the statistics' input to bf16 elsewhere). The
-statistics are fp32 over the conv's output in the working dtype, the
+Train-mode forward (``model.train()``): the JAX package's training
+DoubleConv as it runs on its chip. A block whose two convs both have Cin,
+Cout <= 64 (enc0-enc2, dec2, dec3 at the default widths) takes the fused
+path (``unet3d.py:_fused_boundary_path``): conv0 emits its output y0 and
+per-channel sums (``conv3x3x3_cf_stats``), BatchNorm0 reduces to a
+per-channel affine (:func:`batch_norm_affine`), the Dropout3d keep mask
+(scaled by 1 / keep) folds into it, and conv1 applies that affine and the
+ReLU to its input tile (``conv3x3x3_cf_boundary_stats`` on the raw y0), so
+the activation between the convs never exists in device memory; then
+BatchNorm1's affine, ReLU and the second mask in fp32, one cast. Any other
+block (dec1, whose conv0 is 128->64, and the deep region) runs the per-conv
+chain [conv -> BatchNorm with batch statistics -> ReLU -> Dropout3d] x 2,
+as the JAX package's per-conv loop does. Both compute the same function; the
+fused one takes its statistics as sums of the conv's rounded output. The
 variance is the biased max(E[y^2] - E[y]^2, 0), and the running statistics
 update as flax's do (momentum 0.9 on the old value, the biased variance).
 Dropout3d draws one keep mask per (batch, channel) from the ``generator``
-passed to :meth:`UNet3D.forward`. A 192^3 train step at default widths
-launches 11 conv forward, 10 dx (not the image's), 11 dW, 4 pool forward,
-4 pool backward, 3 upconv, 1 head and 1 head-dx kernel on a GPU.
+passed to :meth:`UNet3D.forward`, in the same order on both paths. A 192^3
+train step at default widths launches 5 conv+stats, 5 boundary conv+stats,
+1 conv forward (dec1's conv1), 5 dx, 5 dx-epilogue, 6 dW, 5 prologue dW, 4
+pool forward, 4 pool backward, 3 upconv, 1 head and 1 head-dx kernel on a
+GPU.
 
 On the CPU the same ops run their plain versions. ``dtype`` is the compute
 dtype (bf16 on the GPU, fp32 in the CPU tests); parameters stay fp32.
@@ -51,10 +63,18 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from multimodal_segmentation_project_tpu_torch.ops import conv3, head, pool, upconv
+from multimodal_segmentation_project_tpu_torch.ops import conv3, conv3_fused, head, pool, upconv
 
 
 FLAX_MOMENTUM = 0.9  # weight of the old value in the running statistics
+
+
+def _update_running(bn: nn.BatchNorm3d, mean: torch.Tensor, var: torch.Tensor) -> None:
+    """flax's running update: momentum on the old value, the biased variance."""
+    with torch.no_grad():
+        bn.running_mean.copy_(FLAX_MOMENTUM * bn.running_mean + (1 - FLAX_MOMENTUM) * mean)
+        bn.running_var.copy_(FLAX_MOMENTUM * bn.running_var + (1 - FLAX_MOMENTUM) * var)
+        bn.num_batches_tracked += 1
 
 
 def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm3d) -> torch.Tensor:
@@ -66,25 +86,51 @@ def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm3d) -> torch.Tensor:
     dims = (0, 2, 3, 4)
     mean = yf.mean(dims)
     var = torch.clamp(yf.square().mean(dims) - mean.square(), min=0.0)
-    with torch.no_grad():
-        bn.running_mean.copy_(FLAX_MOMENTUM * bn.running_mean + (1 - FLAX_MOMENTUM) * mean)
-        bn.running_var.copy_(FLAX_MOMENTUM * bn.running_var + (1 - FLAX_MOMENTUM) * var)
-        bn.num_batches_tracked += 1
+    _update_running(bn, mean, var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     return (yf - mean.reshape(1, -1, 1, 1, 1)) * mul.reshape(1, -1, 1, 1, 1) + bn.bias.reshape(
         1, -1, 1, 1, 1)
 
 
+def batch_norm_affine(s1: torch.Tensor, s2: torch.Tensor, n: int,
+                      bn: nn.BatchNorm3d) -> tuple[torch.Tensor, torch.Tensor]:
+    """Train-mode BatchNorm from per-channel fp32 sums of y and y^2 over n
+    values, as the JAX package's ``BatchNormCF(return_affine=True)``: mean
+    s1 / n, the biased variance max(s2 / n - mean^2, 0), flax's running
+    update, and the per-channel affine (a, t) with BN(y) = y a + t:
+    a = scale * rsqrt(var + eps), t = bias - mean a."""
+    mean = s1 / n
+    var = torch.clamp(s2 / n - mean * mean, min=0.0)
+    _update_running(bn, mean, var)
+    a = bn.weight * torch.rsqrt(var + bn.eps)
+    return a, bn.bias - mean * a
+
+
+def _keep_mask(shape: tuple[int, int], rate: float, generator: torch.Generator | None,
+               device: torch.device) -> torch.Tensor:
+    """Dropout3d's keep mask per (batch, channel), drawn on the generator's
+    device and moved to ``device``."""
+    dev = generator.device if generator is not None else torch.device("cpu")
+    mask = torch.rand(shape, generator=generator, device=dev) < 1.0 - rate
+    return mask.to(device, non_blocking=True)
+
+
+def dropout_scale(shape: tuple[int, int], rate: float, generator: torch.Generator | None,
+                  device: torch.device) -> torch.Tensor | None:
+    """The keep mask as fp32 mask / keep (B, C), the factor the fused block
+    folds into its affine; None when the rate is 0."""
+    if rate <= 0.0:
+        return None
+    return _keep_mask(shape, rate, generator, device).float() / (1.0 - rate)
+
+
 def dropout3d(z: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
-    """Channel dropout: one keep mask per (batch, channel), drawn on the
-    generator's device, kept values scaled by 1 / (1 - rate)."""
+    """Channel dropout: one keep mask per (batch, channel), kept values
+    scaled by 1 / (1 - rate)."""
     if rate <= 0.0:
         return z
-    keep = 1.0 - rate
-    dev = generator.device if generator is not None else torch.device("cpu")
-    mask = torch.rand(z.shape[:2], generator=generator, device=dev) < keep
-    mask = mask.to(z.device, non_blocking=True)[:, :, None, None, None]
-    return torch.where(mask, z / keep, torch.zeros((), dtype=z.dtype, device=z.device))
+    mask = _keep_mask(tuple(z.shape[:2]), rate, generator, z.device)[:, :, None, None, None]
+    return torch.where(mask, z / (1.0 - rate), torch.zeros((), dtype=z.dtype, device=z.device))
 
 
 class DoubleConv(nn.Module):
@@ -125,8 +171,44 @@ class DoubleConv(nn.Module):
                 x = torch.relu(F.conv3d(x, wt, b.to(dtype), padding=1))
         return x
 
+    def fused(self) -> bool:
+        """Whether the train-mode forward takes the fused path: both convs
+        on the kernels."""
+        c0, c1 = self.double_conv[0], self.double_conv[4]
+        return (conv3.supported(c0.in_channels, c0.out_channels)
+                and conv3.supported(c1.in_channels, c1.out_channels))
+
     def forward_train(self, x: torch.Tensor, dtype: torch.dtype,
                       generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.fused():
+            return self.forward_train_fused(x, dtype, generator)
+        return self.forward_train_per_conv(x, dtype, generator)
+
+    def forward_train_fused(self, x: torch.Tensor, dtype: torch.dtype,
+                            generator: torch.Generator | None = None) -> torch.Tensor:
+        """The fused block, step by step as ``unet3d.py:_fused_boundary_path``."""
+        conv0, bn0, drop0, conv1, bn1, drop1 = (self.double_conv[i] for i in (0, 1, 3, 4, 5, 7))
+        y0, s1, s2 = conv3_fused.conv3x3x3_cf_stats(
+            x.to(dtype), conv0.weight.permute(2, 3, 4, 1, 0), conv0.bias)
+        n = y0.numel() // y0.shape[1]
+        bsz, c = y0.shape[:2]
+        a, t = batch_norm_affine(s1, s2, n, bn0)
+        a, t = a.expand(bsz, c), t.expand(bsz, c)
+        m0 = dropout_scale((bsz, c), drop0.p, generator, y0.device)
+        if m0 is not None:  # mask >= 0, so relu(y a m + t m) = relu(y a + t) m
+            a, t = a * m0, t * m0
+        y1, s1, s2 = conv3_fused.conv3x3x3_cf_boundary_stats(
+            y0, conv1.weight.permute(2, 3, 4, 1, 0), conv1.bias, a, t)
+        a, t = batch_norm_affine(s1, s2, n, bn1)
+        z = torch.relu(y1.float() * a.reshape(1, -1, 1, 1, 1) + t.reshape(1, -1, 1, 1, 1))
+        m1 = dropout_scale((bsz, c), drop1.p, generator, y1.device)
+        if m1 is not None:
+            z = z * m1[:, :, None, None, None]
+        return z.to(dtype)
+
+    def forward_train_per_conv(self, x: torch.Tensor, dtype: torch.dtype,
+                               generator: torch.Generator | None = None) -> torch.Tensor:
+        """[conv -> BatchNorm -> ReLU -> Dropout3d] x 2, one conv at a time."""
         for ci, bi, di in ((0, 1, 3), (4, 5, 7)):
             conv, bn = self.double_conv[ci], self.double_conv[bi]
             x = x.to(dtype)

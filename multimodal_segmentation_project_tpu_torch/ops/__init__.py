@@ -1,15 +1,22 @@
 """Ops of the port. Each kernel op launches a hand-written CUDA kernel on
 CUDA tensors and runs its plain PyTorch version on CPU tensors; each counts
 its kernel launches in a ``launches`` attribute. The differentiable ops
-(the training conv, the pool, the upconv and the head) count their
-forward launches on themselves and their backward kernels on the wrappers
-named here."""
+(the training conv, the fused DoubleConv's convs, the pool, the upconv and
+the head) count their forward launches on themselves and their backward
+kernels on the wrappers named here."""
 
 from multimodal_segmentation_project_tpu_torch.ops.conv3 import (
     conv3x3x3_cf,
     conv3x3x3_cf_dw,
     conv3x3x3_cf_dx,
     conv3x3x3_cf_relu,
+)
+from multimodal_segmentation_project_tpu_torch.ops.conv3_fused import (
+    conv3x3x3_cf_boundary,
+    conv3x3x3_cf_boundary_stats,
+    conv3x3x3_cf_dw_prologue,
+    conv3x3x3_cf_dx_epilogue,
+    conv3x3x3_cf_stats,
 )
 from multimodal_segmentation_project_tpu_torch.ops.head import head1x1_cf, head1x1_cf_dx
 from multimodal_segmentation_project_tpu_torch.ops.pool import max_pool2x_cf, max_pool2x_cf_bwd
@@ -20,6 +27,11 @@ KERNEL_OPS = {
     "conv3x3x3_cf": conv3x3x3_cf,
     "conv3x3x3_cf_dx": conv3x3x3_cf_dx,
     "conv3x3x3_cf_dw": conv3x3x3_cf_dw,
+    "conv3x3x3_cf_stats": conv3x3x3_cf_stats,
+    "conv3x3x3_cf_boundary_stats": conv3x3x3_cf_boundary_stats,
+    "conv3x3x3_cf_boundary": conv3x3x3_cf_boundary,
+    "conv3x3x3_cf_dx_epilogue": conv3x3x3_cf_dx_epilogue,
+    "conv3x3x3_cf_dw_prologue": conv3x3x3_cf_dw_prologue,
     "max_pool2x_cf": max_pool2x_cf,
     "max_pool2x_cf_bwd": max_pool2x_cf_bwd,
     "upconv2x_cf": upconv2x_cf,

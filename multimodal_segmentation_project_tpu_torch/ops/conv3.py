@@ -18,7 +18,8 @@ Port of ``multimodal_segmentation_project_tpu/ops/pallas_conv.py``:
 On CUDA tensors each launches its hand-written kernel: ``csrc/conv3.cu``
 (one implicit-GEMM body; the eval conv's bias+ReLU epilogue and the
 training conv's cast-then-bias epilogue, also used for dx) and
-``csrc/conv3_dw.cu``. On CPU tensors each runs its ``*_reference``, the
+``csrc/conv3_dw.cu``. The fused DoubleConv's convs, on the same kernels,
+are in ``ops.conv3_fused``. On CPU tensors each runs its ``*_reference``, the
 plain version of the same arithmetic. Each wrapper counts its launches.
 """
 
@@ -107,19 +108,28 @@ def _check_conv(name: str, x: torch.Tensor, w: torch.Tensor) -> int:
     return cout
 
 
-def _launch_conv(name: str, entry: str, x: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor | None) -> torch.Tensor:
+def conv_operands(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None):
+    """Checks for a conv kernel on (x, w, b); the packed weights, the fp32
+    bias (None without one) and the bf16 output (B, Cout, D, H, W)."""
     cout = _check_conv(name, x, w)
-    bsz, cin, d, h, wd = x.shape
-    wk = pack_weights(w.to(x.device))
     bk = None
     if b is not None:
         if tuple(b.shape) != (cout,):
             raise ValueError(f"{name}: bias {tuple(b.shape)} does not match Cout={cout}")
         bk = b.to(x.device, torch.float32).contiguous()
-    out = torch.empty((bsz, cout, d, h, wd), dtype=torch.bfloat16, device=x.device)
+    wk = pack_weights(w.to(x.device))
+    out = torch.empty((x.shape[0], cout) + tuple(x.shape[2:]), dtype=torch.bfloat16,
+                      device=x.device)
+    return wk, bk, out
+
+
+def _launch_conv(name: str, entry: str, x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor | None) -> torch.Tensor:
+    wk, bk, out = conv_operands(name, x, w, b)
+    bsz, cin, d, h, wd = x.shape
     _build.launch(name, entry, x, x.data_ptr(), wk.data_ptr(),
-                  None if bk is None else bk.data_ptr(), out.data_ptr(), bsz, cin, cout, d, h, wd)
+                  None if bk is None else bk.data_ptr(), out.data_ptr(), bsz, cin, out.shape[1],
+                  d, h, wd)
     return out
 
 
@@ -159,12 +169,9 @@ def dw_partial_blocks(device: torch.device, cin: int) -> int:
     return max(1, 4 * sms // -(-cin // 16))
 
 
-def conv3x3x3_cf_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """fp32 dW (3, 3, 3, Cin, Cout) of the conv from its input x (B, Cin, D,
-    H, W) and cotangent g (B, Cout, D, H, W); bf16 inputs only on CUDA."""
-    if x.device.type == "cpu":
-        return conv3x3x3_cf_dw_reference(x, g)
-    name = "conv3x3x3_cf_dw"
+def dw_operands(name: str, x: torch.Tensor, g: torch.Tensor):
+    """Checks for a dW kernel on input x and cotangent g; its fp32 scratch,
+    its fp32 output (3, 3, 3, Cin, Cout) and its integer arguments."""
     _build.require(name, x, torch.bfloat16, 5)
     _build.require(name, g, torch.bfloat16, 5)
     bsz, cin, d, h, wd = x.shape
@@ -178,8 +185,18 @@ def conv3x3x3_cf_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     partial = torch.empty(nblk * -(-cin // 16) * 27 * 16 * (-(-cout // 16) * 16),
                           dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    return partial, dw, (bsz, cin, cout, d, h, wd, nblk)
+
+
+def conv3x3x3_cf_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """fp32 dW (3, 3, 3, Cin, Cout) of the conv from its input x (B, Cin, D,
+    H, W) and cotangent g (B, Cout, D, H, W); bf16 inputs only on CUDA."""
+    if x.device.type == "cpu":
+        return conv3x3x3_cf_dw_reference(x, g)
+    name = "conv3x3x3_cf_dw"
+    partial, dw, args = dw_operands(name, x, g)
     _build.launch(name, "mmseg_conv3_dw", x, x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                  dw.data_ptr(), bsz, cin, cout, d, h, wd, nblk)
+                  dw.data_ptr(), *args)
     conv3x3x3_cf_dw.launches += 1
     return dw
 

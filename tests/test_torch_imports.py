@@ -14,7 +14,8 @@ import torch
 
 import multimodal_segmentation_project_tpu_torch as port
 from multimodal_segmentation_project_tpu_torch import ops
-from multimodal_segmentation_project_tpu_torch.ops import _build, conv3, head, pool, upconv
+from multimodal_segmentation_project_tpu_torch.ops import _build, conv3, conv3_fused, head, pool
+from multimodal_segmentation_project_tpu_torch.ops import upconv
 from multimodal_segmentation_project_tpu_torch.workloads import test_model, train_unet
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -94,6 +95,15 @@ def test_train_cli_takes_the_jax_clis_flags_and_defaults():
         (conv3.conv3x3x3_cf_dw, lambda t: (t(1, 2, 4, 4, 4), t(1, 4, 4, 4, 4))),
         (pool.max_pool2x_cf_bwd, lambda t: (t(1, 2, 4, 4, 4), t(1, 2, 2, 2, 2), t(1, 2, 2, 2, 2))),
         (head.head1x1_cf_dx, lambda t: (t(1, 4, 4, 4, 4), t(2, 4), torch.bfloat16)),
+        (conv3_fused.conv3x3x3_cf_stats, lambda t: (t(1, 2, 4, 4, 4), t(3, 3, 3, 2, 4), t(4))),
+        (conv3_fused.conv3x3x3_cf_boundary_stats,
+         lambda t: (t(1, 2, 4, 4, 4), t(3, 3, 3, 2, 4), t(4), t(1, 2), t(1, 2))),
+        (conv3_fused.conv3x3x3_cf_boundary,
+         lambda t: (t(1, 2, 4, 4, 4), t(3, 3, 3, 2, 4), t(4), t(1, 2), t(1, 2))),
+        (conv3_fused.conv3x3x3_cf_dx_epilogue,
+         lambda t: (t(1, 4, 4, 4, 4), t(3, 3, 3, 2, 4), t(1, 2, 4, 4, 4), t(1, 2), t(1, 2))),
+        (conv3_fused.conv3x3x3_cf_dw_prologue,
+         lambda t: (t(1, 2, 4, 4, 4), t(1, 4, 4, 4, 4), t(1, 2), t(1, 2))),
     ],
 )
 def test_wrappers_take_the_plain_version_only_for_cpu_tensors(op, args):

@@ -1,11 +1,12 @@
 """The port's training path on the CPU against the JAX package's, with the
 same weights carried across (``engine.interop.trees_to_state_dict``).
 
-* DoubleConv in train mode: the port's unfused block against the JAX
-  package's fused Pallas DoubleConv (interpret mode, fp32, dropout 0):
-  outputs, running statistics and gradients within 2e-5 of max |jax| (the
-  same function; the fused kernel takes its statistics as sums over its
-  tiles, the port as means, and the sums run in other orders).
+* DoubleConv in train mode: the port's per-conv chain (which dec1 and the
+  deep region run) and its fused block, each against the JAX package's
+  fused Pallas DoubleConv (interpret mode, fp32, dropout 0): outputs,
+  running statistics and gradients within 2e-5 of max |jax| (the same
+  function; the per-conv chain takes its statistics as means, the fused
+  ops as sums, and the sums run in other orders).
 * Two train steps of ``make_train_step`` against the JAX one (XLA convs,
   fp32, dropout 0, augmentation off, batch 2, AdamW from zero moments):
   first-step gradients within 1e-4 of max |jax| per parameter, losses
@@ -101,10 +102,11 @@ def _double_conv_state_dict(params, stats) -> dict:
             if k.startswith("bottleneck.")}
 
 
-# ---- DoubleConv: the unfused port against the fused Pallas JAX block ------------
+# ---- DoubleConv: the port's two train paths against the fused Pallas JAX block ---
 
 
 def test_unfused_doubleconv_matches_the_fused_pallas_doubleconv():
+    """The per-conv chain and the fused block, one JAX reference."""
     rng = np.random.default_rng(0)
     x = rng.normal(size=(2, 4, 8, 8, 16)).astype(np.float32)
     g = rng.normal(size=(2, 8, 8, 8, 16)).astype(np.float32)
@@ -131,21 +133,23 @@ def test_unfused_doubleconv_matches_the_fused_pallas_doubleconv():
 
     want, upd, (gp, gx) = fused(params, jnp.asarray(x), jnp.asarray(g))
 
-    block = DoubleConv(4, 8, dropout_rate=0.0)
-    block.load_state_dict(_double_conv_state_dict(params, stats))
-    block.train()
-    xt = torch.from_numpy(x).requires_grad_(True)
-    got = block(xt, torch.float32)
-    got.backward(torch.from_numpy(g))
-
-    _close(got.detach(), want, 2e-5, "y")
-    _close(xt.grad, gx, 2e-5, "dx")
     want_sd = _double_conv_state_dict(_np(gp), _np(upd["batch_stats"]))
-    for k, v in block.state_dict().items():
-        if "running" in k:
-            _close(v, want_sd[k], 2e-5, k)
-    _check_grads({n: p.grad.numpy() for n, p in block.named_parameters()},
-                 {n: want_sd[n].numpy() for n, _ in block.named_parameters()}, 2e-5)
+
+    for path in ("forward_train_per_conv", "forward_train_fused"):
+        block = DoubleConv(4, 8, dropout_rate=0.0)
+        block.load_state_dict(_double_conv_state_dict(params, stats))
+        block.train()
+        xt = torch.from_numpy(x).requires_grad_(True)
+        got = getattr(block, path)(xt, torch.float32)
+        got.backward(torch.from_numpy(g))
+
+        _close(got.detach(), want, 2e-5, f"{path} y")
+        _close(xt.grad, gx, 2e-5, f"{path} dx")
+        for k, v in block.state_dict().items():
+            if "running" in k:
+                _close(v, want_sd[k], 2e-5, f"{path} {k}")
+        _check_grads({n: p.grad.numpy() for n, p in block.named_parameters()},
+                     {n: want_sd[n].numpy() for n, _ in block.named_parameters()}, 2e-5)
 
 
 # ---- two train steps against the JAX make_train_step ------------------------------
