@@ -9,12 +9,18 @@ Phases, each printing one line per check; any failure exits non-zero:
    ``nvidia-smi`` name and power limit, and the torch and CUDA versions;
 2. build: compiles every kernel of ``multimodal_segmentation_project_tpu_torch/csrc``
    with nvcc (one process per source, in parallel), from this checkout;
+   prints ptxas's registers and spills of each of the 24 instances of the
+   conv body (``csrc/conv3.cu``) and its dynamic shared memory per block;
 3. kernels: each kernel against its plain PyTorch version at every shape
    the 192^3 eval forward and train step give it, in bf16, on seeded
    inputs; prints the error against the stated tolerance, the median time
-   of the kernel, of its plain version and of one library call over
-   distinct inputs (CUDA events), and its bound: the larger of its bytes
-   over 3.35 TB/s and its FLOPs over 989 TFLOP/s;
+   of the kernel as called, of its plain version and of one library call
+   over distinct inputs (CUDA events), and its bound: the larger of its
+   bytes over 3.35 TB/s and its FLOPs over 989 TFLOP/s. For the conv-body
+   instances also the bare launch (operands packed before the timed
+   window, BARE_REPS runs over the distinct inputs between two CUDA
+   events, over the count) and the kernel/library ratios per shape, and
+   their sum per train step;
 4. slice: writes two synthetic 192^3 CT cases and a seeded default-width
    UNet3D ``.pth``, runs the port's eval CLI (``workloads.test_model``) on
    the GPU, checks its artifacts and that every forward launched exactly
@@ -46,6 +52,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -179,6 +186,29 @@ def phase_device():
     return name, card
 
 
+EPILOGUES = {"0": "bias+ReLU (7)", "1": "cast-then-bias (1, 1-dx, 12)", "2": "bias+stats (3, 4)",
+             "3": "dx mask (5)"}
+
+
+def conv_body_resources(log: str) -> list:
+    """One line per instance of conv3.cu's conv3_kernel<COUT, EPI, PRO>
+    from ptxas's -v output: its registers and spills."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line, ""
+        elif "spill" in line and name is not None:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name is not None:
+            m = re.search(r"conv3_kernelILi(\d+)ELi(\d)ELb(\d)E", name)
+            if m:
+                cout, epi, pro = m.groups()
+                out.append(f"conv3_kernel<COUT={cout}, {EPILOGUES[epi]}, prologue={pro}>: "
+                           f"{line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return sorted(out)
+
+
 def phase_build() -> None:
     import multimodal_segmentation_project_tpu_torch as pkg
     from multimodal_segmentation_project_tpu_torch.ops import _build
@@ -188,11 +218,19 @@ def phase_build() -> None:
                 f"port package imported from {pkg.__file__}, not from {ROOT}")
     cached = _build.library_path().exists()
     t0 = time.perf_counter()
-    _build.load()
+    lib = _build.load()
     secs = time.perf_counter() - t0
     print(f"[build] {_build.library_path().relative_to(ROOT)} "
           f"{'loaded from an earlier build' if cached else 'built by nvcc and loaded'} "
           f"in {secs:.2f} s", flush=True)
+    lines = conv_body_resources(_build.build_log_path().read_text())
+    fail_unless(len(lines) == 24, f"ptxas reported {len(lines)} conv3_kernel instances, not 24")
+    for line in lines:
+        print(f"[build] ptxas {line}", flush=True)
+    print("[build] conv3_kernel dynamic shared memory per block, one chunk of 16 input "
+          "channels / more: " + ", ".join(
+              f"COUT={c} {lib.mmseg_conv3_smem_bytes(c, 1)} / {lib.mmseg_conv3_smem_bytes(c, 2)} B"
+              for c in (16, 32, 48, 64)), flush=True)
 
 
 def _time_ms(fn, inputs) -> float:
@@ -211,6 +249,38 @@ def _time_ms(fn, inputs) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+BARE_REPS = 4  # runs over the distinct inputs per bare-launch timing
+
+
+def _time_bare_ms(name: str, call, inputs) -> float:
+    """Mean time of one bare launch of a conv-body entry point: the operands
+    packed and the outputs allocated before the window, then BARE_REPS runs
+    over the distinct inputs between two CUDA events, over the count."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.ops import _build
+
+    lib = _build.load()
+    calls = [call(*args) for args in inputs]
+    fns = [(getattr(lib, c.entry), c.args) for c in calls]
+    stream = torch.cuda.current_stream().cuda_stream
+    for fn, args in fns:  # warm-up
+        _build.check(name, fn(*args, stream))
+    torch.cuda.synchronize()
+    codes = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(BARE_REPS):
+        for fn, args in fns:
+            codes.append(fn(*args, stream))
+    end.record()
+    end.synchronize()
+    for code in codes:
+        _build.check(name, code)
+    return start.elapsed_time(end) / (BARE_REPS * len(fns))
 
 
 def _bf16_ulp(t):
@@ -542,14 +612,33 @@ def _kernel_plan():
     }, randn
 
 
+def body_calls() -> dict:
+    """name -> the call of each conv-body instance (csrc/conv3.cu), ready to
+    launch bare (operands packed outside any timing window)."""
+    from multimodal_segmentation_project_tpu_torch.ops import conv3, conv3_fused
+
+    return {"conv3x3x3_cf_relu": conv3.relu_call, "conv3x3x3_cf": conv3.conv_call,
+            "conv3x3x3_cf_dx": conv3.dx_call, "conv3x3x3_cf_stats": conv3_fused.stats_call,
+            "conv3x3x3_cf_boundary_stats": conv3_fused.boundary_stats_call,
+            "conv3x3x3_cf_boundary": conv3_fused.boundary_call,
+            "conv3x3x3_cf_dx_epilogue": conv3_fused.dx_epilogue_call}
+
+
+# the conv-body instances of the train step (12 has no caller, 7 is eval's)
+TRAIN_BODY = ("conv3x3x3_cf", "conv3x3x3_cf_dx", "conv3x3x3_cf_stats",
+              "conv3x3x3_cf_boundary_stats", "conv3x3x3_cf_dx_epilogue")
+
+
 def phase_kernels() -> dict:
     """Each kernel vs its plain version at every slice shape."""
     import torch
 
     plan, randn = _kernel_plan()
+    bare = body_calls()
     results = {}
     for name, (kern, plain, lib, make, shapes, tol, work, lib_label) in plan.items():
         tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms"), 0.0)
+        bare_tot = 0.0
         max_abs = bytes_ms = ops_ms = 0.0
         for shape, mult in _count(shapes):
             inputs = make(*shape)
@@ -563,11 +652,17 @@ def phase_kernels() -> dict:
             bytes_ms += mult * nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms += mult * op_s * 1e3
             sums_label = "" if sums is None else f", sums at {sums:.4g} of their bound"
+            bare_label = ""
+            if name in bare:
+                bare_ms = _time_bare_ms(name, bare[name], inputs)
+                bare_tot += mult * bare_ms
+                bare_label = (f", bare launch {bare_ms:.4f} ms | kernel/library "
+                              f"{ms / lib_ms:.3f}, bare/library {bare_ms / lib_ms:.3f}")
             print(f"[kernel] {name} {shape} x{mult}: max_abs_err {err:.4g} scaled {rel:.4g}"
                   f"{sums_label}, {_tol_label(tol)}: {'ok' if ok else 'FAIL'} | "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms, "
                   f"library {lib_ms:.4f} ms "
-                  f"({lib_label})", flush=True)
+                  f"({lib_label}){bare_label}", flush=True)
             fail_unless(ok, f"{name} {shape}: error {err} (scaled {rel}) over tolerance")
             max_abs = max(max_abs, err)
             for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
@@ -577,9 +672,16 @@ def phase_kernels() -> dict:
             torch.cuda.empty_cache()
         results[name] = {"max_abs_err": max_abs, **tot,
                          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        bare_label = f", bare_ms {bare_tot:.4f}" if name in bare else ""
         print(f"[kernel] {name}: summed over one pass (eval forward or train step; "
               f"kernel 12 over the train step's conv1 shapes): "
-              + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()), flush=True)
+              + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()) + bare_label, flush=True)
+        if name in bare:
+            results[name]["bare_ms"] = bare_tot
+    step = {k: sum(results[n][k] for n in TRAIN_BODY) for k in ("ms", "bare_ms", "library_ms")}
+    print(f"[kernel] conv body per train step ({', '.join(TRAIN_BODY)}): kernel as called "
+          f"{step['ms']:.4f} ms, bare launches {step['bare_ms']:.4f} ms, library "
+          f"{step['library_ms']:.4f} ms", flush=True)
 
     # ragged shapes the slice does not reach: batch 2, odd extents, partial
     # channel chunks and channel groups; correctness only

@@ -6,8 +6,11 @@ compile in parallel, one ``nvcc`` process each, and one more call links
 them:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
-         -c csrc/<name>.cu -o <name>.o                          (all at once)
+         -Xptxas -v -c csrc/<name>.cu -o <name>.o               (all at once)
     nvcc -shared -o build/torch_kernels/libmmseg_kernels_<hash>.so *.o
+
+What the compilers print (ptxas's registers, spills and static shared
+memory of every kernel) is kept beside the library in ``<name>.log``.
 
 The library lands in ``build/torch_kernels/`` at the root of the checkout
 under a name keyed by a hash of the sources and the flags, so an edited
@@ -34,6 +37,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # each kernel's registers, spills and static shared memory, to the log
 )
 
 _P = ctypes.c_void_p
@@ -54,6 +58,8 @@ _SIGNATURES = {
     "mmseg_head1x1": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P),
     "mmseg_head1x1_dx": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P),
 }
+# name -> argtypes of the C functions that launch nothing (restype int)
+_QUERIES = {"mmseg_conv3_smem_bytes": (_I, _I)}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -88,9 +94,14 @@ def find_nvcc() -> str:
     )
 
 
-def _run_all(cmds: list[list[str]]) -> None:
+def build_log_path() -> Path:
+    """nvcc's output (ptxas's resource lines) of the library's build."""
+    return library_path().with_suffix(".log")
+
+
+def _run_all(cmds: list[list[str]]) -> str:
     """Run the commands side by side; raise with the output of the first
-    that fails."""
+    that fails, else return what they all printed."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for c in cmds]
     outs = [p.communicate() for p in procs]
@@ -99,6 +110,7 @@ def _run_all(cmds: list[list[str]]) -> None:
             raise KernelBuildError(
                 f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}\n{err}"
             )
+    return "".join(out + err for out, err in outs)
 
 
 def build() -> Path:
@@ -113,9 +125,10 @@ def build() -> Path:
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-                  for src, obj in zip(sources, objs)])
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                        for src, obj in zip(sources, objs)])
         _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        build_log_path().write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     finally:
         tmp.unlink(missing_ok=True)
@@ -130,7 +143,7 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
+            for name, argtypes in {**_SIGNATURES, **_QUERIES}.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

@@ -25,6 +25,8 @@ plain version of the same arithmetic. Each wrapper counts its launches.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -86,14 +88,18 @@ def conv3x3x3_cf_dw_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def pack_weights(w: torch.Tensor) -> torch.Tensor:
-    """(3, 3, 3, Cin, Cout) -> bf16 (ceil(Cin/16), 27, 16, Cout16), zero-padded:
-    one [tap][cin][cout] slab per chunk of 16 input channels, the kernel's
-    shared-memory image (Cout16 is Cout rounded up to 16)."""
+    """(3, 3, 3, Cin, Cout) -> bf16 (ceil(Cin/16), 27, Cout16, 16), zero-padded:
+    one [tap][cout][cin] slab per chunk of 16 input channels, the kernel's
+    shared-memory image before its row swizzle (Cout16 is Cout rounded up
+    to 16). One cast-and-permute copy; a pad first only where Cin or Cout
+    is not a multiple of 16."""
     cin, cout = w.shape[3], w.shape[4]
     cin_p, cout_p = -(-cin // 16) * 16, -(-cout // 16) * 16
-    w27 = w.reshape(27, cin, cout).to(torch.bfloat16)
-    w27 = F.pad(w27, (0, cout_p - cout, 0, cin_p - cin))
-    return w27.reshape(27, cin_p // 16, 16, cout_p).permute(1, 0, 2, 3).contiguous()
+    w27 = w.reshape(27, cin, cout)
+    if (cin_p, cout_p) != (cin, cout):
+        w27 = F.pad(w27, (0, cout_p - cout, 0, cin_p - cin))
+    out = torch.empty((cin_p // 16, 27, cout_p, 16), dtype=torch.bfloat16, device=w.device)
+    return out.copy_(w27.reshape(27, cin_p // 16, 16, cout_p).permute(1, 0, 3, 2))
 
 
 def _check_conv(name: str, x: torch.Tensor, w: torch.Tensor) -> int:
@@ -123,21 +129,52 @@ def conv_operands(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor |
     return wk, bk, out
 
 
-def _launch_conv(name: str, entry: str, x: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor | None) -> torch.Tensor:
+class Launch(NamedTuple):
+    """One call of a conv-body entry point (``csrc/conv3.cu``), ready to run:
+    its C arguments before the stream, what the wrapper returns, and every
+    tensor the arguments point into (alive while this is)."""
+
+    entry: str
+    args: tuple
+    result: object
+    tensors: tuple
+
+
+def run(name: str, call: Launch, t: torch.Tensor):
+    """Launch ``call`` on the device of ``t``; return its result."""
+    _build.launch(name, call.entry, t, *call.args)
+    return call.result
+
+
+def _conv_call(name: str, entry: str, x: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor | None) -> Launch:
     wk, bk, out = conv_operands(name, x, w, b)
     bsz, cin, d, h, wd = x.shape
-    _build.launch(name, entry, x, x.data_ptr(), wk.data_ptr(),
-                  None if bk is None else bk.data_ptr(), out.data_ptr(), bsz, cin, out.shape[1],
-                  d, h, wd)
-    return out
+    args = (x.data_ptr(), wk.data_ptr(), None if bk is None else bk.data_ptr(), out.data_ptr(),
+            bsz, cin, out.shape[1], d, h, wd)
+    return Launch(entry, args, out, (x, wk, bk, out))
+
+
+def relu_call(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> Launch:
+    """Kernel 7's call on CUDA tensors (conv3x3x3_cf_relu)."""
+    return _conv_call("conv3x3x3_cf_relu", "mmseg_conv3_bias_relu", x, w, b)
+
+
+def conv_call(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> Launch:
+    """Kernel 1's call on CUDA tensors (the training forward)."""
+    return _conv_call("conv3x3x3_cf", "mmseg_conv3", x, w, b)
+
+
+def dx_call(g: torch.Tensor, w: torch.Tensor) -> Launch:
+    """Kernel 1's call as the dx of the conv with weights w."""
+    return _conv_call("conv3x3x3_cf_dx", "mmseg_conv3", g, flip_transpose(w), None)
 
 
 def conv3x3x3_cf_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """relu(conv3d(x, w) + b) in x's dtype; bf16 only on CUDA."""
     if x.device.type == "cpu":
         return conv3x3x3_cf_relu_reference(x, w, b)
-    out = _launch_conv("conv3x3x3_cf_relu", "mmseg_conv3_bias_relu", x, w, b)
+    out = run("conv3x3x3_cf_relu", relu_call(x, w, b), x)
     conv3x3x3_cf_relu.launches += 1
     return out
 
@@ -146,7 +183,7 @@ def _conv_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     """The training forward without autograd; its launches count on conv3x3x3_cf."""
     if x.device.type == "cpu":
         return conv3x3x3_cf_reference(x, w, b)
-    out = _launch_conv("conv3x3x3_cf", "mmseg_conv3", x, w, b)
+    out = run("conv3x3x3_cf", conv_call(x, w, b), x)
     conv3x3x3_cf.launches += 1
     return out
 
@@ -156,7 +193,7 @@ def conv3x3x3_cf_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (B, Cin, D, H, W) in g's dtype; bf16 only on CUDA."""
     if g.device.type == "cpu":
         return conv3x3x3_cf_dx_reference(g, w)
-    out = _launch_conv("conv3x3x3_cf_dx", "mmseg_conv3", g, flip_transpose(w), None)
+    out = run("conv3x3x3_cf_dx", dx_call(g, w), g)
     conv3x3x3_cf_dx.launches += 1
     return out
 

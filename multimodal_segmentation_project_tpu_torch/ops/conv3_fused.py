@@ -37,7 +37,7 @@ import torch
 
 from multimodal_segmentation_project_tpu_torch.ops import _build, conv3
 
-TD, TH, TW = 2, 4, 32  # the conv kernel's output tile (csrc/conv3_tile.cuh)
+TD, TH, TW = 4, 8, 16  # the conv body's output tile (csrc/conv3_fwd_tile.cuh)
 
 
 def _bc(v: torch.Tensor) -> torch.Tensor:
@@ -107,66 +107,47 @@ def _affine(name: str, x: torch.Tensor, a: torch.Tensor, t: torch.Tensor, c: int
     return out
 
 
-def _stats_fwd(name: str, x, w, b, a=None, t=None):
-    """Kernel 3 (no a, t) or 4 on CUDA tensors -> (y, s1, s2)."""
+def _stats_call(name: str, x, w, b, a=None, t=None) -> conv3.Launch:
+    """Kernel 3's (no a, t) or 4's call on CUDA tensors; its result is (y, s1, s2)."""
     wk, bk, y = conv3.conv_operands(name, x, w, b)
     bsz, cin, d, h, wd = x.shape
     cout = y.shape[1]
     partial = torch.empty(2 * cout * bsz * conv_blocks(d, h, wd), dtype=torch.float32,
                           device=x.device)
     stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
+    head = (x.data_ptr(), wk.data_ptr(), bk.data_ptr())
+    tail = (y.data_ptr(), partial.data_ptr(), stats.data_ptr(), bsz, cin, cout, d, h, wd)
+    tensors = (x, wk, bk, y, partial, stats)
     if a is None:
-        _build.launch(name, "mmseg_conv3_stats", x, x.data_ptr(), wk.data_ptr(), bk.data_ptr(),
-                      y.data_ptr(), partial.data_ptr(), stats.data_ptr(), bsz, cin, cout, d, h,
-                      wd)
-    else:
-        ak, tk = _affine(name, x, a, t, cin)
-        _build.launch(name, "mmseg_conv3_prologue_stats", x, x.data_ptr(), wk.data_ptr(),
-                      bk.data_ptr(), ak.data_ptr(), tk.data_ptr(), y.data_ptr(),
-                      partial.data_ptr(), stats.data_ptr(), bsz, cin, cout, d, h, wd)
-    return y, stats[0], stats[1]
+        return conv3.Launch("mmseg_conv3_stats", head + tail, (y, stats[0], stats[1]), tensors)
+    ak, tk = _affine(name, x, a, t, cin)
+    return conv3.Launch("mmseg_conv3_prologue_stats", head + (ak.data_ptr(), tk.data_ptr()) + tail,
+                        (y, stats[0], stats[1]), tensors + (ak, tk))
 
 
-def _conv_stats(x, w, b):
-    """Kernel 3 without autograd; its launches count on conv3x3x3_cf_stats."""
-    if x.device.type == "cpu":
-        return conv3x3x3_cf_stats_reference(x, w, b)
-    out = _stats_fwd("conv3x3x3_cf_stats", x, w, b)
-    conv3x3x3_cf_stats.launches += 1
-    return out
+def stats_call(x, w, b) -> conv3.Launch:
+    """Kernel 3's call (conv3x3x3_cf_stats's forward)."""
+    return _stats_call("conv3x3x3_cf_stats", x, w, b)
 
 
-def _boundary_stats(x, w, b, a, t):
-    """Kernel 4 without autograd; its launches count on conv3x3x3_cf_boundary_stats."""
-    if x.device.type == "cpu":
-        return conv3x3x3_cf_boundary_stats_reference(x, w, b, a, t)
-    out = _stats_fwd("conv3x3x3_cf_boundary_stats", x, w, b, a, t)
-    conv3x3x3_cf_boundary_stats.launches += 1
-    return out
+def boundary_stats_call(x, w, b, a, t) -> conv3.Launch:
+    """Kernel 4's call (conv3x3x3_cf_boundary_stats's forward)."""
+    return _stats_call("conv3x3x3_cf_boundary_stats", x, w, b, a, t)
 
 
-def _boundary(x, w, b, a, t):
-    """Kernel 12 without autograd; its launches count on conv3x3x3_cf_boundary."""
-    if x.device.type == "cpu":
-        return conv3x3x3_cf_boundary_reference(x, w, b, a, t)
+def boundary_call(x, w, b, a, t) -> conv3.Launch:
+    """Kernel 12's call (conv3x3x3_cf_boundary's forward)."""
     name = "conv3x3x3_cf_boundary"
     wk, bk, y = conv3.conv_operands(name, x, w, b)
     bsz, cin, d, h, wd = x.shape
     ak, tk = _affine(name, x, a, t, cin)
-    _build.launch(name, "mmseg_conv3_prologue", x, x.data_ptr(), wk.data_ptr(), bk.data_ptr(),
-                  ak.data_ptr(), tk.data_ptr(), y.data_ptr(), bsz, cin, y.shape[1], d, h, wd)
-    conv3x3x3_cf_boundary.launches += 1
-    return y
+    args = (x.data_ptr(), wk.data_ptr(), bk.data_ptr(), ak.data_ptr(), tk.data_ptr(),
+            y.data_ptr(), bsz, cin, y.shape[1], d, h, wd)
+    return conv3.Launch("mmseg_conv3_prologue", args, y, (x, wk, bk, ak, tk, y))
 
 
-def conv3x3x3_cf_dx_epilogue(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
-                             a: torch.Tensor, t: torch.Tensor):
-    """(dy, da, dt) of a boundary conv from its output cotangent g (B, Cout,
-    D, H, W), weights w (3, 3, 3, Cin, Cout), raw input x (B, Cin, D, H, W)
-    and affine a, t (B, Cin): dy in x's dtype, da and dt fp32 (B, Cin);
-    bf16 g and x only on CUDA."""
-    if g.device.type == "cpu":
-        return conv3x3x3_cf_dx_epilogue_reference(g, w, x, a, t)
+def dx_epilogue_call(g, w, x, a, t) -> conv3.Launch:
+    """Kernel 5's call (conv3x3x3_cf_dx_epilogue); its result is (dy, da, dt)."""
     name = "conv3x3x3_cf_dx_epilogue"
     cx = conv3._check_conv(name, g, conv3.flip_transpose(w))
     _build.require(name, x, torch.bfloat16, 5)
@@ -180,11 +161,50 @@ def conv3x3x3_cf_dx_epilogue(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
     partial = torch.empty(2 * bsz * cx * conv_blocks(d, h, wd), dtype=torch.float32,
                           device=g.device)
     dadt = torch.empty((2, bsz, cx), dtype=torch.float32, device=g.device)
-    _build.launch(name, "mmseg_conv3_dx_epilogue", g, g.data_ptr(), wk.data_ptr(), x.data_ptr(),
-                  ak.data_ptr(), tk.data_ptr(), dy.data_ptr(), partial.data_ptr(),
-                  dadt.data_ptr(), bsz, cg, cx, d, h, wd)
+    args = (g.data_ptr(), wk.data_ptr(), x.data_ptr(), ak.data_ptr(), tk.data_ptr(),
+            dy.data_ptr(), partial.data_ptr(), dadt.data_ptr(), bsz, cg, cx, d, h, wd)
+    return conv3.Launch("mmseg_conv3_dx_epilogue", args, (dy, dadt[0], dadt[1]),
+                        (g, wk, x, ak, tk, dy, partial, dadt))
+
+
+def _conv_stats(x, w, b):
+    """Kernel 3 without autograd; its launches count on conv3x3x3_cf_stats."""
+    if x.device.type == "cpu":
+        return conv3x3x3_cf_stats_reference(x, w, b)
+    out = conv3.run("conv3x3x3_cf_stats", stats_call(x, w, b), x)
+    conv3x3x3_cf_stats.launches += 1
+    return out
+
+
+def _boundary_stats(x, w, b, a, t):
+    """Kernel 4 without autograd; its launches count on conv3x3x3_cf_boundary_stats."""
+    if x.device.type == "cpu":
+        return conv3x3x3_cf_boundary_stats_reference(x, w, b, a, t)
+    out = conv3.run("conv3x3x3_cf_boundary_stats", boundary_stats_call(x, w, b, a, t), x)
+    conv3x3x3_cf_boundary_stats.launches += 1
+    return out
+
+
+def _boundary(x, w, b, a, t):
+    """Kernel 12 without autograd; its launches count on conv3x3x3_cf_boundary."""
+    if x.device.type == "cpu":
+        return conv3x3x3_cf_boundary_reference(x, w, b, a, t)
+    y = conv3.run("conv3x3x3_cf_boundary", boundary_call(x, w, b, a, t), x)
+    conv3x3x3_cf_boundary.launches += 1
+    return y
+
+
+def conv3x3x3_cf_dx_epilogue(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
+                             a: torch.Tensor, t: torch.Tensor):
+    """(dy, da, dt) of a boundary conv from its output cotangent g (B, Cout,
+    D, H, W), weights w (3, 3, 3, Cin, Cout), raw input x (B, Cin, D, H, W)
+    and affine a, t (B, Cin): dy in x's dtype, da and dt fp32 (B, Cin);
+    bf16 g and x only on CUDA."""
+    if g.device.type == "cpu":
+        return conv3x3x3_cf_dx_epilogue_reference(g, w, x, a, t)
+    out = conv3.run("conv3x3x3_cf_dx_epilogue", dx_epilogue_call(g, w, x, a, t), g)
     conv3x3x3_cf_dx_epilogue.launches += 1
-    return dy, dadt[0], dadt[1]
+    return out
 
 
 def conv3x3x3_cf_dw_prologue(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,

@@ -11,6 +11,9 @@ Tolerances:
 On the CPU no kernel launches: every launch counter stays 0.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -22,7 +25,7 @@ from multimodal_segmentation_project_tpu.ops import pallas_conv as jconv
 from multimodal_segmentation_project_tpu.ops import pool as jpool
 from multimodal_segmentation_project_tpu.ops import upconv as jupconv
 from multimodal_segmentation_project_tpu_torch import ops
-from multimodal_segmentation_project_tpu_torch.ops import conv3, head, pool, upconv
+from multimodal_segmentation_project_tpu_torch.ops import conv3, conv3_fused, head, pool, upconv
 
 FP32_TOL = 2e-5
 BF16_TOL = 2.0**-7
@@ -162,13 +165,48 @@ def test_per_class_metrics_match_jax():
 
 def test_conv_weight_packing_is_the_kernels_shared_memory_image():
     """pack_weights lays (3,3,3,Cin,Cout) out as one zero-padded
-    [tap][cin][cout] bf16 slab per chunk of 16 input channels."""
+    [tap][cout][cin] bf16 slab per chunk of 16 input channels: the conv
+    body's 32-byte (tap, cout) rows before their swizzle."""
     rng = np.random.default_rng(8)
     w = torch.from_numpy(rng.normal(size=(3, 3, 3, 20, 24)).astype(np.float32))
     packed = conv3.pack_weights(w)
-    assert packed.shape == (2, 27, 16, 32) and packed.dtype == torch.bfloat16
+    assert packed.shape == (2, 27, 32, 16) and packed.dtype == torch.bfloat16
     assert packed.is_contiguous()
     want = torch.zeros(32, 27, 32, dtype=torch.bfloat16)  # (cin16, tap, cout16)
     want[:20, :, :24] = w.reshape(27, 20, 24).permute(1, 0, 2).to(torch.bfloat16)
-    torch.testing.assert_close(packed.permute(0, 2, 1, 3).reshape(32, 27, 32), want,
+    torch.testing.assert_close(packed.permute(0, 3, 1, 2).reshape(32, 27, 32), want,
                                rtol=0, atol=0)
+
+
+def _tile_header_constants() -> dict:
+    text = (Path(conv3.__file__).resolve().parent.parent / "csrc" / "conv3_fwd_tile.cuh").read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (T[DHW]) = (\d+);", text)}
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 1, 192, 192, 192), (1, 16, 96, 96, 96), (1, 64, 48, 48, 48),  # the slice's levels
+    (2, 3, 5, 7, 37), (2, 40, 3, 9, 37), (1, 40, 3, 9, 20), (2, 40, 3, 9, 9),  # ragged
+])
+def test_conv_tile_and_partial_scratch_match_the_kernel(shape, monkeypatch):
+    """Python's tile is the conv body's (csrc/conv3_fwd_tile.cuh), its TW
+    divides the 192/96/48 levels, and the partial-sum scratch the wrappers
+    allocate holds one value per (run, block) of the kernel's grid:
+    ceil(D/TD) ceil(H/TH) ceil(W/TW) blocks per batch element, 2 Cout runs
+    per batch element for the stats, 2 B Cx runs for the dx epilogue."""
+    td, th, tw = conv3_fused.TD, conv3_fused.TH, conv3_fused.TW
+    assert _tile_header_constants() == {"TD": td, "TH": th, "TW": tw}
+    assert all(s % tw == 0 for s in (48, 96, 192))
+    bsz, c, d, h, w = shape
+    blocks = -(-d // td) * -(-h // th) * -(-w // tw)
+    assert conv3_fused.conv_blocks(d, h, w) == blocks
+    # the calls as on the card, on meta tensors (no data, no launch)
+    monkeypatch.setattr(conv3_fused._build, "require", lambda *a: None)
+    meta = {"dtype": torch.bfloat16, "device": "meta"}
+    x, a = torch.empty(shape, **meta), torch.empty(bsz, c, device="meta")
+    wts, b = torch.empty(3, 3, 3, c, 20, device="meta"), torch.empty(20, device="meta")
+    for call in (conv3_fused.stats_call(x, wts, b),
+                 conv3_fused.boundary_stats_call(x, wts, b, a, a)):
+        assert call.tensors[4].numel() == 2 * 20 * bsz * blocks  # partial
+    g = torch.empty(bsz, 20, d, h, w, **meta)
+    call = conv3_fused.dx_epilogue_call(g, wts, x, a, a)
+    assert call.tensors[6].numel() == 2 * bsz * c * blocks
