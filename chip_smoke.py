@@ -10,7 +10,9 @@ Phases, each printing one line per check; any failure exits non-zero:
 2. build: compiles every kernel of ``multimodal_segmentation_project_tpu_torch/csrc``
    with nvcc (one process per source, in parallel), from this checkout;
    prints ptxas's registers and spills of each of the 24 instances of the
-   conv body (``csrc/conv3.cu``) and its dynamic shared memory per block;
+   conv body (``csrc/conv3.cu``) and of the 8 of the dW body
+   (``csrc/conv3_dw.cu``, which must not spill), and their dynamic shared
+   memory per block;
 3. kernels: each kernel against its plain PyTorch version at every shape
    the 192^3 eval forward and train step give it, in bf16, on seeded
    inputs; prints the error against the stated tolerance, the median time
@@ -20,7 +22,8 @@ Phases, each printing one line per check; any failure exits non-zero:
    instances also the bare launch (operands packed before the timed
    window, BARE_REPS runs over the distinct inputs between two CUDA
    events, over the count) and the kernel/library ratios per shape, and
-   their sum per train step;
+   their sum per train step; the same for the dW body's two instances;
+   ragged edge inputs; the same bits twice where blocks' partials are summed;
 4. slice: writes two synthetic 192^3 CT cases and a seeded default-width
    UNet3D ``.pth``, runs the port's eval CLI (``workloads.test_model``) on
    the GPU, checks its artifacts and that every forward launched exactly
@@ -190,9 +193,10 @@ EPILOGUES = {"0": "bias+ReLU (7)", "1": "cast-then-bias (1, 1-dx, 12)", "2": "bi
              "3": "dx mask (5)"}
 
 
-def conv_body_resources(log: str) -> list:
-    """One line per instance of conv3.cu's conv3_kernel<COUT, EPI, PRO>
-    from ptxas's -v output: its registers and spills."""
+def ptxas_resources(log: str, pattern: str, label) -> list:
+    """One line per kernel instance whose mangled name matches ``pattern``,
+    from ptxas's -v output: ``label(*groups)``, its registers and shared
+    memory, and its spills."""
     out, name, spill = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -200,13 +204,28 @@ def conv_body_resources(log: str) -> list:
         elif "spill" in line and name is not None:
             spill = line.strip()
         elif "Used" in line and "registers" in line and name is not None:
-            m = re.search(r"conv3_kernelILi(\d+)ELi(\d)ELb(\d)E", name)
+            m = re.search(pattern, name)
             if m:
-                cout, epi, pro = m.groups()
-                out.append(f"conv3_kernel<COUT={cout}, {EPILOGUES[epi]}, prologue={pro}>: "
-                           f"{line.split(':', 1)[1].strip()}; {spill}")
+                out.append(f"{label(*m.groups())}: {line.split(':', 1)[1].strip()}; {spill}")
             name = None
     return sorted(out)
+
+
+def conv_body_resources(log: str) -> list:
+    """conv3.cu's conv3_kernel<COUT, EPI, PRO> instances."""
+    return ptxas_resources(
+        log, r"conv3_kernelILi(\d+)ELi(\d)ELb(\d)E",
+        lambda cout, epi, pro: f"conv3_kernel<COUT={cout}, {EPILOGUES[epi]}, prologue={pro}>")
+
+
+DW_INSTANCES = 8  # conv3_dw.cu: COUT 16, 32, 48, 64, each without and with the prologue
+
+
+def dw_body_resources(log: str) -> list:
+    """conv3_dw.cu's conv3_dw_partial_kernel<COUT, PRO> instances."""
+    return ptxas_resources(
+        log, r"conv3_dw_partial_kernelILi(\d+)ELb(\d)E",
+        lambda cout, pro: f"conv3_dw_partial_kernel<COUT={cout}, prologue={pro}>")
 
 
 def phase_build() -> None:
@@ -223,7 +242,8 @@ def phase_build() -> None:
     print(f"[build] {_build.library_path().relative_to(ROOT)} "
           f"{'loaded from an earlier build' if cached else 'built by nvcc and loaded'} "
           f"in {secs:.2f} s", flush=True)
-    lines = conv_body_resources(_build.build_log_path().read_text())
+    log = _build.build_log_path().read_text()
+    lines = conv_body_resources(log)
     fail_unless(len(lines) == 24, f"ptxas reported {len(lines)} conv3_kernel instances, not 24")
     for line in lines:
         print(f"[build] ptxas {line}", flush=True)
@@ -231,6 +251,14 @@ def phase_build() -> None:
           "channels / more: " + ", ".join(
               f"COUT={c} {lib.mmseg_conv3_smem_bytes(c, 1)} / {lib.mmseg_conv3_smem_bytes(c, 2)} B"
               for c in (16, 32, 48, 64)), flush=True)
+    lines = dw_body_resources(log)
+    fail_unless(len(lines) == DW_INSTANCES, f"ptxas reported {len(lines)} "
+                f"conv3_dw_partial_kernel instances, not {DW_INSTANCES}")
+    for line in lines:
+        print(f"[build] ptxas {line}", flush=True)
+        fail_unless("0 bytes spill stores, 0 bytes spill loads" in line, f"dW spills: {line}")
+    print("[build] conv3_dw_partial_kernel dynamic shared memory per block: " + ", ".join(
+        f"COUT={c} {lib.mmseg_conv3_dw_smem_bytes(c)} B" for c in (16, 32, 48, 64)), flush=True)
 
 
 def _time_ms(fn, inputs) -> float:
@@ -255,9 +283,10 @@ BARE_REPS = 4  # runs over the distinct inputs per bare-launch timing
 
 
 def _time_bare_ms(name: str, call, inputs) -> float:
-    """Mean time of one bare launch of a conv-body entry point: the operands
-    packed and the outputs allocated before the window, then BARE_REPS runs
-    over the distinct inputs between two CUDA events, over the count."""
+    """Mean time of one bare launch of a conv-body or dW entry point: the
+    operands packed and the scratch and outputs allocated before the window,
+    then BARE_REPS runs over the distinct inputs between two CUDA events,
+    over the count."""
     import torch
 
     from multimodal_segmentation_project_tpu_torch.ops import _build
@@ -613,20 +642,25 @@ def _kernel_plan():
 
 
 def body_calls() -> dict:
-    """name -> the call of each conv-body instance (csrc/conv3.cu), ready to
-    launch bare (operands packed outside any timing window)."""
+    """name -> the call of each conv-body instance (csrc/conv3.cu) and of
+    the dW body (csrc/conv3_dw.cu), ready to launch bare (operands packed,
+    scratch and outputs allocated outside any timing window)."""
     from multimodal_segmentation_project_tpu_torch.ops import conv3, conv3_fused
 
     return {"conv3x3x3_cf_relu": conv3.relu_call, "conv3x3x3_cf": conv3.conv_call,
             "conv3x3x3_cf_dx": conv3.dx_call, "conv3x3x3_cf_stats": conv3_fused.stats_call,
             "conv3x3x3_cf_boundary_stats": conv3_fused.boundary_stats_call,
             "conv3x3x3_cf_boundary": conv3_fused.boundary_call,
-            "conv3x3x3_cf_dx_epilogue": conv3_fused.dx_epilogue_call}
+            "conv3x3x3_cf_dx_epilogue": conv3_fused.dx_epilogue_call,
+            "conv3x3x3_cf_dw": conv3.dw_call,
+            "conv3x3x3_cf_dw_prologue": conv3_fused.dw_prologue_call}
 
 
 # the conv-body instances of the train step (12 has no caller, 7 is eval's)
 TRAIN_BODY = ("conv3x3x3_cf", "conv3x3x3_cf_dx", "conv3x3x3_cf_stats",
               "conv3x3x3_cf_boundary_stats", "conv3x3x3_cf_dx_epilogue")
+# the dW body's instances: 2 over DW_SHAPES, 6 over CONV1_SHAPES
+TRAIN_DW = ("conv3x3x3_cf_dw", "conv3x3x3_cf_dw_prologue")
 
 
 def phase_kernels() -> dict:
@@ -682,6 +716,10 @@ def phase_kernels() -> dict:
     print(f"[kernel] conv body per train step ({', '.join(TRAIN_BODY)}): kernel as called "
           f"{step['ms']:.4f} ms, bare launches {step['bare_ms']:.4f} ms, library "
           f"{step['library_ms']:.4f} ms", flush=True)
+    step = {k: sum(results[n][k] for n in TRAIN_DW) for k in ("ms", "bare_ms", "library_ms")}
+    print(f"[kernel] dW body per train step ({', '.join(TRAIN_DW)}): as called / bare / "
+          f"library {step['ms']:.4f} / {step['bare_ms']:.4f} / {step['library_ms']:.4f} ms",
+          flush=True)
 
     # ragged shapes the slice does not reach: batch 2, odd extents, partial
     # channel chunks and channel groups; correctness only
@@ -694,7 +732,6 @@ def phase_kernels() -> dict:
                           randn(20, scale=0.1, dtype=f32))),
         ("conv3x3x3_cf_dx", (randn(2, 20, 3, 9, 37), randn(3, 3, 3, 40, 20, scale=0.05,
                                                            dtype=f32))),
-        ("conv3x3x3_cf_dw", (randn(2, 40, 3, 9, 37), randn(2, 20, 3, 9, 37))),
         ("max_pool2x_cf", (randn(2, 3, 5, 7, 9),)),
         ("max_pool2x_cf_bwd", (x_odd, plan["max_pool2x_cf"][1](x_odd), randn(2, 3, 2, 3, 4))),
         ("upconv2x_cf", (randn(2, 70, 3, 5, 7), randn(2, 2, 2, 70, 20, scale=0.1, dtype=f32),
@@ -712,11 +749,25 @@ def phase_kernels() -> dict:
                              a2, t2)))
     edges.append(("conv3x3x3_cf_dx_epilogue", (randn(2, 20, 3, 9, 37, scale=1e-2), w40,
                                                randn(2, 40, 3, 9, 37), a2, t2)))
-    edges.append(("conv3x3x3_cf_dw_prologue", (randn(2, 40, 3, 9, 37), randn(2, 20, 3, 9, 37),
-                                               a2, t2)))
+
+    def unaligned(*shape):
+        """A contiguous bf16 tensor whose data starts 2 bytes past a 16-byte boundary."""
+        return randn(math.prod(shape) + 1)[1:].view(*shape)
+
+    # the dW body (2, 6): W = 9, 20, 37 and an unaligned view (2-byte staging),
+    # Cin = 1 and 40 (three chunks, the last partial), Cout = 20 and 48, batch 2
+    for x, g in ((randn(2, 40, 3, 9, 37), randn(2, 20, 3, 9, 37)),
+                 (randn(2, 40, 3, 9, 9), randn(2, 48, 3, 9, 9)),
+                 (randn(1, 1, 3, 9, 20), randn(1, 20, 3, 9, 20)),
+                 (randn(1, 40, 3, 9, 20), randn(1, 48, 3, 9, 20)),
+                 (unaligned(2, 16, 3, 9, 16), unaligned(2, 20, 3, 9, 16))):
+        a, t = (randn(*x.shape[:2], scale=s, dtype=f32) for s in (1.0, 0.5))
+        edges += [("conv3x3x3_cf_dw", (x, g)), ("conv3x3x3_cf_dw_prologue", (x, g, a, t))]
     for name, args in edges:
         kern, plain, *_, tol, _, _ = plan[name]
         label = f"{name} edge input {tuple(args[0].shape)}"
+        if name in TRAIN_DW:
+            label += f", Cout {args[1].shape[1]}" + (", unaligned" if args[0].data_ptr() % 16 else "")
         err, rel, ok, _ = _errors(label, kern, plain, [args], tol)
         print(f"[kernel] {label}: scaled err {rel:.4g} {'ok' if ok else 'FAIL'}", flush=True)
         fail_unless(ok, f"{label}: error {err} over tolerance")

@@ -1,6 +1,6 @@
 // The output tile, the operand layouts and the input staging of the
 // forward 3x3x3 conv body (conv3.cu: the forward, its fused variants and
-// the dx). The weight-gradient body keeps its own tile (conv3_tile.cuh);
+// the dx; and conv3_dw.cu, the weight gradient). It includes conv3_tile.cuh;
 // from there this header takes only the prologue's rounding.
 //
 // A block covers TD x TH x TW output voxels of one batch element: TD * TH

@@ -59,7 +59,7 @@ _SIGNATURES = {
     "mmseg_head1x1_dx": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P),
 }
 # name -> argtypes of the C functions that launch nothing (restype int)
-_QUERIES = {"mmseg_conv3_smem_bytes": (_I, _I)}
+_QUERIES = {"mmseg_conv3_smem_bytes": (_I, _I), "mmseg_conv3_dw_smem_bytes": (_I,)}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -130,7 +130,8 @@ def conv_operands(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor |
 
 
 class Launch(NamedTuple):
-    """One call of a conv-body entry point (``csrc/conv3.cu``), ready to run:
+    """One call of a conv-body or dW entry point (``csrc/conv3.cu``,
+    ``csrc/conv3_dw.cu``), ready to run:
     its C arguments before the stream, what the wrapper returns, and every
     tensor the arguments point into (alive while this is)."""
 
@@ -198,17 +199,22 @@ def conv3x3x3_cf_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+DW_WAVES = 2  # waves of the dW kernel's first pass, one block per SM
+
+
 def dw_partial_blocks(device: torch.device, cin: int) -> int:
-    """Blocks per 16-channel chunk of the dW kernel's first pass: four
-    waves of one block per SM over all chunks (a fixed split, so the sum
-    order and the result do not change from run to run)."""
+    """Blocks per 16-channel chunk of the dW kernel's first pass: DW_WAVES
+    waves of one block per SM over all chunks. The split depends on the SM
+    count and the chunk count only, so the sum order and the result do not
+    change from run to run on one card."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, 4 * sms // -(-cin // 16))
+    return max(1, DW_WAVES * sms // -(-cin // 16))
 
 
 def dw_operands(name: str, x: torch.Tensor, g: torch.Tensor):
-    """Checks for a dW kernel on input x and cotangent g; its fp32 scratch,
-    its fp32 output (3, 3, 3, Cin, Cout) and its integer arguments."""
+    """Checks for a dW kernel on input x and cotangent g; its fp32 scratch
+    (one (27, 16, Cout16) partial per block and chunk), its fp32 output
+    (3, 3, 3, Cin, Cout) and its integer arguments."""
     _build.require(name, x, torch.bfloat16, 5)
     _build.require(name, g, torch.bfloat16, 5)
     bsz, cin, d, h, wd = x.shape
@@ -225,15 +231,19 @@ def dw_operands(name: str, x: torch.Tensor, g: torch.Tensor):
     return partial, dw, (bsz, cin, cout, d, h, wd, nblk)
 
 
+def dw_call(x: torch.Tensor, g: torch.Tensor) -> Launch:
+    """Kernel 2's call on CUDA tensors (the training conv's dW)."""
+    partial, dw, args = dw_operands("conv3x3x3_cf_dw", x, g)
+    return Launch("mmseg_conv3_dw", (x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                                     dw.data_ptr(), *args), dw, (x, g, partial, dw))
+
+
 def conv3x3x3_cf_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """fp32 dW (3, 3, 3, Cin, Cout) of the conv from its input x (B, Cin, D,
     H, W) and cotangent g (B, Cout, D, H, W); bf16 inputs only on CUDA."""
     if x.device.type == "cpu":
         return conv3x3x3_cf_dw_reference(x, g)
-    name = "conv3x3x3_cf_dw"
-    partial, dw, args = dw_operands(name, x, g)
-    _build.launch(name, "mmseg_conv3_dw", x, x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                  dw.data_ptr(), *args)
+    dw = run("conv3x3x3_cf_dw", dw_call(x, g), x)
     conv3x3x3_cf_dw.launches += 1
     return dw
 

@@ -207,6 +207,17 @@ def conv3x3x3_cf_dx_epilogue(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
     return out
 
 
+def dw_prologue_call(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
+                     t: torch.Tensor) -> conv3.Launch:
+    """Kernel 6's call on CUDA tensors (the boundary convs' dW)."""
+    name = "conv3x3x3_cf_dw_prologue"
+    partial, dw, args = conv3.dw_operands(name, x, g)
+    ak, tk = _affine(name, x, a, t, x.shape[1])
+    args = (x.data_ptr(), g.data_ptr(), ak.data_ptr(), tk.data_ptr(), partial.data_ptr(),
+            dw.data_ptr(), *args)
+    return conv3.Launch("mmseg_conv3_dw_prologue", args, dw, (x, g, ak, tk, partial, dw))
+
+
 def conv3x3x3_cf_dw_prologue(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
                              t: torch.Tensor) -> torch.Tensor:
     """fp32 dW (3, 3, 3, Cin, Cout) of a boundary conv from its raw input x
@@ -214,11 +225,7 @@ def conv3x3x3_cf_dw_prologue(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
     W); bf16 x and g only on CUDA."""
     if x.device.type == "cpu":
         return conv3x3x3_cf_dw_prologue_reference(x, g, a, t)
-    name = "conv3x3x3_cf_dw_prologue"
-    partial, dw, args = conv3.dw_operands(name, x, g)
-    ak, tk = _affine(name, x, a, t, x.shape[1])
-    _build.launch(name, "mmseg_conv3_dw_prologue", x, x.data_ptr(), g.data_ptr(), ak.data_ptr(),
-                  tk.data_ptr(), partial.data_ptr(), dw.data_ptr(), *args)
+    dw = conv3.run("conv3x3x3_cf_dw_prologue", dw_prologue_call(x, g, a, t), x)
     conv3x3x3_cf_dw_prologue.launches += 1
     return dw
 

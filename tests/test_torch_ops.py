@@ -13,6 +13,7 @@ On the CPU no kernel launches: every launch counter stays 0.
 
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -210,3 +211,65 @@ def test_conv_tile_and_partial_scratch_match_the_kernel(shape, monkeypatch):
     g = torch.empty(bsz, 20, d, h, w, **meta)
     call = conv3_fused.dx_epilogue_call(g, wts, x, a, a)
     assert call.tensors[6].numel() == 2 * bsz * c * blocks
+
+
+SMS = 132  # an H100 SXM's SM count
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 1, 192, 192, 192), (1, 16, 96, 96, 96), (1, 64, 48, 48, 48),  # the slice's levels
+    (2, 3, 5, 7, 37), (2, 40, 3, 9, 37), (1, 40, 3, 9, 20), (2, 40, 3, 9, 9),  # ragged
+])
+def test_dw_grid_and_partial_scratch_match_the_kernel(shape, monkeypatch):
+    """The dW body (csrc/conv3_dw.cu) runs on the conv body's tile and
+    staging, and writes one (27, 16, Cout16) partial per block and chunk:
+    the scratch the dW wrappers allocate holds exactly nblk * ceil(Cin/16)
+    of them, nblk depends on the SM count and the chunk count only, and the
+    grid is at most DW_WAVES waves of the kernel's one block per SM. The
+    calls are built on meta tensors (no data, no launch)."""
+    src = (Path(conv3.__file__).resolve().parent.parent / "csrc" / "conv3_dw.cu").read_text()
+    assert '#include "conv3_fwd_tile.cuh"' in src and "conv3_tile.cuh" not in src
+    assert "__launch_bounds__(DW_THREADS, 1)" in src
+    monkeypatch.setattr(conv3._build, "require", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: SimpleNamespace(multi_processor_count=SMS))
+    bsz, cin, d, h, w = shape
+    nchunk = -(-cin // 16)
+    nblk = max(1, conv3.DW_WAVES * SMS // nchunk)  # DW_WAVES waves over all chunks
+    meta = {"dtype": torch.bfloat16, "device": "meta"}
+    x, a = torch.empty(shape, **meta), torch.empty(bsz, cin, device="meta")
+    for cout in (16, 20, 48, 64):
+        g = torch.empty(bsz, cout, d, h, w, **meta)
+        for call in (conv3.dw_call(x, g), conv3_fused.dw_prologue_call(x, g, a, a)):
+            assert call.args[-7:] == (bsz, cin, cout, d, h, w, nblk)
+            partial, dw = call.tensors[-2:]
+            assert partial.numel() == nblk * nchunk * 27 * 16 * (-(-cout // 16) * 16)
+            assert call.result is dw
+            assert dw.shape == (3, 3, 3, cin, cout) and dw.dtype == torch.float32
+
+
+@pytest.mark.parametrize("w", [9, 37])
+@pytest.mark.parametrize("cout", [20, 48])
+@pytest.mark.parametrize("cin", [1, 40])
+@pytest.mark.parametrize("prologue", [False, True], ids=["dw", "dw_prologue"])
+def test_dw_reference_matches_jax(prologue, cin, cout, w):
+    """The plain dW versions of kernels 2 and 6 against the JAX backward's
+    dW kernels (_conv_dw_shared, _conv_dw_prologue, in interpret mode) in
+    fp32: Cin = 1 and three chunks with a partial last, Cout16 = 32 and 48,
+    ragged W, batch 2, t of both signs (the prologue's halo stays 0). H = 8:
+    the Pallas kernels take H % 8 == 0."""
+    rng = np.random.default_rng(100 + cin + cout + w)
+    shape = (2, cin, 3, 8, w)
+    x = rng.normal(size=shape).astype(np.float32)
+    g = rng.normal(size=(2, cout) + shape[2:]).astype(np.float32)
+    xp, pg = jconv._pad_for_kernel(jnp.asarray(x)), jconv._pad_for_kernel(jnp.asarray(g))
+    if prologue:
+        a = (rng.normal(size=(2, cin)) + 1.0).astype(np.float32)
+        t = rng.normal(size=(2, cin)).astype(np.float32)
+        packed = jconv._conv_dw_prologue(xp, pg, jnp.asarray(a), jnp.asarray(t), cout, w)
+        got = conv3_fused.conv3x3x3_cf_dw_prologue_reference(*map(torch.from_numpy, (x, g, a, t)))
+    else:
+        packed = jconv._conv_dw_shared(xp, pg, cout)
+        got = conv3.conv3x3x3_cf_dw_reference(torch.from_numpy(x), torch.from_numpy(g))
+    assert got.dtype == torch.float32 and got.shape == (3, 3, 3, cin, cout)
+    _close(got, jconv.unpack_weight_grads(packed, cin, cout), FP32_TOL)
