@@ -10,20 +10,22 @@ Phases, each printing one line per check; any failure exits non-zero:
 2. build: compiles every kernel of ``multimodal_segmentation_project_tpu_torch/csrc``
    with nvcc (one process per source, in parallel), from this checkout;
    prints ptxas's registers and spills of each of the 24 instances of the
-   conv body (``csrc/conv3.cu``) and of the 8 of the dW body
-   (``csrc/conv3_dw.cu``, which must not spill), and their dynamic shared
-   memory per block;
+   conv body (``csrc/conv3.cu``), of the 8 of the dW body
+   (``csrc/conv3_dw.cu``) and of the head's and the upconv's 10
+   (``csrc/head1x1.cu``, ``csrc/upconv_d2s.cu``; none of these 18 may
+   spill), and their dynamic shared memory per block;
 3. kernels: each kernel against its plain PyTorch version at every shape
    the 192^3 eval forward and train step give it, in bf16, on seeded
    inputs; prints the error against the stated tolerance, the median time
    of the kernel as called, of its plain version and of one library call
    over distinct inputs (CUDA events), and its bound: the larger of its
-   bytes over 3.35 TB/s and its FLOPs over 989 TFLOP/s. For the conv-body
-   instances also the bare launch (operands packed before the timed
-   window, BARE_REPS runs over the distinct inputs between two CUDA
-   events, over the count) and the kernel/library ratios per shape, and
-   their sum per train step; the same for the dW body's two instances;
-   ragged edge inputs; the same bits twice where blocks' partials are summed;
+   bytes over 3.35 TB/s and its FLOPs over 989 TFLOP/s. For every kernel
+   also the bare launch (operands packed before the timed window,
+   BARE_REPS runs over the distinct inputs between two CUDA events, over
+   the count) and the kernel/library ratios per shape, and the conv and
+   dW bodies' sums per train step; ragged edge inputs; the same bits
+   twice where blocks' partials are summed, and for the upconv and the
+   head's dx;
 4. slice: writes two synthetic 192^3 CT cases and a seeded default-width
    UNet3D ``.pth``, runs the port's eval CLI (``workloads.test_model``) on
    the GPU, checks its artifacts and that every forward launched exactly
@@ -228,6 +230,16 @@ def dw_body_resources(log: str) -> list:
         lambda cout, pro: f"conv3_dw_partial_kernel<COUT={cout}, prologue={pro}>")
 
 
+SMALL_INSTANCES = 10  # head1x1.cu: the forward and 8 dx (NC = 1..8); upconv_d2s.cu: 1
+
+
+def small_kernel_resources(log: str) -> list:
+    """head1x1.cu's and upconv_d2s.cu's kernel instances."""
+    return ptxas_resources(
+        log, r"(head1x1_kernel|head1x1_dx_kernel|upconv_d2s_kernel)(?:ILi(\d+)E)?",
+        lambda kname, nc: kname + ("" if nc is None else f"<NC={nc}>"))
+
+
 def phase_build() -> None:
     import multimodal_segmentation_project_tpu_torch as pkg
     from multimodal_segmentation_project_tpu_torch.ops import _build
@@ -259,6 +271,15 @@ def phase_build() -> None:
         fail_unless("0 bytes spill stores, 0 bytes spill loads" in line, f"dW spills: {line}")
     print("[build] conv3_dw_partial_kernel dynamic shared memory per block: " + ", ".join(
         f"COUT={c} {lib.mmseg_conv3_dw_smem_bytes(c)} B" for c in (16, 32, 48, 64)), flush=True)
+    lines = small_kernel_resources(log)
+    fail_unless(len(lines) == SMALL_INSTANCES, f"ptxas reported {len(lines)} head and upconv "
+                f"kernel instances, not {SMALL_INSTANCES}")
+    for line in lines:
+        print(f"[build] ptxas {line}", flush=True)
+        fail_unless("0 bytes spill stores, 0 bytes spill loads" in line,
+                    f"head or upconv spills: {line}")
+    print("[build] upconv_d2s_kernel dynamic shared memory per block: " + ", ".join(
+        f"Cin={c} {lib.mmseg_upconv_smem_bytes(c)} B" for c in (32, 64, 128)), flush=True)
 
 
 def _time_ms(fn, inputs) -> float:
@@ -283,7 +304,7 @@ BARE_REPS = 4  # runs over the distinct inputs per bare-launch timing
 
 
 def _time_bare_ms(name: str, call, inputs) -> float:
-    """Mean time of one bare launch of a conv-body or dW entry point: the
+    """Mean time of one bare launch of a kernel's entry point: the
     operands packed and the scratch and outputs allocated before the window,
     then BARE_REPS runs over the distinct inputs between two CUDA events,
     over the count."""
@@ -491,13 +512,15 @@ def _kernel_plan():
         b = randn(cout, scale=0.1, dtype=torch.float32)
         return [(randn(1, cin, s, s, s), k, b) for _ in range(N_TIMED)]
 
+    # the head's kernel (Cin, Co) as the model passes it: the transposed
+    # view of its (Co, Cin) parameter
     def head_inputs(cin, co, s):
-        k = randn(cin, co, scale=(1.0 / cin) ** 0.5, dtype=torch.float32)
+        k = randn(co, cin, scale=(1.0 / cin) ** 0.5, dtype=torch.float32).t()
         b = randn(co, scale=0.1, dtype=torch.float32)
         return [(randn(1, cin, s, s, s), k, b) for _ in range(N_TIMED)]
 
     def head_dx_inputs(co, cin, s):
-        k = randn(cin, co, scale=(1.0 / cin) ** 0.5, dtype=torch.float32)
+        k = randn(co, cin, scale=(1.0 / cin) ** 0.5, dtype=torch.float32).t()
         return [(randn(1, co, s, s, s, scale=1e-3, dtype=torch.float32), k)
                 for _ in range(N_TIMED)]
 
@@ -641,11 +664,12 @@ def _kernel_plan():
     }, randn
 
 
-def body_calls() -> dict:
-    """name -> the call of each conv-body instance (csrc/conv3.cu) and of
-    the dW body (csrc/conv3_dw.cu), ready to launch bare (operands packed,
-    scratch and outputs allocated outside any timing window)."""
-    from multimodal_segmentation_project_tpu_torch.ops import conv3, conv3_fused
+def bare_calls() -> dict:
+    """name -> the call builder of each kernel, ready to launch bare
+    (operands packed, scratch and outputs allocated outside any timing
+    window)."""
+    from multimodal_segmentation_project_tpu_torch.ops import conv3, conv3_fused, head, pool
+    from multimodal_segmentation_project_tpu_torch.ops import upconv
 
     return {"conv3x3x3_cf_relu": conv3.relu_call, "conv3x3x3_cf": conv3.conv_call,
             "conv3x3x3_cf_dx": conv3.dx_call, "conv3x3x3_cf_stats": conv3_fused.stats_call,
@@ -653,7 +677,10 @@ def body_calls() -> dict:
             "conv3x3x3_cf_boundary": conv3_fused.boundary_call,
             "conv3x3x3_cf_dx_epilogue": conv3_fused.dx_epilogue_call,
             "conv3x3x3_cf_dw": conv3.dw_call,
-            "conv3x3x3_cf_dw_prologue": conv3_fused.dw_prologue_call}
+            "conv3x3x3_cf_dw_prologue": conv3_fused.dw_prologue_call,
+            "max_pool2x_cf": pool.pool_call, "max_pool2x_cf_bwd": pool.bwd_call,
+            "upconv2x_cf": upconv.upconv_call, "head1x1_cf": head.head_call,
+            "head1x1_cf_dx": head.dx_call}
 
 
 # the conv-body instances of the train step (12 has no caller, 7 is eval's)
@@ -668,7 +695,8 @@ def phase_kernels() -> dict:
     import torch
 
     plan, randn = _kernel_plan()
-    bare = body_calls()
+    bare = bare_calls()
+    fail_unless(set(bare) == set(plan), "every kernel needs a bare call")
     results = {}
     for name, (kern, plain, lib, make, shapes, tol, work, lib_label) in plan.items():
         tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms"), 0.0)
@@ -686,12 +714,10 @@ def phase_kernels() -> dict:
             bytes_ms += mult * nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms += mult * op_s * 1e3
             sums_label = "" if sums is None else f", sums at {sums:.4g} of their bound"
-            bare_label = ""
-            if name in bare:
-                bare_ms = _time_bare_ms(name, bare[name], inputs)
-                bare_tot += mult * bare_ms
-                bare_label = (f", bare launch {bare_ms:.4f} ms | kernel/library "
-                              f"{ms / lib_ms:.3f}, bare/library {bare_ms / lib_ms:.3f}")
+            bare_ms = _time_bare_ms(name, bare[name], inputs)
+            bare_tot += mult * bare_ms
+            bare_label = (f", bare launch {bare_ms:.4f} ms | kernel/library "
+                          f"{ms / lib_ms:.3f}, bare/library {bare_ms / lib_ms:.3f}")
             print(f"[kernel] {name} {shape} x{mult}: max_abs_err {err:.4g} scaled {rel:.4g}"
                   f"{sums_label}, {_tol_label(tol)}: {'ok' if ok else 'FAIL'} | "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms, "
@@ -704,14 +730,12 @@ def phase_kernels() -> dict:
                 tot[key] += mult * val
             del inputs
             torch.cuda.empty_cache()
-        results[name] = {"max_abs_err": max_abs, **tot,
+        results[name] = {"max_abs_err": max_abs, **tot, "bare_ms": bare_tot,
                          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-        bare_label = f", bare_ms {bare_tot:.4f}" if name in bare else ""
         print(f"[kernel] {name}: summed over one pass (eval forward or train step; "
               f"kernel 12 over the train step's conv1 shapes): "
-              + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()) + bare_label, flush=True)
-        if name in bare:
-            results[name]["bare_ms"] = bare_tot
+              + ", ".join(f"{k} {v:.4f}" for k, v in tot.items())
+              + f", bare_ms {bare_tot:.4f}", flush=True)
     step = {k: sum(results[n][k] for n in TRAIN_BODY) for k in ("ms", "bare_ms", "library_ms")}
     print(f"[kernel] conv body per train step ({', '.join(TRAIN_BODY)}): kernel as called "
           f"{step['ms']:.4f} ms, bare launches {step['bare_ms']:.4f} ms, library "
@@ -720,6 +744,17 @@ def phase_kernels() -> dict:
     print(f"[kernel] dW body per train step ({', '.join(TRAIN_DW)}): as called / bare / "
           f"library {step['ms']:.4f} / {step['bare_ms']:.4f} / {step['library_ms']:.4f} ms",
           flush=True)
+    # the rest of the head's backward, plain torch: a candidate to ride in
+    # the dx kernel's pass, which already reads ct
+    from multimodal_segmentation_project_tpu_torch.ops import head
+
+    (cin, co, s), = HEAD_SHAPES
+    inputs = [(randn(1, cin, s, s, s), randn(1, co, s, s, s, scale=1e-3, dtype=torch.float32))
+              for _ in range(N_TIMED)]
+    print(f"[kernel] head backward's dkernel and dbias ({cin}, {co}, {s}), plain torch "
+          f"(head.weight_grads: x.float(), einsum, sum): {_time_ms(head.weight_grads, inputs):.4f} "
+          f"ms, besides the dx kernel", flush=True)
+    del inputs
 
     # ragged shapes the slice does not reach: batch 2, odd extents, partial
     # channel chunks and channel groups; correctness only
@@ -734,10 +769,7 @@ def phase_kernels() -> dict:
                                                            dtype=f32))),
         ("max_pool2x_cf", (randn(2, 3, 5, 7, 9),)),
         ("max_pool2x_cf_bwd", (x_odd, plan["max_pool2x_cf"][1](x_odd), randn(2, 3, 2, 3, 4))),
-        ("upconv2x_cf", (randn(2, 70, 3, 5, 7), randn(2, 2, 2, 70, 20, scale=0.1, dtype=f32),
-                         randn(20, scale=0.1, dtype=f32))),
         ("head1x1_cf", (randn(2, 5, 3, 5, 7), randn(5, 3, dtype=f32), randn(3, dtype=f32))),
-        ("head1x1_cf_dx", (randn(2, 3, 3, 5, 7, dtype=f32), randn(40, 3, dtype=f32))),
         ("conv3x3x3_cf_stats", (randn(2, 40, 3, 9, 20),
                                 randn(3, 3, 3, 40, 20, scale=0.05, dtype=f32),
                                 randn(20, scale=0.1, dtype=f32))),
@@ -750,9 +782,24 @@ def phase_kernels() -> dict:
     edges.append(("conv3x3x3_cf_dx_epilogue", (randn(2, 20, 3, 9, 37, scale=1e-2), w40,
                                                randn(2, 40, 3, 9, 37), a2, t2)))
 
-    def unaligned(*shape):
-        """A contiguous bf16 tensor whose data starts 2 bytes past a 16-byte boundary."""
-        return randn(math.prod(shape) + 1)[1:].view(*shape)
+    def unaligned(*shape, dtype=torch.bfloat16):
+        """A contiguous tensor whose data starts one element (2 bytes in bf16,
+        4 in fp32) past a 16-byte boundary."""
+        return randn(math.prod(shape) + 1, dtype=dtype)[1:].view(*shape)
+
+    # the upconv (10): W = 7, 9, 37 and 8 (V % 8 != 0: 2-byte staging; W % 4
+    # != 0: 4-byte stores), Cin = 70 (five K steps, the last partial) and 16,
+    # Cout = 20 (a partial channel group) and 64, batch 2, a partial last
+    # tile, an unaligned view; the head's dx (11-dx): V % 8 != 0, Cf = 16, 40
+    # and 64, batch 2, an unaligned fp32 view
+    for x, cout in ((randn(2, 70, 3, 5, 7), 20), (randn(2, 16, 3, 4, 9), 64),
+                    (randn(1, 16, 2, 3, 37), 20), (randn(1, 70, 3, 5, 8), 20),
+                    (unaligned(2, 16, 2, 4, 8), 64)):
+        edges.append(("upconv2x_cf", (x, randn(2, 2, 2, x.shape[1], cout, scale=0.1, dtype=f32),
+                                      randn(cout, scale=0.1, dtype=f32))))
+    for ct, cf in ((randn(2, 3, 3, 5, 7, dtype=f32), 40), (randn(2, 4, 2, 4, 8, dtype=f32), 64),
+                   (unaligned(2, 4, 2, 4, 8, dtype=f32), 40), (randn(1, 4, 3, 3, 3, dtype=f32), 16)):
+        edges.append(("head1x1_cf_dx", (ct, randn(cf, ct.shape[1], dtype=f32))))
 
     # the dW body (2, 6): W = 9, 20, 37 and an unaligned view (2-byte staging),
     # Cin = 1 and 40 (three chunks, the last partial), Cout = 20 and 48, batch 2
@@ -767,13 +814,20 @@ def phase_kernels() -> dict:
         kern, plain, *_, tol, _, _ = plan[name]
         label = f"{name} edge input {tuple(args[0].shape)}"
         if name in TRAIN_DW:
-            label += f", Cout {args[1].shape[1]}" + (", unaligned" if args[0].data_ptr() % 16 else "")
+            label += f", Cout {args[1].shape[1]}"
+        elif name == "upconv2x_cf":
+            label += f", Cout {args[1].shape[4]}"
+        elif name == "head1x1_cf_dx":
+            label += f", Cf {args[1].shape[0]}"
+        if args[0].data_ptr() % 16:
+            label += ", unaligned"
         err, rel, ok, _ = _errors(label, kern, plain, [args], tol)
         print(f"[kernel] {label}: scaled err {rel:.4g} {'ok' if ok else 'FAIL'}", flush=True)
         fail_unless(ok, f"{label}: error {err} over tolerance")
 
     # the kernels that sum across blocks sum per-block partials in a fixed
-    # order: the same bits every run
+    # order, and the others sum in a fixed order within a thread: the same
+    # bits every run
     x32, x16 = randn(1, 32, 192, 192, 192), randn(1, 16, 192, 192, 192)
     g16 = randn(1, 16, 192, 192, 192, scale=1e-2)
     a16, t16 = randn(1, 16, dtype=f32) + 1.0, randn(1, 16, scale=0.5, dtype=f32)
@@ -785,6 +839,10 @@ def phase_kernels() -> dict:
         ("conv3x3x3_cf_boundary_stats", (16, 16, 192), (x16, w16, b16, a16, t16)),
         ("conv3x3x3_cf_dx_epilogue", (16, 16, 192), (g16, w16, x16, a16, t16)),
         ("conv3x3x3_cf_dw_prologue", (16, 16, 192), (x16, g16, a16, t16)),
+        ("upconv2x_cf", (32, 16, 96), (randn(1, 32, 96, 96, 96),
+                                       randn(2, 2, 2, 32, 16, scale=0.2, dtype=f32), b16)),
+        ("head1x1_cf_dx", (4, 16, 192), (randn(1, 4, 192, 192, 192, scale=1e-3, dtype=f32),
+                                         randn(16, 4, scale=0.5, dtype=f32))),
     ]
     for name, shape, args in twice:
         kern = plan[name][0]

@@ -31,6 +31,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -54,12 +55,13 @@ _SIGNATURES = {
     "mmseg_conv3_dw_prologue": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "mmseg_pool2x": (_P, _P, _I, _I, _I, _I, _I, _P),
     "mmseg_pool2x_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "mmseg_upconv_d2s": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "mmseg_upconv_d2s": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "mmseg_head1x1": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P),
-    "mmseg_head1x1_dx": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P),
+    "mmseg_head1x1_dx": (_P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P),
 }
 # name -> argtypes of the C functions that launch nothing (restype int)
-_QUERIES = {"mmseg_conv3_smem_bytes": (_I, _I), "mmseg_conv3_dw_smem_bytes": (_I,)}
+_QUERIES = {"mmseg_conv3_smem_bytes": (_I, _I), "mmseg_conv3_dw_smem_bytes": (_I,),
+            "mmseg_upconv_smem_bytes": (_I,)}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -171,6 +173,25 @@ def require(name: str, t, dtype, ndim: int) -> None:
         raise ValueError(f"{name}: expected a rank-{ndim} tensor, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
+
+
+class Launch(NamedTuple):
+    """One call of a kernel's C entry point, ready to run: its C arguments
+    before the stream, what the wrapper returns, and every tensor the
+    arguments point into (alive while this is). The ops' ``*_call``
+    builders make one with its operands packed and its outputs allocated,
+    so that a timing can launch it bare."""
+
+    entry: str
+    args: tuple
+    result: object
+    tensors: tuple
+
+
+def run(name: str, call: Launch, t):
+    """Launch ``call`` on the device of ``t``; return its result."""
+    launch(name, call.entry, t, *call.args)
+    return call.result
 
 
 def launch(name: str, entry: str, t, *args) -> None:

@@ -25,12 +25,11 @@ plain version of the same arithmetic. Each wrapper counts its launches.
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 import torch.nn.functional as F
 
 from multimodal_segmentation_project_tpu_torch.ops import _build
+from multimodal_segmentation_project_tpu_torch.ops._build import Launch, run
 
 MAX_CHANNELS = 64  # the kernels' channel cap (supported_conv in the JAX package)
 
@@ -127,24 +126,6 @@ def conv_operands(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor |
     out = torch.empty((x.shape[0], cout) + tuple(x.shape[2:]), dtype=torch.bfloat16,
                       device=x.device)
     return wk, bk, out
-
-
-class Launch(NamedTuple):
-    """One call of a conv-body or dW entry point (``csrc/conv3.cu``,
-    ``csrc/conv3_dw.cu``), ready to run:
-    its C arguments before the stream, what the wrapper returns, and every
-    tensor the arguments point into (alive while this is)."""
-
-    entry: str
-    args: tuple
-    result: object
-    tensors: tuple
-
-
-def run(name: str, call: Launch, t: torch.Tensor):
-    """Launch ``call`` on the device of ``t``; return its result."""
-    _build.launch(name, call.entry, t, *call.args)
-    return call.result
 
 
 def _conv_call(name: str, entry: str, x: torch.Tensor, w: torch.Tensor,

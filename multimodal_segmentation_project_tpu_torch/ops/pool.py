@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from multimodal_segmentation_project_tpu_torch.ops import _build
+from multimodal_segmentation_project_tpu_torch.ops._build import Launch, run
 
 
 def _windows(x: torch.Tensor) -> torch.Tensor:
@@ -47,24 +48,18 @@ def max_pool2x_cf_bwd_reference(x: torch.Tensor, y: torch.Tensor, g: torch.Tenso
     return dx
 
 
-def _pool_fwd(x: torch.Tensor) -> torch.Tensor:
-    """The forward without autograd; its launches count on max_pool2x_cf."""
-    if x.device.type == "cpu":
-        return max_pool2x_cf_reference(x)
-    name = "max_pool2x_cf"
-    _build.require(name, x, torch.bfloat16, 5)
+def pool_call(x: torch.Tensor) -> Launch:
+    """Kernel 8's call on CUDA tensors: bf16 x (B, C, D, H, W) -> (B, C,
+    D//2, H//2, W//2)."""
+    _build.require("max_pool2x_cf", x, torch.bfloat16, 5)
     b, c, d, h, w = x.shape
     out = torch.empty((b, c, d // 2, h // 2, w // 2), dtype=x.dtype, device=x.device)
-    _build.launch(name, "mmseg_pool2x", x, x.data_ptr(), out.data_ptr(), b, c, d, h, w)
-    max_pool2x_cf.launches += 1
-    return out
+    return Launch("mmseg_pool2x", (x.data_ptr(), out.data_ptr(), b, c, d, h, w), out, (x, out))
 
 
-def max_pool2x_cf_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """dx (B, C, D, H, W) in x's dtype from the input x, the pooled y and
-    its cotangent g; bf16 only on CUDA."""
-    if x.device.type == "cpu":
-        return max_pool2x_cf_bwd_reference(x, y, g)
+def bwd_call(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> Launch:
+    """Kernel 9's call on CUDA tensors: dx (B, C, D, H, W) from the input
+    x, the pooled y and its cotangent g, all bf16."""
     name = "max_pool2x_cf_bwd"
     for t in (x, y, g):
         _build.require(name, t, torch.bfloat16, 5)
@@ -74,8 +69,25 @@ def max_pool2x_cf_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> torc
         raise ValueError(f"{name}: y {tuple(y.shape)} and g {tuple(g.shape)} must be {pooled}")
     odd = d % 2 or h % 2 or w % 2
     dx = (torch.zeros if odd else torch.empty)(x.shape, dtype=x.dtype, device=x.device)
-    _build.launch(name, "mmseg_pool2x_bwd", x, x.data_ptr(), y.data_ptr(), g.data_ptr(),
-                  dx.data_ptr(), b, c, d, h, w)
+    args = (x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(), b, c, d, h, w)
+    return Launch("mmseg_pool2x_bwd", args, dx, (x, y, g, dx))
+
+
+def _pool_fwd(x: torch.Tensor) -> torch.Tensor:
+    """The forward without autograd; its launches count on max_pool2x_cf."""
+    if x.device.type == "cpu":
+        return max_pool2x_cf_reference(x)
+    out = run("max_pool2x_cf", pool_call(x), x)
+    max_pool2x_cf.launches += 1
+    return out
+
+
+def max_pool2x_cf_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dx (B, C, D, H, W) in x's dtype from the input x, the pooled y and
+    its cotangent g; bf16 only on CUDA."""
+    if x.device.type == "cpu":
+        return max_pool2x_cf_bwd_reference(x, y, g)
+    dx = run("max_pool2x_cf_bwd", bwd_call(x, y, g), x)
     max_pool2x_cf_bwd.launches += 1
     return dx
 

@@ -4,7 +4,9 @@ Port of ``multimodal_segmentation_project_tpu/ops/upconv.py``'s
 ``upconv2x_cf``, a differentiable op. With kernel == stride every output
 voxel receives exactly one kernel tap, so the op is a per-voxel (8*Cout x
 Cin) product plus bias followed by depth-to-space. On a CUDA tensor the
-forward launches ``csrc/upconv_d2s.cu``; on a CPU tensor it runs
+forward launches ``csrc/upconv_d2s.cu``, a GEMM on the tensor cores over
+tiles of TM input voxels with the weights packed by :func:`pack_kernel`
+(:func:`upconv_call` builds the launch); on a CPU tensor it runs
 :func:`upconv2x_cf_reference`. Rounding: the kernel weights are cast to
 the working dtype, products and sums are fp32, the fp32 bias is added, one
 cast back.
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from multimodal_segmentation_project_tpu_torch.ops import _build
+from multimodal_segmentation_project_tpu_torch.ops._build import Launch, run
 
 MAX_OUT_CHANNELS = 64  # wider upconvs (the deep region) use the plain torch op
 
@@ -37,23 +40,68 @@ def upconv2x_cf_reference(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Ten
     return out.to(x.dtype)
 
 
-def _upconv_fwd(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """The forward without autograd; its launches count on upconv2x_cf."""
-    if x.device.type == "cpu":
-        return upconv2x_cf_reference(x, kernel, bias)
+TM = 64  # input voxels per tile of the kernel (csrc/upconv_d2s.cu)
+OG = 16  # output channels per block (the kernel's grid y)
+UPCONV_WAVES = 4  # blocks per SM over all channel groups: the kernel's tile walk
+MAX_IN_CHANNELS = 256  # the block's weights and input tiles in shared memory: 156 KB
+
+
+def pack_kernel(kernel: torch.Tensor) -> torch.Tensor:
+    """(2, 2, 2, Cin, Cout) -> bf16 (8, Cout16, Cin16), zero-padded: row
+    (phase (a, p, q), o) holds the Cin weights of output channel o, the
+    kernel's B operand rows (Cin16, Cout16: rounded up to 16). One
+    cast-and-permute copy into the packed buffer, which is zero-filled
+    first only where Cin or Cout is not a multiple of 16."""
+    cin, cout = kernel.shape[3], kernel.shape[4]
+    cin_p, cout_p = -(-cin // 16) * 16, -(-cout // 16) * 16
+    alloc = torch.empty if (cin_p, cout_p) == (cin, cout) else torch.zeros
+    out = alloc((8, cout_p, cin_p), dtype=torch.bfloat16, device=kernel.device)
+    out[:, :cout, :cin].copy_(kernel.permute(0, 1, 2, 4, 3).reshape(8, cout, cin))
+    return out
+
+
+def tiles(b: int, d: int, h: int, w: int) -> int:
+    """The kernel's tiles: TM consecutive input voxels of one batch element
+    each, the last of each element partial."""
+    return b * -(-(d * h * w) // TM)
+
+
+def blocks(device: torch.device, ntiles: int, cout: int) -> int:
+    """Blocks per channel group: UPCONV_WAVES blocks per SM over all
+    ceil(Cout/OG) groups, at most one per tile. Block k walks the tiles k,
+    k + blocks, ...; the split changes no sum, so the result is the same
+    bits for any block count."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(ntiles, UPCONV_WAVES * sms // -(-cout // OG)))
+
+
+def upconv_call(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> Launch:
+    """Kernel 10's call on CUDA tensors: bf16 x (B, Cin, D, H, W), kernel
+    (2, 2, 2, Cin, Cout), bias (Cout,) -> bf16 (B, Cout, 2D, 2H, 2W)."""
     name = "upconv2x_cf"
     _build.require(name, x, torch.bfloat16, 5)
     b, cin, d, h, w = x.shape
     if kernel.dim() != 5 or tuple(kernel.shape[:4]) != (2, 2, 2, cin):
         raise ValueError(f"{name}: kernel {tuple(kernel.shape)} does not match Cin={cin}")
+    if cin > MAX_IN_CHANNELS:
+        raise ValueError(f"{name}: the kernel takes Cin <= {MAX_IN_CHANNELS}, got {cin}")
     cout = kernel.shape[4]
     if tuple(bias.shape) != (cout,):
         raise ValueError(f"{name}: bias {tuple(bias.shape)} does not match Cout={cout}")
-    kk = kernel.to(x.device, torch.bfloat16).contiguous()
+    kp = pack_kernel(kernel.to(x.device))
     bk = bias.to(x.device, torch.float32).contiguous()
     out = torch.empty((b, cout, 2 * d, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
-    _build.launch(name, "mmseg_upconv_d2s", x, x.data_ptr(), kk.data_ptr(), bk.data_ptr(),
-                  out.data_ptr(), b, cin, cout, d, h, w)
+    nblk = blocks(x.device, tiles(b, d, h, w), cout)
+    args = (x.data_ptr(), kp.data_ptr(), bk.data_ptr(), out.data_ptr(), b, cin, cout, d, h, w,
+            nblk)
+    return Launch("mmseg_upconv_d2s", args, out, (x, kp, bk, out))
+
+
+def _upconv_fwd(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The forward without autograd; its launches count on upconv2x_cf."""
+    if x.device.type == "cpu":
+        return upconv2x_cf_reference(x, kernel, bias)
+    out = run("upconv2x_cf", upconv_call(x, kernel, bias), x)
     upconv2x_cf.launches += 1
     return out
 
