@@ -11,8 +11,8 @@ Phases, each printing one line per check; any failure exits non-zero:
    with nvcc (one process per source, in parallel), from this checkout;
    prints ptxas's registers and spills of each of the 24 instances of the
    conv body (``csrc/conv3.cu``), of the 8 of the dW body
-   (``csrc/conv3_dw.cu``) and of the head's and the upconv's 10
-   (``csrc/head1x1.cu``, ``csrc/upconv_d2s.cu``; none of these 18 may
+   (``csrc/conv3_dw.cu``) and of the head's and the upconv's 34
+   (``csrc/head1x1.cu``, ``csrc/upconv_d2s.cu``; none of these 42 may
    spill), and their dynamic shared memory per block;
 3. kernels: each kernel against its plain PyTorch version at every shape
    the 192^3 eval forward and train step give it, in bf16, on seeded
@@ -24,8 +24,8 @@ Phases, each printing one line per check; any failure exits non-zero:
    BARE_REPS runs over the distinct inputs between two CUDA events, over
    the count) and the kernel/library ratios per shape, and the conv and
    dW bodies' sums per train step; ragged edge inputs; the same bits
-   twice where blocks' partials are summed, and for the upconv and the
-   head's dx;
+   twice where blocks' partials are summed (the head's weight gradient
+   too), and for the upconv and the head's dx;
 4. slice: writes two synthetic 192^3 CT cases and a seeded default-width
    UNet3D ``.pth``, runs the port's eval CLI (``workloads.test_model``) on
    the GPU, checks its artifacts and that every forward launched exactly
@@ -96,13 +96,14 @@ POOL_SHAPES = [(16, 192), (32, 96), (64, 48), (128, 24)]     # (C, S in)
 UPCONV_SHAPES = [(128, 64, 24), (64, 32, 48), (32, 16, 96)]  # (Cin, Cout, S in)
 HEAD_SHAPES = [(16, 4, 192)]                                 # (Cin, classes, S)
 HEAD_DX_SHAPES = [(4, 16, 192)]                              # (classes, Cin, S)
+HEAD_DW_SHAPES = [(16, 4, 192)]                              # (Cin, classes, S)
 
 # launches per eval forward and per train step (default widths, 192^3)
 PER_FORWARD = {"conv3x3x3_cf_relu": 11, "max_pool2x_cf": 4, "upconv2x_cf": 3, "head1x1_cf": 1}
 PER_STEP = {"conv3x3x3_cf_stats": 5, "conv3x3x3_cf_boundary_stats": 5, "conv3x3x3_cf": 1,
             "conv3x3x3_cf_dx": 5, "conv3x3x3_cf_dx_epilogue": 5, "conv3x3x3_cf_dw": 6,
             "conv3x3x3_cf_dw_prologue": 5, "max_pool2x_cf": 4, "max_pool2x_cf_bwd": 4,
-            "upconv2x_cf": 3, "head1x1_cf": 1, "head1x1_cf_dx": 1}
+            "upconv2x_cf": 3, "head1x1_cf": 1, "head1x1_cf_dx": 1, "head1x1_cf_dw": 1}
 CONV3 = "multimodal_segmentation_project_tpu_torch/csrc/conv3.cu"
 CONV3_DW = "multimodal_segmentation_project_tpu_torch/csrc/conv3_dw.cu"
 PALLAS_CONV = "multimodal_segmentation_project_tpu/ops/pallas_conv.py"
@@ -127,6 +128,9 @@ KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
                    "multimodal_segmentation_project_tpu/ops/head.py:39"),
     "head1x1_cf_dx": ("multimodal_segmentation_project_tpu_torch/csrc/head1x1.cu",
                       "multimodal_segmentation_project_tpu/ops/head.py:39"),
+    # no Pallas kernel: _head_bwd_rule's dkernel dot_general and dbias sum (XLA)
+    "head1x1_cf_dw": ("multimodal_segmentation_project_tpu_torch/csrc/head1x1.cu",
+                      "multimodal_segmentation_project_tpu/ops/head.py:108"),
 }
 # conv/upconv/head-dx: the kernel and the plain version round to bf16 once,
 # at the same point, from fp32 sums taken in different orders, so an output
@@ -144,6 +148,15 @@ ELEMENTWISE = (BF16_ONE_ULP, BF16_TWO_ROUNDINGS)
 STATS = "y: 1 bf16 ulp; s1, s2: sum |dy| + STATS_TOL sum |y|"
 DX_EPILOGUE = "dy: 1 bf16 ulp; da, dt: DADT_TOL sum |du x|, sum |du|"
 HEAD_TOL = 1e-5  # fp32 logits: sum order only, scaled by max|plain|
+# the head's weight gradient (11-dw): dk and db are fp32 sums over 7.1M
+# voxels, the kernel's in per-thread runs of ~100 terms, a shuffle tree,
+# 8 warps and ~264 blocks in order, the plain einsum's in cuBLAS's order.
+# Each rounding errs by at most 2**-24 of a partial, and the errors of a
+# sum this deep add up as a random walk, far under HEAD_DW_TOL of the sum
+# of |terms| per entry (a block's partials lost would move an entry by
+# about 1/264 of it).
+HEAD_DW_TOL = 1e-5
+HEAD_DW = f"dk, db per entry within {HEAD_DW_TOL:g} sum |x ct|, sum |ct|"
 DW_TOL = 1e-3    # fp32 sums of up to 7.1M bf16 products in another order
 # s1, s2 per channel: the kernel and the plain version sum their own y, which
 # may differ by an ulp here and there, so a channel's sums may differ by
@@ -230,14 +243,24 @@ def dw_body_resources(log: str) -> list:
         lambda cout, pro: f"conv3_dw_partial_kernel<COUT={cout}, prologue={pro}>")
 
 
-SMALL_INSTANCES = 10  # head1x1.cu: the forward and 8 dx (NC = 1..8); upconv_d2s.cu: 1
+# head1x1.cu: 8 forward (CO = 1..8), 8 dx (NC = 1..8), 16 weight-gradient
+# (NC = 1..8, 16-byte or guarded loads) and the weight gradient's block
+# reduce; upconv_d2s.cu: 1
+SMALL_INSTANCES = 34
 
 
 def small_kernel_resources(log: str) -> list:
     """head1x1.cu's and upconv_d2s.cu's kernel instances."""
+    def label(kname, n, vec):
+        if n is None:
+            return kname
+        return (f"{kname}<{'CO' if kname == 'head1x1_kernel' else 'NC'}={n}"
+                + ("" if vec is None else f", {'16-byte' if vec == '1' else 'guarded'} loads")
+                + ">")
+
     return ptxas_resources(
-        log, r"(head1x1_kernel|head1x1_dx_kernel|upconv_d2s_kernel)(?:ILi(\d+)E)?",
-        lambda kname, nc: kname + ("" if nc is None else f"<NC={nc}>"))
+        log, r"(head1x1_kernel|head1x1_dx_kernel|head1x1_dw_kernel|head1x1_dw_reduce_kernel"
+             r"|upconv_d2s_kernel)(?:ILi(\d+)E(?:Lb(\d)E)?)?", label)
 
 
 def phase_build() -> None:
@@ -393,13 +416,27 @@ def _sums_ratio(tol, got, want, args) -> float:
     return worst
 
 
+def _head_dw_ratio(got, want, args) -> float:
+    """The largest error of the head's dk, db (kernel against plain) over
+    its bound, HEAD_DW_TOL times the entry's sum of |terms|."""
+    import torch
+
+    x, ct = args
+    xa, ca = x.float().abs(), ct.float().abs()
+    bounds = (HEAD_DW_TOL * torch.einsum("bidhw,bodhw->io", xa, ca),
+              HEAD_DW_TOL * ca.sum(dim=(0, 2, 3, 4)))
+    return max(((k - p).abs() / b.clamp_min(1e-30)).max().item()
+               for k, p, b in zip(got, want, bounds))
+
+
 def _errors(label: str, kern, plain, inputs, tol):
     """(max abs error, max error scaled by max|plain|, within tolerance,
     worst sum error over its bound or None) of the kernel against its plain
     version over ``inputs``. ``tol`` is a key of ELEMENTWISE (each element
     within its bf16 allowance), STATS or DX_EPILOGUE (a bf16 output within
-    one ulp per element and fp32 sums within their bounds), 0 (exact) or a
-    bound on the scaled error; the errors are those of the first output."""
+    one ulp per element and fp32 sums within their bounds), HEAD_DW (every
+    output a sum within its bound), 0 (exact) or a bound on the scaled
+    error; the errors are those of the first output (for HEAD_DW, of all)."""
     import torch
 
     err = rel = 0.0
@@ -409,7 +446,12 @@ def _errors(label: str, kern, plain, inputs, tol):
         got, want = kern(*args), plain(*args)
         torch.cuda.synchronize()
         elem_tol = tol
-        if tol in (STATS, DX_EPILOGUE):
+        if tol == HEAD_DW:
+            ratio = _head_dw_ratio(got, want, args)
+            sums = max(sums or 0.0, ratio)
+            ok = ok and ratio <= 1.0
+            got, want = (torch.cat([t.flatten() for t in out]) for out in (got, want))
+        elif tol in (STATS, DX_EPILOGUE):
             ratio = _sums_ratio(tol, got, want, args)
             sums = max(sums or 0.0, ratio)
             ok = ok and ratio <= 1.0
@@ -524,6 +566,10 @@ def _kernel_plan():
         return [(randn(1, co, s, s, s, scale=1e-3, dtype=torch.float32), k)
                 for _ in range(N_TIMED)]
 
+    def head_dw_inputs(cin, co, s):
+        return [(randn(1, cin, s, s, s), randn(1, co, s, s, s, scale=1e-3, dtype=torch.float32))
+                for _ in range(N_TIMED)]
+
     # library calls: one PyTorch call computing the same function, bf16
     def lib_conv(x, w, b):
         return F.conv3d(x, w.permute(4, 3, 0, 1, 2).to(x.dtype), b.to(x.dtype), padding=1)
@@ -559,6 +605,10 @@ def _kernel_plan():
 
     def lib_head_dx(ct, k):
         return F.conv3d(ct, k[:, :, None, None, None])
+
+    def lib_head_dw(x, ct):  # what the port ran before the kernel, as one einsum plus a sum
+        return (torch.einsum("bidhw,bodhw->io", x.float(), ct),
+                ct.sum(dim=(0, 2, 3, 4)))
 
     no_grad = torch.no_grad()
 
@@ -611,6 +661,9 @@ def _kernel_plan():
     def head_dx_work(co, cin, s):  # fp32 in, bf16 out
         return v(s) * (4 * co + 2 * cin), 2 * cin * co * v(s), FP32_FLOPS
 
+    def head_dw_work(cin, co, s):  # bf16 x and fp32 ct in; dk's FMAs and db's adds
+        return v(s) * (2 * cin + 4 * co), (2 * cin + 1) * co * v(s), FP32_FLOPS
+
     return {
         "conv3x3x3_cf_relu": (conv3.conv3x3x3_cf_relu, conv3.conv3x3x3_cf_relu_reference,
                               lib_conv, conv_inputs, CONV_SHAPES, BF16_ONE_ULP, conv_work,
@@ -661,6 +714,10 @@ def _kernel_plan():
                           lambda ct, k: head.head1x1_cf_dx_reference(ct, k, torch.bfloat16),
                           lib_head_dx, head_dx_inputs, HEAD_DX_SHAPES, BF16_ONE_ULP,
                           head_dx_work, "1x1x1 F.conv3d fp32"),
+        "head1x1_cf_dw": (head.head1x1_cf_dw, head.head1x1_cf_dw_reference, lib_head_dw,
+                          head_dw_inputs, HEAD_DW_SHAPES, HEAD_DW, head_dw_work,
+                          "torch.einsum fp32 of x.float() plus sum, the port's code before "
+                          "the kernel"),
     }, randn
 
 
@@ -680,7 +737,7 @@ def bare_calls() -> dict:
             "conv3x3x3_cf_dw_prologue": conv3_fused.dw_prologue_call,
             "max_pool2x_cf": pool.pool_call, "max_pool2x_cf_bwd": pool.bwd_call,
             "upconv2x_cf": upconv.upconv_call, "head1x1_cf": head.head_call,
-            "head1x1_cf_dx": head.dx_call}
+            "head1x1_cf_dx": head.dx_call, "head1x1_cf_dw": head.dw_call}
 
 
 # the conv-body instances of the train step (12 has no caller, 7 is eval's)
@@ -744,18 +801,6 @@ def phase_kernels() -> dict:
     print(f"[kernel] dW body per train step ({', '.join(TRAIN_DW)}): as called / bare / "
           f"library {step['ms']:.4f} / {step['bare_ms']:.4f} / {step['library_ms']:.4f} ms",
           flush=True)
-    # the rest of the head's backward, plain torch: a candidate to ride in
-    # the dx kernel's pass, which already reads ct
-    from multimodal_segmentation_project_tpu_torch.ops import head
-
-    (cin, co, s), = HEAD_SHAPES
-    inputs = [(randn(1, cin, s, s, s), randn(1, co, s, s, s, scale=1e-3, dtype=torch.float32))
-              for _ in range(N_TIMED)]
-    print(f"[kernel] head backward's dkernel and dbias ({cin}, {co}, {s}), plain torch "
-          f"(head.weight_grads: x.float(), einsum, sum): {_time_ms(head.weight_grads, inputs):.4f} "
-          f"ms, besides the dx kernel", flush=True)
-    del inputs
-
     # ragged shapes the slice does not reach: batch 2, odd extents, partial
     # channel chunks and channel groups; correctness only
     f32 = torch.float32
@@ -769,7 +814,6 @@ def phase_kernels() -> dict:
                                                            dtype=f32))),
         ("max_pool2x_cf", (randn(2, 3, 5, 7, 9),)),
         ("max_pool2x_cf_bwd", (x_odd, plan["max_pool2x_cf"][1](x_odd), randn(2, 3, 2, 3, 4))),
-        ("head1x1_cf", (randn(2, 5, 3, 5, 7), randn(5, 3, dtype=f32), randn(3, dtype=f32))),
         ("conv3x3x3_cf_stats", (randn(2, 40, 3, 9, 20),
                                 randn(3, 3, 3, 40, 20, scale=0.05, dtype=f32),
                                 randn(20, scale=0.1, dtype=f32))),
@@ -791,7 +835,11 @@ def phase_kernels() -> dict:
     # != 0: 4-byte stores), Cin = 70 (five K steps, the last partial) and 16,
     # Cout = 20 (a partial channel group) and 64, batch 2, a partial last
     # tile, an unaligned view; the head's dx (11-dx): V % 8 != 0, Cf = 16, 40
-    # and 64, batch 2, an unaligned fp32 view
+    # and 64, batch 2, an unaligned fp32 view; the head's forward (11) and
+    # weight gradient (11-dw): V % 8 != 0, Cf = 5, 16, 40 and 64 (11-dw: from
+    # one partial channel slice to ten), classes 1, 3, 4 and 8, batch 2,
+    # unaligned bf16 and fp32 views, and 2 x 67^3 voxels, where 11-dw's
+    # threads walk one or two groups each
     for x, cout in ((randn(2, 70, 3, 5, 7), 20), (randn(2, 16, 3, 4, 9), 64),
                     (randn(1, 16, 2, 3, 37), 20), (randn(1, 70, 3, 5, 8), 20),
                     (unaligned(2, 16, 2, 4, 8), 64)):
@@ -800,6 +848,16 @@ def phase_kernels() -> dict:
     for ct, cf in ((randn(2, 3, 3, 5, 7, dtype=f32), 40), (randn(2, 4, 2, 4, 8, dtype=f32), 64),
                    (unaligned(2, 4, 2, 4, 8, dtype=f32), 40), (randn(1, 4, 3, 3, 3, dtype=f32), 16)):
         edges.append(("head1x1_cf_dx", (ct, randn(cf, ct.shape[1], dtype=f32))))
+    for x, co in ((randn(2, 5, 3, 5, 7), 3), (randn(2, 40, 3, 5, 7), 8),
+                  (randn(2, 64, 2, 4, 8), 1), (randn(1, 64, 3, 3, 3), 4),
+                  (unaligned(2, 40, 2, 4, 8), 4), (randn(2, 16, 2, 4, 8), 8),
+                  (randn(2, 16, 67, 67, 67), 4)):
+        cf = x.shape[1]
+        edges.append(("head1x1_cf", (x, randn(co, cf, scale=cf ** -0.5, dtype=f32).t(),
+                                     randn(co, scale=0.1, dtype=f32))))
+        ct = randn(x.shape[0], co, *x.shape[2:], scale=1e-3, dtype=f32)
+        edges.append(("head1x1_cf_dw", (x, ct)))
+    edges.append(("head1x1_cf_dw", (randn(2, 40, 2, 4, 8), unaligned(2, 4, 2, 4, 8, dtype=f32))))
 
     # the dW body (2, 6): W = 9, 20, 37 and an unaligned view (2-byte staging),
     # Cin = 1 and 40 (three chunks, the last partial), Cout = 20 and 48, batch 2
@@ -819,7 +877,9 @@ def phase_kernels() -> dict:
             label += f", Cout {args[1].shape[4]}"
         elif name == "head1x1_cf_dx":
             label += f", Cf {args[1].shape[0]}"
-        if args[0].data_ptr() % 16:
+        elif name in ("head1x1_cf", "head1x1_cf_dw"):
+            label += f", classes {args[1].shape[1]}"
+        if any(a.data_ptr() % 16 for a in args[:2]):
             label += ", unaligned"
         err, rel, ok, _ = _errors(label, kern, plain, [args], tol)
         print(f"[kernel] {label}: scaled err {rel:.4g} {'ok' if ok else 'FAIL'}", flush=True)
@@ -843,6 +903,8 @@ def phase_kernels() -> dict:
                                        randn(2, 2, 2, 32, 16, scale=0.2, dtype=f32), b16)),
         ("head1x1_cf_dx", (4, 16, 192), (randn(1, 4, 192, 192, 192, scale=1e-3, dtype=f32),
                                          randn(16, 4, scale=0.5, dtype=f32))),
+        ("head1x1_cf_dw", (16, 4, 192), (x16, randn(1, 4, 192, 192, 192, scale=1e-3,
+                                                     dtype=f32))),
     ]
     for name, shape, args in twice:
         kern = plan[name][0]

@@ -1,5 +1,6 @@
 // 1x1x1 head: a per-voxel product of channel-first features with a small
-// fp32 matrix, in both of the TPU kernel's uses.
+// fp32 matrix, in both of the TPU kernel's uses, and the head's weight
+// gradient.
 //
 // Replaces: multimodal_segmentation_project_tpu/ops/head.py _head_kernel:
 //   * the forward of head1x1_cf: bf16 features (B, Cin, D, H, W) in, fp32
@@ -11,13 +12,23 @@
 //     path, at most 64), fp32 sums and one rounding, no bias (the TPU
 //     kernel's is zero): head1x1_dx_kernel, mmseg_head1x1_dx. w is the
 //     head's (NC, Cf) weight as the model holds it.
+// and the XLA work of the same backward (ops/head.py, _head_bwd_rule's
+// dot_general and sum), which has no Pallas kernel:
+//   * dk[f, c] = sum_{b,v} x[b, f, v] * ct[b, c, v] and db[c] = sum_{b,v}
+//     ct[b, c, v] in fp32, from the bf16 features the forward saved and
+//     the fp32 cotangent: head1x1_dw_kernel, head1x1_dw_reduce_kernel,
+//     mmseg_head1x1_dw.
 //
-// Forward design: one thread per voxel reads its Cin input values
-// (neighbouring threads read neighbouring voxels of the same channel
-// plane, so each load instruction of a warp is one contiguous run),
-// multiplies them against the (Co, Cin) fp32 weights held in shared
-// memory (every thread of a warp reads the same weight: a broadcast),
-// keeps Co fp32 sums in registers and writes them as fp32.
+// Forward design: one thread per 8 consecutive voxels of one batch
+// element. It walks the Cin channel planes FWD_UNROLL at a time, one
+// 16-byte load (8 bf16) per plane, so FWD_UNROLL loads are in flight a
+// thread (neighbouring threads read neighbouring 16 bytes: a warp reads
+// 512 contiguous bytes per plane). Per channel one 16-byte broadcast read
+// (two where Co > 4) of its Co weights from a [Cin][Co rounded up to 4]
+// shared table, zero past Co, and 8 * Co FMAs into Co x 8 fp32
+// accumulators; the sum starts at the bias and adds the channels in order
+// i = 0..Cin-1. Then two 16-byte fp32 stores per class plane (a warp
+// writes 1 KB contiguous per class).
 //
 // dx design: one thread per 8 consecutive voxels of one batch element. It
 // loads the NC class planes' 8 values as two 16-byte loads each (NC * 8
@@ -25,55 +36,193 @@
 // the Cf output channels with a runtime loop: per channel one 16-byte
 // broadcast read of its NC weights from shared memory, 8 * NC FMAs and
 // one 16-byte store of the 8 rounded values (a warp writes 512
-// contiguous bytes per channel plane). Where V % 8 != 0 or ct is not
-// 16-byte aligned the same thread does 4-byte loads and 2-byte stores,
-// each guarded by v < V: the tail and an unaligned view stay in the
-// kernel. Registers do not grow with Cf.
+// contiguous bytes per channel plane). Registers do not grow with Cf.
 //
-// What bounds it on an H100: device-memory bandwidth. At 192^3 the forward
+// Weight-gradient design: a fixed grid of nblk blocks (the wrapper picks
+// nblk, one a SM, from the SM count and the volume alone) times one block
+// row per slice of dw_slice(NC) feature channels. Thread t of block k
+// walks the 8-voxel groups t + 256 k, t + 256 (k + nblk), ... of the
+// flattened (batch, volume): per group two 16-byte loads per class plane
+// of ct and one per feature plane of x, and fp32 partials of dk over its
+// slice (slice * NC values) and of db in registers. The block then sums
+// its threads' partials in a fixed order (a shuffle tree per warp, the
+// warps in order) into its row of a [nblk][Cf * NC + NC] fp32 scratch,
+// and a second launch sums the rows in block order. No atomics: the same
+// bits every run on one card.
+//
+// Tail and alignment: where V % 8 != 0 or a volume's pointer is not 16-byte
+// aligned, the same threads do guarded 2- or 4-byte loads and stores
+// (zero past the volume; for the weight gradient in a second instance of
+// its kernel): the tail and an unaligned view stay in the kernels.
+//
+// What bounds them on an H100: device-memory bandwidth. At 192^3 the forward
 // (Cin = 16, Co = 4) reads 226 MB and writes 113 MB for 64 FMAs per voxel;
-// the dx (NC = 4, Cf = 16) reads 113 MB and writes 226 MB for 64 FMAs per
-// voxel, 0.101 ms at 3.35 TB/s.
+// the dx (NC = 4, Cf = 16) reads 113 MB and writes 226 MB; the weight
+// gradient reads both, 339 MB, for 68 FMAs and adds per voxel: each 0.101
+// ms at 3.35 TB/s.
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int VOX = 8;          // voxels per thread: 16 bytes of bf16, 32 of fp32
+constexpr int FWD_UNROLL = 8;   // forward: channel planes loaded at once
+constexpr int DX_MAX_CF = 64;   // feature channels (dx's shared table: 64 x 8 floats)
 
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <typename TIn, typename TOut, int MAX_CO>
-__global__ void __launch_bounds__(THREADS)
-head1x1_kernel(const TIn* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ bias, TOut* __restrict__ out, int Cin, int Co,
-               long long V) {
-  extern __shared__ float sw[];  // (Co, Cin)
-  for (int i = threadIdx.x; i < Co * Cin; i += THREADS) sw[i] = w[i];
-  __syncthreads();
-
-  const long long v = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (v >= V) return;
-  const int b = blockIdx.y;
-  const TIn* xp = x + size_t(b) * Cin * V + v;
-
-  float acc[MAX_CO];
+// 8 bf16 of one plane as raw bits; zero past the n >= 1 valid voxels. VEC:
+// the 8 are whole and 16-byte aligned. Otherwise 2-byte loads, each from
+// a voxel inside the volume and then selected (no branches, so the
+// compiler keeps each plane's loads together).
+template <bool VEC>
+__device__ __forceinline__ uint4 load8_bf16(const bf16* p, int n) {
+  if (VEC) return *reinterpret_cast<const uint4*>(p);
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(p);
+  uint32_t h[VOX];
 #pragma unroll
-  for (int o = 0; o < MAX_CO; ++o) acc[o] = o < Co ? bias[o] : 0.0f;
-  for (int i = 0; i < Cin; ++i) {
-    const float xv = to_f32(xp[size_t(i) * V]);
-#pragma unroll
-    for (int o = 0; o < MAX_CO; ++o)
-      if (o < Co) acc[o] = fmaf(xv, sw[o * Cin + i], acc[o]);
+  for (int j = 0; j < VOX; ++j) {
+    const uint32_t v = s[j < n ? j : n - 1];
+    h[j] = j < n ? v : 0u;
   }
-  TOut* op = out + size_t(b) * Co * V + v;
-#pragma unroll
-  for (int o = 0; o < MAX_CO; ++o)
-    if (o < Co) store(op + size_t(o) * V, acc[o]);
+  return make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16, h[4] | h[5] << 16, h[6] | h[7] << 16);
 }
 
-constexpr int DX_VOX = 8;       // voxels per thread: two float4 per class plane
-constexpr int DX_MAX_CF = 64;   // feature channels (shared memory: 64 x 8 floats)
+__device__ __forceinline__ void unpack8_bf16(uint4 q, float v[VOX]) {
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+// 8 fp32 of one plane; zero past the n >= 1 valid voxels (4-byte loads
+// selected as load8_bf16's).
+template <bool VEC>
+__device__ __forceinline__ void load8_f32(const float* p, int n, float v[VOX]) {
+  if (VEC) {
+    const float4 lo = reinterpret_cast<const float4*>(p)[0];
+    const float4 hi = reinterpret_cast<const float4*>(p)[1];
+    v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+    v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < VOX; ++j) {
+      const float t = p[j < n ? j : n - 1];
+      v[j] = j < n ? t : 0.0f;
+    }
+  }
+}
+
+// The group gi of 8 voxels: its batch element, first voxel and voxel count.
+struct Group {
+  long long b, v0;
+  int n;
+};
+
+__device__ __forceinline__ Group group_of(long long gi, long long V) {
+  const long long per_b = (V + VOX - 1) / VOX;
+  Group g;
+  g.b = gi / per_b;
+  g.v0 = (gi - g.b * per_b) * VOX;
+  g.n = V - g.v0 < VOX ? int(V - g.v0) : VOX;
+  return g;
+}
+
+// One channel plane of the forward: acc[o][j] += x[j] * w[o] for o < CO.
+template <int CO>
+__device__ __forceinline__ void fwd_channel(float (&acc)[CO][VOX], uint4 q, const float4* wrow) {
+  constexpr int COP = (CO + 3) / 4 * 4;
+  float wv[COP];
+#pragma unroll
+  for (int k = 0; k < COP / 4; ++k) {
+    const float4 t = wrow[k];
+    wv[4 * k] = t.x, wv[4 * k + 1] = t.y, wv[4 * k + 2] = t.z, wv[4 * k + 3] = t.w;
+  }
+  float xv[VOX];
+  unpack8_bf16(q, xv);
+#pragma unroll
+  for (int o = 0; o < CO; ++o)
+#pragma unroll
+    for (int j = 0; j < VOX; ++j) acc[o][j] = fmaf(xv[j], wv[o], acc[o][j]);
+}
+
+// The forward's sums of one group, onto the bias: the Cin channels in order.
+template <int CO, bool VEC>
+__device__ __forceinline__ void fwd_group(float (&acc)[CO][VOX], const bf16* xp,
+                                          const float4* sw4, int Cin, long long V, int n) {
+  constexpr int COP = (CO + 3) / 4 * 4;
+  int i = 0;
+  for (; i + FWD_UNROLL <= Cin; i += FWD_UNROLL) {
+    uint4 q[FWD_UNROLL];
+#pragma unroll
+    for (int u = 0; u < FWD_UNROLL; ++u) q[u] = load8_bf16<VEC>(xp + size_t(i + u) * V, n);
+#pragma unroll
+    for (int u = 0; u < FWD_UNROLL; ++u) fwd_channel<CO>(acc, q[u], sw4 + (i + u) * (COP / 4));
+  }
+  for (; i < Cin; ++i)
+    fwd_channel<CO>(acc, load8_bf16<VEC>(xp + size_t(i) * V, n), sw4 + i * (COP / 4));
+}
+
+// CO classes; COP = CO rounded up to 4, the pitch of a channel's weights.
+template <int CO>
+__global__ void __launch_bounds__(THREADS)
+head1x1_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+               const float* __restrict__ bias, float* __restrict__ out, int Cin, long long V,
+               long long groups, bool vec) {
+  constexpr int COP = (CO + 3) / 4 * 4;
+  extern __shared__ float4 sw4[];  // [Cin][COP / 4]: channel i's weights, zero past CO
+  float* sw = reinterpret_cast<float*>(sw4);
+  for (int i = threadIdx.x; i < Cin * COP; i += THREADS) {
+    const int ci = i / COP, o = i % COP;
+    sw[i] = o < CO ? w[size_t(o) * Cin + ci] : 0.0f;
+  }
+  __syncthreads();
+
+  const long long gi = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (gi >= groups) return;
+  const Group g = group_of(gi, V);
+  const bf16* xp = x + size_t(g.b) * Cin * V + g.v0;
+
+  float acc[CO][VOX];
+#pragma unroll
+  for (int o = 0; o < CO; ++o)
+#pragma unroll
+    for (int j = 0; j < VOX; ++j) acc[o][j] = bias[o];
+  if (vec)
+    fwd_group<CO, true>(acc, xp, sw4, Cin, V, g.n);
+  else
+    fwd_group<CO, false>(acc, xp, sw4, Cin, V, g.n);
+
+  float* op = out + size_t(g.b) * CO * V + g.v0;
+#pragma unroll
+  for (int o = 0; o < CO; ++o) {
+    float* p = op + size_t(o) * V;
+    if (vec) {
+      reinterpret_cast<float4*>(p)[0] = make_float4(acc[o][0], acc[o][1], acc[o][2], acc[o][3]);
+      reinterpret_cast<float4*>(p)[1] = make_float4(acc[o][4], acc[o][5], acc[o][6], acc[o][7]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VOX; ++j)
+        if (j < g.n) p[j] = acc[o][j];
+    }
+  }
+}
+
+template <int CO>
+int launch_fwd(const void* x, const void* w, const void* bias, void* out, int B, int Cin,
+               long long V, cudaStream_t stream) {
+  constexpr int COP = (CO + 3) / 4 * 4;
+  const size_t smem = size_t(Cin) * COP * sizeof(float);
+  if (smem > 48 * 1024) return int(cudaErrorInvalidValue);
+  const long long groups = B * ((V + VOX - 1) / VOX);
+  const bool vec = V % VOX == 0 && aligned16(x) && aligned16(out);
+  head1x1_kernel<CO><<<unsigned((groups + THREADS - 1) / THREADS), THREADS, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(w), static_cast<const float*>(bias),
+      static_cast<float*>(out), Cin, V, groups, vec);
+  return int(cudaGetLastError());
+}
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return uint32_t(__bfloat16_as_ushort(__float2bfloat16(lo))) |
@@ -95,27 +244,17 @@ head1x1_dx_kernel(const float* __restrict__ ct, const float* __restrict__ w,
 
   const long long gi = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (gi >= groups) return;
-  const long long per_b = (V + DX_VOX - 1) / DX_VOX;
-  const long long b = gi / per_b;
-  const long long v0 = (gi - b * per_b) * DX_VOX;
-  const int n = V - v0 < DX_VOX ? int(V - v0) : DX_VOX;  // voxels of this group
-  const float* cp = ct + size_t(b) * NC * V + v0;
-  bf16* dp = dx + size_t(b) * Cf * V + v0;
+  const Group g = group_of(gi, V);
+  const float* cp = ct + size_t(g.b) * NC * V + g.v0;
+  bf16* dp = dx + size_t(g.b) * Cf * V + g.v0;
 
-  float xv[NC][DX_VOX];
-  if (vec) {  // V % 8 == 0 and ct 16-byte aligned: every group is whole and aligned
+  float xv[NC][VOX];
+  if (vec) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const float4 lo = *reinterpret_cast<const float4*>(cp + size_t(c) * V);
-      const float4 hi = *(reinterpret_cast<const float4*>(cp + size_t(c) * V) + 1);
-      xv[c][0] = lo.x, xv[c][1] = lo.y, xv[c][2] = lo.z, xv[c][3] = lo.w;
-      xv[c][4] = hi.x, xv[c][5] = hi.y, xv[c][6] = hi.z, xv[c][7] = hi.w;
-    }
+    for (int c = 0; c < NC; ++c) load8_f32<true>(cp + size_t(c) * V, g.n, xv[c]);
   } else {
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int j = 0; j < DX_VOX; ++j) xv[c][j] = j < n ? cp[size_t(c) * V + j] : 0.0f;
+    for (int c = 0; c < NC; ++c) load8_f32<false>(cp + size_t(c) * V, g.n, xv[c]);
   }
 
   const float4* sw4 = reinterpret_cast<const float4*>(sw);
@@ -126,9 +265,9 @@ head1x1_dx_kernel(const float* __restrict__ ct, const float* __restrict__ w,
       const float4 q = sw4[f * (NCP / 4) + k];
       wf[4 * k] = q.x, wf[4 * k + 1] = q.y, wf[4 * k + 2] = q.z, wf[4 * k + 3] = q.w;
     }
-    float s[DX_VOX];
+    float s[VOX];
 #pragma unroll
-    for (int j = 0; j < DX_VOX; ++j) {
+    for (int j = 0; j < VOX; ++j) {
       s[j] = xv[0][j] * wf[0];
 #pragma unroll
       for (int c = 1; c < NC; ++c) s[j] = fmaf(xv[c][j], wf[c], s[j]);
@@ -143,8 +282,8 @@ head1x1_dx_kernel(const float* __restrict__ ct, const float* __restrict__ w,
       *reinterpret_cast<uint4*>(op) = q;
     } else {
 #pragma unroll
-      for (int j = 0; j < DX_VOX; ++j)
-        if (j < n) op[j] = __float2bfloat16(s[j]);
+      for (int j = 0; j < VOX; ++j)
+        if (j < g.n) op[j] = __float2bfloat16(s[j]);
     }
   }
 }
@@ -152,28 +291,152 @@ head1x1_dx_kernel(const float* __restrict__ ct, const float* __restrict__ w,
 template <int NC>
 int launch_dx(const void* ct, const void* w, void* dx, int B, int Cf, long long V,
               cudaStream_t stream) {
-  const long long groups = B * ((V + DX_VOX - 1) / DX_VOX);
-  const bool vec = V % DX_VOX == 0 && (reinterpret_cast<uintptr_t>(ct) & 15) == 0 &&
-                   (reinterpret_cast<uintptr_t>(dx) & 15) == 0;
+  const long long groups = B * ((V + VOX - 1) / VOX);
+  const bool vec = V % VOX == 0 && aligned16(ct) && aligned16(dx);
   head1x1_dx_kernel<NC><<<unsigned((groups + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
       static_cast<const float*>(ct), static_cast<const float*>(w), static_cast<bf16*>(dx), Cf,
       V, groups, vec);
   return int(cudaGetLastError());
 }
 
+// Feature channels per slice of the weight gradient, by the number of
+// classes: slice * NC dk partials, NC db partials, the group's NC * 8
+// cotangent values and the slice's x loads in flight fit 255 registers
+// without spilling.
+__host__ __device__ constexpr int dw_slice(int nc) { return nc <= 4 ? 16 : nc <= 6 ? 8 : 4; }
+
+constexpr int WARPS = THREADS / 32;
+// One block a SM: ptxas then keeps a group's 2 * NC + slice 16-byte loads in
+// flight a thread (168-255 registers). Capped at 128 for two blocks a SM
+// it spilled, and the kernel ran slower.
+constexpr int DW_BLOCKS_PER_SM = 1;
+
+// One group's terms of a thread's weight-gradient partials: acc[f * NC + c]
+// += x[f0 + f] . ct[c] over the group's 8 voxels for the FS channels of the
+// slice, acc[FS * NC + c] += the sum of ct[c].
+template <int NC, int FS, bool VEC>
+__device__ __forceinline__ void dw_group(float (&acc)[FS * NC + NC], const float* cp,
+                                         const bf16* xp, int f0, int Cf, long long V, int n) {
+  float cv[NC][VOX];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) load8_f32<VEC>(cp + size_t(c) * V, n, cv[c]);
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int j = 0; j < VOX; ++j) acc[FS * NC + c] += cv[c][j];
+  const bf16* p = xp + size_t(f0) * V;
+#pragma unroll
+  for (int f = 0; f < FS; ++f) {
+    float xv[VOX];
+    unpack8_bf16(load8_bf16<VEC>(p, n), xv);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < VOX; ++j) acc[f * NC + c] = fmaf(xv[j], cv[c][j], acc[f * NC + c]);
+    // past Cf the last channel is read again (an L1 hit) and never stored
+    if (f0 + f + 1 < Cf) p += V;
+  }
+}
+
+// Block (k, s): the slice s of feature channels, the groups k, k + nblk, ...
+// (in units of THREADS groups); its row k of part holds, after all slices
+// ran, dk (f-major, Cf * NC) then db (NC). VEC (V % 8 == 0, x and ct
+// 16-byte aligned) and the guarded loads are separate instances.
+template <int NC, bool VEC>
+__global__ void __launch_bounds__(THREADS, DW_BLOCKS_PER_SM)
+head1x1_dw_kernel(const bf16* __restrict__ x, const float* __restrict__ ct,
+                  float* __restrict__ part, int Cf, long long V, long long groups) {
+  constexpr int FS = dw_slice(NC);
+  constexpr int NP = FS * NC + NC;  // a thread's partials: dk over the slice, then db
+  __shared__ float red[WARPS][NP];
+  const int f0 = blockIdx.y * FS;
+
+  float acc[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) acc[k] = 0.0f;
+  const long long stride = (long long)gridDim.x * THREADS;
+  for (long long gi = (long long)blockIdx.x * THREADS + threadIdx.x; gi < groups; gi += stride) {
+    const Group g = group_of(gi, V);
+    const float* cp = ct + size_t(g.b) * NC * V + g.v0;
+    const bf16* xp = x + size_t(g.b) * Cf * V + g.v0;
+    dw_group<NC, FS, VEC>(acc, cp, xp, f0, Cf, V, g.n);
+  }
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    float v = acc[k];
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) red[warp][k] = v;
+  }
+  __syncthreads();
+  const int E = Cf * NC + NC;
+  float* row = part + size_t(blockIdx.x) * E;
+  for (int k = threadIdx.x; k < NP; k += THREADS) {
+    const bool db = k >= FS * NC;
+    if (db ? blockIdx.y != 0 : f0 + k / NC >= Cf) continue;
+    float s = red[0][k];
+    for (int w = 1; w < WARPS; ++w) s += red[w][k];
+    row[db ? Cf * NC + (k - FS * NC) : f0 * NC + k] = s;
+  }
+}
+
+// dk and db: entry e of the rows summed in block order.
+__global__ void __launch_bounds__(THREADS)
+head1x1_dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dk,
+                         float* __restrict__ db, int CfNC, int E, int nblk) {
+  const int e = blockIdx.x * THREADS + threadIdx.x;
+  if (e >= E) return;
+  float s = part[e];
+  for (int k = 1; k < nblk; ++k) s += part[size_t(k) * E + e];
+  if (e < CfNC)
+    dk[e] = s;
+  else
+    db[e - CfNC] = s;
+}
+
+template <int NC>
+int launch_dw(const void* x, const void* ct, void* part, void* dk, void* db, int B, int Cf,
+              long long V, int nblk, cudaStream_t stream) {
+  constexpr int FS = dw_slice(NC);
+  const long long groups = B * ((V + VOX - 1) / VOX);
+  const bool vec = V % VOX == 0 && aligned16(x) && aligned16(ct);
+  const dim3 grid(unsigned(nblk), unsigned((Cf + FS - 1) / FS));
+  const bf16* xb = static_cast<const bf16*>(x);
+  const float* cf = static_cast<const float*>(ct);
+  float* pf = static_cast<float*>(part);
+  if (vec)
+    head1x1_dw_kernel<NC, true><<<grid, THREADS, 0, stream>>>(xb, cf, pf, Cf, V, groups);
+  else
+    head1x1_dw_kernel<NC, false><<<grid, THREADS, 0, stream>>>(xb, cf, pf, Cf, V, groups);
+  const int E = Cf * NC + NC;
+  head1x1_dw_reduce_kernel<<<(E + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<float*>(dk), static_cast<float*>(db), Cf * NC,
+      E, nblk);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
+// out (B, Co, V) fp32 from x (B, Cin, V) bf16, w (Co, Cin) fp32 and bias
+// (Co,) fp32; Co 1..8, Cin * (Co rounded up to 4) * 4 bytes <= 48 KB.
 MMSEG_API int mmseg_head1x1(const void* x, const void* w, const void* bias, void* out, int B,
                             int Cin, int Co, long long V, void* stream) {
-  constexpr int MAX_CO = 8;
-  if (Co < 1 || Co > MAX_CO) return int(cudaErrorInvalidValue);
+  if (Cin < 1) return int(cudaErrorInvalidValue);
   if (V == 0 || B == 0) return int(cudaSuccess);
-  dim3 grid(unsigned((V + THREADS - 1) / THREADS), B);
-  const size_t smem = size_t(Co) * Cin * sizeof(float);
-  head1x1_kernel<bf16, float, MAX_CO><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(w), static_cast<const float*>(bias),
-      static_cast<float*>(out), Cin, Co, V);
-  return int(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (Co) {
+    case 1: return launch_fwd<1>(x, w, bias, out, B, Cin, V, s);
+    case 2: return launch_fwd<2>(x, w, bias, out, B, Cin, V, s);
+    case 3: return launch_fwd<3>(x, w, bias, out, B, Cin, V, s);
+    case 4: return launch_fwd<4>(x, w, bias, out, B, Cin, V, s);
+    case 5: return launch_fwd<5>(x, w, bias, out, B, Cin, V, s);
+    case 6: return launch_fwd<6>(x, w, bias, out, B, Cin, V, s);
+    case 7: return launch_fwd<7>(x, w, bias, out, B, Cin, V, s);
+    case 8: return launch_fwd<8>(x, w, bias, out, B, Cin, V, s);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 // dx (B, Cf, V) bf16 from ct (B, NC, V) fp32 and w (NC, Cf) fp32; NC 1..8,
@@ -192,6 +455,26 @@ MMSEG_API int mmseg_head1x1_dx(const void* ct, const void* w, void* dx, int B, i
     case 6: return launch_dx<6>(ct, w, dx, B, Cf, V, s);
     case 7: return launch_dx<7>(ct, w, dx, B, Cf, V, s);
     case 8: return launch_dx<8>(ct, w, dx, B, Cf, V, s);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// dk (Cf, NC) and db (NC,) fp32 from x (B, Cf, V) bf16 and ct (B, NC, V)
+// fp32, through part, an fp32 scratch of nblk * (Cf * NC + NC); NC 1..8,
+// Cf 1..64, nblk >= 1.
+MMSEG_API int mmseg_head1x1_dw(const void* x, const void* ct, void* part, void* dk, void* db,
+                               int B, int Cf, int NC, long long V, int nblk, void* stream) {
+  if (Cf < 1 || Cf > DX_MAX_CF || nblk < 1) return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (NC) {
+    case 1: return launch_dw<1>(x, ct, part, dk, db, B, Cf, V, nblk, s);
+    case 2: return launch_dw<2>(x, ct, part, dk, db, B, Cf, V, nblk, s);
+    case 3: return launch_dw<3>(x, ct, part, dk, db, B, Cf, V, nblk, s);
+    case 4: return launch_dw<4>(x, ct, part, dk, db, B, Cf, V, nblk, s);
+    case 5: return launch_dw<5>(x, ct, part, dk, db, B, Cf, V, nblk, s);
+    case 6: return launch_dw<6>(x, ct, part, dk, db, B, Cf, V, nblk, s);
+    case 7: return launch_dw<7>(x, ct, part, dk, db, B, Cf, V, nblk, s);
+    case 8: return launch_dw<8>(x, ct, part, dk, db, B, Cf, V, nblk, s);
     default: return int(cudaErrorInvalidValue);
   }
 }

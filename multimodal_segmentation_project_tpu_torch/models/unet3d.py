@@ -48,8 +48,8 @@ Dropout3d draws one keep mask per (batch, channel) from the ``generator``
 passed to :meth:`UNet3D.forward`, in the same order on both paths. A 192^3
 train step at default widths launches 5 conv+stats, 5 boundary conv+stats,
 1 conv forward (dec1's conv1), 5 dx, 5 dx-epilogue, 6 dW, 5 prologue dW, 4
-pool forward, 4 pool backward, 3 upconv, 1 head and 1 head-dx kernel on a
-GPU.
+pool forward, 4 pool backward, 3 upconv, 1 head, 1 head-dx and 1
+head-weight-gradient kernel on a GPU.
 
 On the CPU the same ops run their plain versions. ``dtype`` is the compute
 dtype (bf16 on the GPU, fp32 in the CPU tests); parameters stay fp32.

@@ -18,7 +18,11 @@ from multimodal_segmentation_project_tpu_torch.ops.conv3_fused import (
     conv3x3x3_cf_dx_epilogue,
     conv3x3x3_cf_stats,
 )
-from multimodal_segmentation_project_tpu_torch.ops.head import head1x1_cf, head1x1_cf_dx
+from multimodal_segmentation_project_tpu_torch.ops.head import (
+    head1x1_cf,
+    head1x1_cf_dw,
+    head1x1_cf_dx,
+)
 from multimodal_segmentation_project_tpu_torch.ops.pool import max_pool2x_cf, max_pool2x_cf_bwd
 from multimodal_segmentation_project_tpu_torch.ops.upconv import upconv2x_cf
 
@@ -37,6 +41,7 @@ KERNEL_OPS = {
     "upconv2x_cf": upconv2x_cf,
     "head1x1_cf": head1x1_cf,
     "head1x1_cf_dx": head1x1_cf_dx,
+    "head1x1_cf_dw": head1x1_cf_dw,
 }
 
 

@@ -58,6 +58,7 @@ _SIGNATURES = {
     "mmseg_upconv_d2s": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "mmseg_head1x1": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P),
     "mmseg_head1x1_dx": (_P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P),
+    "mmseg_head1x1_dw": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I, _P),
 }
 # name -> argtypes of the C functions that launch nothing (restype int)
 _QUERIES = {"mmseg_conv3_smem_bytes": (_I, _I), "mmseg_conv3_dw_smem_bytes": (_I,),

@@ -5,15 +5,19 @@ Port of ``multimodal_segmentation_project_tpu/ops/head.py``'s
 ``head1x1_cf``, a differentiable op. Its backward follows
 ``_head_bwd_rule``: dx is the head's own kernel on the logits' fp32
 cotangent with the transposed weights and a zero bias, written in the
-features' dtype (:func:`head1x1_cf_dx`); dkernel and dbias are plain
-reductions over the volume, as they are plain XLA in the JAX package.
+features' dtype (:func:`head1x1_cf_dx`); dkernel and dbias are reductions
+over batch and volume (:func:`head1x1_cf_dw`), plain XLA in the JAX
+package and a kernel of the port's own here.
 
 On CUDA tensors the forward launches ``csrc/head1x1.cu:mmseg_head1x1``
-(bf16 features in, fp32 logits out) and dx ``mmseg_head1x1_dx`` (fp32
-cotangent in, bf16 out, no bias); on CPU tensors they run
-:func:`head1x1_cf_reference` and :func:`head1x1_cf_dx_reference`.
-:func:`head_call` and :func:`dx_call` build each launch with its operands
-and output ready, for the wrappers and for a bare timing.
+(bf16 features in, fp32 logits out), dx ``mmseg_head1x1_dx`` (fp32
+cotangent in, bf16 out, no bias) and the weight gradient
+``mmseg_head1x1_dw`` (bf16 features and fp32 cotangent in, fp32 dkernel
+and dbias out); on CPU tensors they run :func:`head1x1_cf_reference`,
+:func:`head1x1_cf_dx_reference` and :func:`head1x1_cf_dw_reference`.
+:func:`head_call`, :func:`dx_call` and :func:`dw_call` build each launch
+with its operands and outputs ready, for the wrappers and for a bare
+timing.
 """
 
 from __future__ import annotations
@@ -24,7 +28,10 @@ from multimodal_segmentation_project_tpu_torch.ops import _build
 from multimodal_segmentation_project_tpu_torch.ops._build import Launch, run
 
 MAX_CLASSES = 8  # the forward kernel's register budget for logits per voxel
-MAX_DX_CHANNELS = 64  # the dx kernel's weight table: feature channels
+MAX_DX_CHANNELS = 64  # the dx and weight-gradient kernels: feature channels
+HEAD_THREADS = 256  # csrc/head1x1.cu THREADS: 8-voxel groups per block
+HEAD_DW_BLOCKS_PER_SM = 1  # csrc/head1x1.cu DW_BLOCKS_PER_SM: the weight gradient's grid
+SMEM_LIMIT = 48 * 1024  # the forward's (Cin, Co rounded up to 4) fp32 weight table
 
 
 def head1x1_cf_reference(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -54,6 +61,9 @@ def head_call(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> Laun
         raise ValueError(f"{name}: the kernel takes 1..{MAX_CLASSES} classes, got {co}")
     if tuple(bias.shape) != (co,):
         raise ValueError(f"{name}: bias {tuple(bias.shape)} does not match {co} classes")
+    if cin * -(-co // 4) * 4 * 4 > SMEM_LIMIT:
+        raise ValueError(f"{name}: Cin={cin} needs a weight table over the kernel's "
+                         f"{SMEM_LIMIT} bytes of shared memory")
     wk = kernel.t().to(x.device, torch.float32).contiguous()
     bk = bias.to(x.device, torch.float32).contiguous()
     out = torch.empty((b, co, d, h, w), dtype=torch.float32, device=x.device)
@@ -82,6 +92,41 @@ def dx_call(ct: torch.Tensor, kernel: torch.Tensor) -> Launch:
                                        d * h * w), dx, (ct, wk, dx))
 
 
+def dw_blocks(device: torch.device, groups: int) -> int:
+    """Blocks of the weight-gradient kernel's first pass: HEAD_DW_BLOCKS_PER_SM
+    a SM, at most one per HEAD_THREADS groups of 8 voxels. The split depends
+    on the SM count and the volume only, so the sum order and the result do
+    not change from run to run on one card."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(HEAD_DW_BLOCKS_PER_SM * sms, -(-groups // HEAD_THREADS)))
+
+
+def dw_call(x: torch.Tensor, ct: torch.Tensor) -> Launch:
+    """Kernel 11-dw's call on CUDA tensors: fp32 dkernel (Cf, Co) and dbias
+    (Co,) from the bf16 features x (B, Cf, D, H, W) and the fp32 cotangent
+    ct (B, Co, D, H, W), through an fp32 scratch of one row of Cf * Co + Co
+    partials per block."""
+    name = "head1x1_cf_dw"
+    _build.require(name, x, torch.bfloat16, 5)
+    _build.require(name, ct, torch.float32, 5)
+    b, cf, d, h, w = x.shape
+    co = ct.shape[1]
+    if ct.shape[0] != b or ct.shape[2:] != x.shape[2:]:
+        raise ValueError(f"{name}: cotangent {tuple(ct.shape)} does not match x {tuple(x.shape)}")
+    if not 1 <= co <= MAX_CLASSES:
+        raise ValueError(f"{name}: the kernel takes 1..{MAX_CLASSES} classes, got {co}")
+    if not 1 <= cf <= MAX_DX_CHANNELS:
+        raise ValueError(f"{name}: the kernel takes 1..{MAX_DX_CHANNELS} channels, got {cf}")
+    v = d * h * w
+    nblk = dw_blocks(x.device, b * -(-v // 8))
+    part = torch.empty(nblk * (cf * co + co), dtype=torch.float32, device=x.device)
+    dk = torch.empty((cf, co), dtype=torch.float32, device=x.device)
+    db = torch.empty((co,), dtype=torch.float32, device=x.device)
+    return Launch("mmseg_head1x1_dw", (x.data_ptr(), ct.data_ptr(), part.data_ptr(), dk.data_ptr(),
+                                       db.data_ptr(), b, cf, co, v, nblk), (dk, db),
+                  (x, ct, part, dk, db))
+
+
 def _head_fwd(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """The forward without autograd; its launches count on head1x1_cf."""
     if x.device.type == "cpu":
@@ -103,11 +148,22 @@ def head1x1_cf_dx(ct: torch.Tensor, kernel: torch.Tensor, dtype: torch.dtype) ->
     return out
 
 
-def weight_grads(x: torch.Tensor, ct: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """dkernel (Cin, Co) and dbias (Co,) in fp32 from the features x and
-    the logits' cotangent ct: plain reductions over batch and volume."""
+def head1x1_cf_dw_reference(x: torch.Tensor,
+                            ct: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the weight gradient: an fp32 einsum and a sum."""
     dk = torch.einsum("bidhw,bodhw->io", x.float(), ct.float())
     return dk, ct.float().sum(dim=(0, 2, 3, 4))
+
+
+def head1x1_cf_dw(x: torch.Tensor, ct: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """dkernel (Cin, Co) and dbias (Co,) in fp32 from the features x (B,
+    Cin, D, H, W) and the logits' cotangent ct (B, Co, D, H, W): reductions
+    over batch and volume; bf16 x and fp32 ct only on CUDA."""
+    if x.device.type == "cpu":
+        return head1x1_cf_dw_reference(x, ct)
+    out = run("head1x1_cf_dw", dw_call(x, ct), x)
+    head1x1_cf_dw.launches += 1
+    return out
 
 
 class _Head(torch.autograd.Function):
@@ -121,7 +177,7 @@ class _Head(torch.autograd.Function):
         x, kernel = ctx.saved_tensors
         ct = ct.contiguous()
         dx = head1x1_cf_dx(ct, kernel, x.dtype) if ctx.needs_input_grad[0] else None
-        dk, db = weight_grads(x, ct)
+        dk, db = head1x1_cf_dw(x, ct)
         return dx, dk.to(kernel.dtype), db
 
 
@@ -133,3 +189,4 @@ def head1x1_cf(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> tor
 
 head1x1_cf.launches = 0  # forward kernel launches
 head1x1_cf_dx.launches = 0
+head1x1_cf_dw.launches = 0

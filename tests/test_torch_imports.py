@@ -95,6 +95,7 @@ def test_train_cli_takes_the_jax_clis_flags_and_defaults():
         (conv3.conv3x3x3_cf_dw, lambda t: (t(1, 2, 4, 4, 4), t(1, 4, 4, 4, 4))),
         (pool.max_pool2x_cf_bwd, lambda t: (t(1, 2, 4, 4, 4), t(1, 2, 2, 2, 2), t(1, 2, 2, 2, 2))),
         (head.head1x1_cf_dx, lambda t: (t(1, 4, 4, 4, 4), t(2, 4), torch.bfloat16)),
+        (head.head1x1_cf_dw, lambda t: (t(1, 2, 4, 4, 4), t(1, 4, 4, 4, 4))),
         (conv3_fused.conv3x3x3_cf_stats, lambda t: (t(1, 2, 4, 4, 4), t(3, 3, 3, 2, 4), t(4))),
         (conv3_fused.conv3x3x3_cf_boundary_stats,
          lambda t: (t(1, 2, 4, 4, 4), t(3, 3, 3, 2, 4), t(4), t(1, 2), t(1, 2))),
