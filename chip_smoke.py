@@ -46,7 +46,21 @@ Phases, each printing one line per check; any failure exits non-zero:
    CPU fp32 and against the CPU bf16 emulation, from the same weights: the
    loss and every parameter's gradient, and controls that the check
    refuses a zeroed or halved deep gradient and a fused block's bn0
-   scale gradient.
+   scale gradient;
+8. workloads (run after phase 6, before phase 7): the port's orchestrator
+   (``workloads.main``) runs ``--experiment finetune`` (with
+   ``--freeze_encoder``), ``distill`` and ``dann`` at full width on phase
+   6's data and best checkpoint (the pretrained model and the teacher) as
+   ``run_finetune_ct.sh``, ``run_distillation.sh`` and ``run_dann.sh`` do,
+   one epoch of two steps each with gradient accumulation 2; checks the
+   exact launches of every kernel per step and per validation forward,
+   finite CSV rows, the best checkpoints, the fine-tune's frozen encoder
+   and bottleneck unchanged, and the DANN model through the eval CLI; then
+   times the distillation and DANN steps alone (median over distinct
+   device-resident inputs, peak memory, launches per step) and holds one
+   DANN step at 64^3 against the CPU (fp32 and the bf16 emulation): the
+   task and domain losses and every discriminator gradient, with a control
+   that a zeroed fc0 gradient is refused.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Scratch files go to
@@ -918,8 +932,15 @@ def phase_kernels() -> dict:
     return results
 
 
-def write_case(path_img: Path, path_lbl: Path, size: int, seed: int) -> None:
-    """One synthetic abdominal CT volume (HU) and its labels: a liver,
+# background, spleen, liver, kidneys: CT in HU; MRI in arbitrary T1-like
+# units, which the MRI preprocessing z-scores; and the noise's sigma
+INTENSITIES = {"ct": ((-40.0, 110.0, 60.0, 180.0), 20.0),
+               "mri": ((150.0, 420.0, 520.0, 650.0), 40.0)}
+
+
+def write_case(path_img: Path, path_lbl: Path, size: int, seed: int,
+               modality: str = "ct") -> None:
+    """One synthetic abdominal CT (HU) or MRI volume and its labels: a liver,
     a spleen and two kidneys as ellipsoids with organ-typical intensities
     over soft-tissue noise. Uncompressed NIfTI, so host decode stays short."""
     import numpy as np
@@ -941,20 +962,22 @@ def write_case(path_img: Path, path_lbl: Path, size: int, seed: int) -> None:
         inside = (((z - cz - jit[0]) / rz) ** 2 + ((y - cy - jit[1]) / ry) ** 2
                   + ((x - cx - jit[2]) / rx) ** 2) <= 1.0
         lbl[inside] = label
-    hu = np.array([-40.0, 110.0, 60.0, 180.0], np.float32)[lbl]
-    img = hu + rng.normal(0.0, 20.0, lbl.shape).astype(np.float32)
+    levels, sigma = INTENSITIES[modality]
+    img = np.array(levels, np.float32)[lbl] + rng.normal(0.0, sigma, lbl.shape).astype(np.float32)
     affine = np.diag([1.5, 1.5, 1.5, 1.0])
     save_nifti(img, str(path_img), affine=affine)
     save_nifti(lbl.astype(np.int16), str(path_lbl), affine=affine)
 
 
-def write_split(root: Path, split: str, n: int, size: int, seed: int) -> None:
-    case_dir = root / split / "synth_ct"
+def write_split(root: Path, split: str, n: int, size: int, seed: int,
+                modality: str = "ct") -> None:
+    case_dir = root / split / f"synth_{modality}"
     (case_dir / "images").mkdir(parents=True)
     (case_dir / "labels").mkdir(parents=True)
     for i in range(n):
         write_case(case_dir / "images" / f"case{i:02d}.nii",
-                   case_dir / "labels" / f"case{i:02d}.nii", size, seed=seed + i)
+                   case_dir / "labels" / f"case{i:02d}.nii", size, seed=seed + i,
+                   modality=modality)
 
 
 def make_model(dtype, seed: int = SEED, dropout_rate: float = 0.0):
@@ -1136,7 +1159,7 @@ def _kernel_category(name: str) -> str:
     return OTHER_CATEGORY
 
 
-def _profile_steps(step, state, inputs) -> None:
+def _profile_steps(run, inputs) -> None:
     """Device time of a few train steps by kernel category, the largest
     elementwise kernels by name, and the device's idle share over the
     window."""
@@ -1144,8 +1167,8 @@ def _profile_steps(step, state, inputs) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for images, labels, gen in inputs:
-            step(state, images, labels, gen)
+        for args in inputs:
+            run(*args)
         torch.cuda.synchronize()
     spans, cats, other = [], {}, {}
     for evt in prof.events():
@@ -1276,8 +1299,283 @@ def phase_train(size: int = 192) -> dict:
           f"{med:.3f} ms over {N_STEPS_TIMED} distinct inputs (host clock around "
           f"synchronize; all {[round(t, 3) for t in times]}) | peak allocated {peak:.2f} GiB",
           flush=True)
-    _profile_steps(step, state, [batch(300 + i) for i in range(N_STEPS_PROFILED)])
+    _profile_steps(lambda *args: step(state, *args),
+                   [batch(300 + i) for i in range(N_STEPS_PROFILED)])
     return counts
+
+
+# The other three workloads, per step (default widths, 192^3). The train
+# step's counts are its forward's and its backward's. A distillation step is
+# a train step plus the teacher's eval forward. A DANN step runs two whole
+# train-mode forwards (source, then target), the source's whole backward,
+# and the target's backward from the bottleneck's mean down through the
+# bottleneck (cuDNN) and the encoder only, since its logits are dropped:
+# the four pools, enc0-enc2's fused blocks (dx epilogue and prologue dW of
+# conv1, dW of conv0) and the dx of enc1's and enc2's conv0 (enc0's conv0
+# takes the image, which needs no gradient).
+STEP_FORWARD = {"conv3x3x3_cf_stats": 5, "conv3x3x3_cf_boundary_stats": 5, "conv3x3x3_cf": 1,
+                "max_pool2x_cf": 4, "upconv2x_cf": 3, "head1x1_cf": 1}
+ENCODER_BACKWARD = {"conv3x3x3_cf_dx": 2, "conv3x3x3_cf_dx_epilogue": 3, "conv3x3x3_cf_dw": 3,
+                    "conv3x3x3_cf_dw_prologue": 3, "max_pool2x_cf_bwd": 4}
+
+
+def _add_counts(*counts: dict) -> dict:
+    out: dict = {}
+    for c in counts:
+        for k, n in c.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+PER_DISTILL_STEP = _add_counts(PER_STEP, PER_FORWARD)
+PER_DANN_STEP = _add_counts(PER_STEP, STEP_FORWARD, ENCODER_BACKWARD)
+# the recipes' shared flags (run_finetune_ct.sh, run_distillation.sh,
+# run_dann.sh), with one epoch and gradient accumulation 2, not 8, as phase 6
+RECIPE = ["--batch_size", "1", "--epochs", "1", "--weight_decay", "1e-4",
+          "--gradient_accumulation_steps", "2", "--mixed_precision", "bf16",
+          "--early_stopping", "--patience", "10", "--seed", "42"]
+# the workloads phase's device: a CPU rehearsal of the phase, at a small
+# size, sets it to "cpu"
+DEVICE = "cuda"
+DANN_SPLITS = {"train": ("mri", 1), "dann_add_labeled": ("ct", 1), "val": ("ct", 1),
+               "target": ("ct", 1), "dann_add_unlabeled": ("ct", 1)}
+LAMBDA_DOMAIN = 0.2
+
+
+def _run_workload(experiment: str, argv: list, steps: int, per_step: dict, evals: int,
+                  log_name: str, columns: tuple) -> Path:
+    """One experiment through the port's orchestrator on the GPU: the exact
+    launches per kernel over its steps and validation forwards, finite CSV
+    rows; returns the run's directory."""
+    import csv
+
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch import ops
+    from multimodal_segmentation_project_tpu_torch.workloads import main as orchestrator
+
+    exp = SCRATCH / f"{experiment}_exp"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    orchestrator.main(["--experiment", experiment, "--experiment_dir", str(exp),
+                       "--device", DEVICE, *argv])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    print(f"[{experiment}] main.py --experiment {experiment}: {steps} steps and {evals} "
+          f"validation forwards in {secs:.2f} s; launches {counts}", flush=True)
+    for name, n in counts.items():
+        want = per_step.get(name, 0) * steps + PER_FORWARD.get(name, 0) * evals
+        fail_unless(n == want, f"{experiment}: {name}: {n} launches, want {want} ("
+                               f"{per_step.get(name, 0)}/step, {PER_FORWARD.get(name, 0)}/forward)")
+    (run,) = [p for p in exp.iterdir() if p.is_dir()]
+    with open(run / "logs" / log_name) as f:
+        rows = list(csv.DictReader(f))
+    fail_unless(len(rows) == 1, f"{experiment}: {log_name} has {len(rows)} rows")
+    for key in columns:
+        fail_unless(math.isfinite(float(rows[0][key])), f"{experiment}: {key} {rows[0][key]}")
+    print(f"[{experiment}] epoch 1: " + ", ".join(f"{k} {float(rows[0][k]):.4f}" for k in columns),
+          flush=True)
+    return run
+
+
+def _time_step(label: str, step, batch, per_step: dict, size: int) -> None:
+    """A step alone: its launches counted over one call, then the median of
+    N_STEPS_TIMED calls on distinct device-resident inputs after two warm-up
+    calls (host clock around synchronize), the peak allocated memory, and
+    a profiled breakdown of N_STEPS_PROFILED calls."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch import ops
+
+    for i in range(2):  # warm-up: cuDNN's algorithm choice, allocator growth
+        step(*batch(i))
+    inputs = batch(50)
+    ops.reset_launch_counts()
+    step(*inputs)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    fail_unless(counts == {k: n for k, n in per_step.items() if n},
+                f"{label} step launches {counts}, want {per_step}")
+    times = []
+    for i in range(N_STEPS_TIMED):
+        inputs = batch(100 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(*inputs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        fail_unless(math.isfinite(float(metrics["loss"])), f"timed {label} step {i}: loss")
+    torch.cuda.reset_peak_memory_stats()
+    step(*batch(200))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{label}] step at {size}^3, batch 1, bf16: median {statistics.median(times):.3f} ms "
+          f"over {N_STEPS_TIMED} distinct inputs (host clock around synchronize; all "
+          f"{[round(t, 3) for t in times]}) | peak allocated {peak:.2f} GiB | launches per step "
+          f"{sum(counts.values())}: {counts}", flush=True)
+    _profile_steps(step, [batch(300 + i) for i in range(N_STEPS_PROFILED)])
+
+
+def phase_workloads(size: int = 192) -> None:
+    """Fine-tune, distillation and DANN through the port's orchestrator at
+    full width, from phase 6's data and best checkpoint (the pretrained
+    model and the teacher), each one epoch of two steps; then the
+    distillation and DANN steps alone, and one DANN step against the CPU."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
+    from multimodal_segmentation_project_tpu_torch.engine.steps import (
+        make_dann_step,
+        make_distill_step,
+    )
+    from multimodal_segmentation_project_tpu_torch.models import DomainDiscriminator
+    from multimodal_segmentation_project_tpu_torch.ops.losses import (
+        distillation_loss,
+        get_loss_fn,
+    )
+
+    data = SCRATCH / "train_data"  # phase 6's: 2 train, 1 val, 1 test CT cases
+    best = SCRATCH / "train_exp" / "smoke_train" / "checkpoints" / "best_model_smoke_train.pth"
+    steps, evals = TRAIN_SPLITS["train"], TRAIN_SPLITS["val"]
+
+    run = _run_workload(
+        "finetune", ["--pretrained_model", str(best), "--data_root", str(data), "--lr", "1e-4",
+                     "--modalities", "ct", "--n_samples", "5", "--freeze_encoder", *RECIPE],
+        steps, PER_STEP, evals, "finetune_log.csv", ("train_loss", "val_loss", "val_dice"))
+    (tuned,) = (run / "checkpoints").glob("best_finetuned_model_*.pth")
+    before = torch.load(best, weights_only=True)["model_state_dict"]
+    after = torch.load(tuned, weights_only=True)["model_state_dict"]
+    names = [n for n, _ in make_model(torch.float32).named_parameters()]
+    frozen = [n for n in names if n.startswith(("encoder.", "bottleneck."))]
+    changed = [n for n in frozen if not torch.equal(before[n], after[n])]
+    moved = [n for n in names if n not in frozen and not torch.equal(before[n], after[n])]
+    print(f"[finetune] {tuned.name}: {len(frozen)} encoder and bottleneck parameters, "
+          f"{len(changed)} changed; {len(moved)} of the other {len(names) - len(frozen)} moved",
+          flush=True)
+    fail_unless(not changed, f"frozen parameters changed: {changed}")
+    fail_unless(bool(moved), "the fine-tune moved no parameter")
+
+    run = _run_workload(
+        "distill", ["--teacher_model", str(best), "--data_root", str(data), "--lr", "1e-3",
+                    "--modalities", "ct", "--alpha", "0.7", "--temperature", "2.0",
+                    "--n_samples", "5", *RECIPE],
+        steps, PER_DISTILL_STEP, evals, "distill_log.csv", ("train_loss", "val_loss", "val_dice"))
+    ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
+    fail_unless(ckpts == [f"best_student_{run.name}.pth"], f"distill checkpoints {ckpts}")
+
+    dann_data = SCRATCH / "dann_data"
+    for i, (split, (modality, n)) in enumerate(DANN_SPLITS.items()):
+        write_split(dann_data, split, n, size, SEED + 400 + 10 * i, modality)
+    n_src = DANN_SPLITS["train"][1] + DANN_SPLITS["dann_add_labeled"][1]
+    n_tgt = DANN_SPLITS["target"][1] + DANN_SPLITS["dann_add_unlabeled"][1]
+    run = _run_workload(
+        "dann", ["--source_modality", "mri", "--target_modality", "ct", "--data_root",
+                 str(dann_data), "--lr", "1e-3", "--lambda_domain", str(LAMBDA_DOMAIN),
+                 "--loss", "ce_tversky", "--pretrained_model", str(best), *RECIPE],
+        min(n_src, n_tgt), PER_DANN_STEP, DANN_SPLITS["val"][1], "train_log.csv",
+        ("train_loss", "task_loss", "domain_loss", "val_loss", "val_dice"))
+    (dann_best,) = (run / "checkpoints").glob("best_model_*.pth")
+    saved = torch.load(dann_best, weights_only=True)
+    fail_unless("discriminator_state_dict" in saved, "no discriminator in the DANN checkpoint")
+    _run_eval_cli(str(dann_best), data, SCRATCH / "dann_eval_exp", "smoke_dann",
+                  TRAIN_SPLITS["test"], size)
+
+    # the two steps alone, from seeded weights, on distinct device-resident inputs
+    dgen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def volume():
+        return torch.rand(1, 1, size, size, size, generator=dgen, device=DEVICE)
+
+    def labels():
+        return torch.randint(0, 4, (1, size, size, size), generator=dgen, device=DEVICE,
+                             dtype=torch.int32)
+
+    student = TrainState(make_model(torch.bfloat16, dropout_rate=0.1).to(DEVICE), 1e-3, 1e-4)
+    teacher = make_model(torch.bfloat16, seed=SEED + 1).to(DEVICE).requires_grad_(False)
+    distill = make_distill_step(
+        lambda s, t, y: distillation_loss(s, t, y, alpha=0.7, temperature=2.0), nan_guard=True)
+    _time_step("distill", lambda *a: distill(student, teacher, *a),
+               lambda i: (volume(), labels(), torch.Generator().manual_seed(i)), PER_DISTILL_STEP,
+               size)
+    del student, teacher
+
+    seg = TrainState(make_model(torch.bfloat16, dropout_rate=0.1).to(DEVICE), 1e-3, 1e-4)
+    disc = TrainState(DomainDiscriminator(256, generator=torch.Generator().manual_seed(SEED))
+                      .to(DEVICE), 1e-3, 1e-4)
+    dann = make_dann_step(get_loss_fn("ce_tversky"), LAMBDA_DOMAIN, nan_guard=True)
+    _time_step("dann", lambda *a: dann(seg, disc, *a),
+               lambda i: (volume(), labels(), volume(), torch.Generator().manual_seed(i)),
+               PER_DANN_STEP, size)
+    del seg, disc
+    _dann_parity()
+
+
+# DANN parity: one step at 64^3, full width, dropout 0 in the UNet3D and the
+# discriminator's 0.2 (its masks are drawn on the CPU generator, so every
+# side gets the same), from the same weights, three ways as phase 7: CPU
+# fp32 plain, CPU bf16 plain (the emulation) and the GPU's bf16 kernels.
+# The task and domain losses are held to phase 7's loss bound, and each
+# discriminator gradient to phase 7's two bounds from the emulation's own
+# error e there (GPU vs fp32 <= 2e + 0.02, GPU vs emulation <= min(e +
+# 0.02, 0.3)); a zeroed fc0 weight gradient must be refused.
+DANN_PARITY_SIZE = 64
+DANN_CONTROL = "fc0.weight"
+
+
+def _dann_grads(dtype, device, src, lbl, tgt):
+    """(task loss, domain loss, {discriminator param: gradient}) of one DANN
+    step of the port's make_dann_step, from seeded weights."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
+    from multimodal_segmentation_project_tpu_torch.engine.steps import make_dann_step
+    from multimodal_segmentation_project_tpu_torch.models import DomainDiscriminator
+    from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
+
+    seg = TrainState(make_model(dtype).to(device), 1e-3, 1e-4)
+    disc = TrainState(DomainDiscriminator(256, generator=torch.Generator().manual_seed(SEED))
+                      .to(device), 1e-3, 1e-4)
+    step = make_dann_step(get_loss_fn("ce_tversky"), LAMBDA_DOMAIN)
+    m = step(seg, disc, src.to(device), lbl.to(device), tgt.to(device),
+             torch.Generator().manual_seed(SEED))
+    # apply_gradients leaves in p.grad what AdamW was given: the gradient
+    return (float(m["task_loss"]), float(m["domain_loss"]),
+            {n: p.grad.detach().float().cpu() for n, p in disc.model.named_parameters()})
+
+
+def _dann_parity() -> None:
+    import torch
+
+    s = DANN_PARITY_SIZE
+    src, lbl = _parity_case(SEED + 300, s)
+    tgt, _ = _parity_case(SEED + 301, s)
+    task_w, dom_w, want = _dann_grads(torch.float32, "cpu", src, lbl, tgt)
+    task_e, dom_e, emul = _dann_grads(torch.bfloat16, "cpu", src, lbl, tgt)
+    task_g, dom_g, got = _dann_grads(torch.bfloat16, DEVICE, src, lbl, tgt)
+    errs = {"task": abs(task_g - task_w) / abs(task_w), "domain": abs(dom_g - dom_w) / abs(dom_w)}
+    rel_e, rel_g, rel_ge = grad_rel(emul, want), grad_rel(got, want), grad_rel(got, emul)
+    bounds = ({n: TRAIN_GRAD_FACTOR * e + TRAIN_GRAD_FLOOR for n, e in rel_e.items()},
+              {n: min(e + TRAIN_GRAD_FLOOR, TRAIN_GRAD_EMU_CAP) for n, e in rel_e.items()})
+    failed = grad_failures(rel_g, rel_ge, bounds)
+    ok = max(errs.values()) <= TRAIN_LOSS_TOL and not failed
+    print(f"[dann-parity] {s}^3 full width, one DANN step, GPU bf16 kernels vs CPU fp32 plain: "
+          f"task loss {task_g:.6f} vs {task_w:.6f} (emulation {task_e:.6f}), domain loss "
+          f"{dom_g:.6f} vs {dom_w:.6f} (emulation {dom_e:.6f}); scaled errors "
+          f"{errs['task']:.4g}, {errs['domain']:.4g} (<= {TRAIN_LOSS_TOL})", flush=True)
+    for n in rel_g:
+        print(f"[dann-parity] discriminator {n}: norm-relative gradient error GPU vs fp32 "
+              f"{rel_g[n]:.4g} (<= {bounds[0][n]:.4g}), GPU vs emulation {rel_ge[n]:.4g} "
+              f"(<= {bounds[1][n]:.4g}), emulation vs fp32 {rel_e[n]:.4g}", flush=True)
+    print(f"[dann-parity] over a bound: {failed or 'none'} {'ok' if ok else 'FAIL'}", flush=True)
+    fail_unless(ok, "DANN parity over tolerance")
+    bad = {**got, DANN_CONTROL: got[DANN_CONTROL] * 0.0}
+    rel_bad = grad_rel(bad, emul)
+    refused = DANN_CONTROL in grad_failures(grad_rel(bad, want), rel_bad, bounds)
+    print(f"[dann-parity] control, {DANN_CONTROL} gradient zeroed: GPU vs emulation "
+          f"{rel_bad[DANN_CONTROL]:.4g}, bound {bounds[1][DANN_CONTROL]:.4g}: "
+          f"{'refused' if refused else 'ACCEPTED'}", flush=True)
+    fail_unless(refused, f"the DANN parity check accepts a zeroed {DANN_CONTROL} gradient")
 
 
 # train parity: one step at 128^3, full width, dropout 0, augmentation off,
@@ -1402,6 +1700,7 @@ def main() -> int:
         phase_slice()
         phase_parity()
         launches = phase_train()
+        phase_workloads()
         phase_train_parity()
     except Exception as e:  # every phase's failure fails the run
         import traceback

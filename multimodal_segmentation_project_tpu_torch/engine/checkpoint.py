@@ -1,6 +1,7 @@
 """``.pth`` checkpoints in the reference layout: a dict whose
 ``model_state_dict`` holds the model's state dict. JAX msgpack
-checkpoints are not read here: that needs flax."""
+checkpoints are not read here (a ``.msgpack`` path raises): that needs
+flax."""
 
 from __future__ import annotations
 
@@ -27,18 +28,41 @@ def load_pth(model: torch.nn.Module, path: str) -> torch.nn.Module:
     return model
 
 
+def load_pth_nonstrict(model: torch.nn.Module, path: str) -> list[str]:
+    """Load a reference-layout ``.pth`` into ``model`` as the JAX package's
+    non-strict pretrained load does (``engine/interop.py:_merge_into``): a
+    key of the model that the checkpoint lacks, or holds at another shape,
+    keeps the model's value; keys only the checkpoint has are ignored.
+    (``load_state_dict(strict=False)`` would still raise on a shape
+    mismatch.) Returns the keys that kept the model's value."""
+    saved = load_reference_state_dict(path)
+    merged, kept = {}, []
+    for key, value in model.state_dict().items():
+        src = saved.get(key)
+        if src is not None and tuple(src.shape) == tuple(value.shape):
+            merged[key] = src.to(value.dtype)
+        else:
+            merged[key] = value
+            kept.append(key)
+    model.load_state_dict(merged, strict=True)
+    return kept
+
+
 def save_train_checkpoint(path: str, state, epoch: int, best_val_dice: float, scheduler,
-                          train_metrics: dict, val_metrics: dict, encoder_frozen: bool) -> str:
+                          train_metrics: dict, val_metrics: dict, encoder_frozen: bool,
+                          extra: dict | None = None) -> str:
     """A training checkpoint in the reference ``.pth`` layout (epoch,
     model/optimizer state dicts, the epoch's losses and Dice, the frozen
-    flag), plus what a true resume needs: the scheduler, the best val Dice
-    and the train state (step, LR, freeze, accumulator). ``epoch`` counts
-    finished epochs. Written atomically."""
+    flag), plus what a true resume needs: the scheduler (None without
+    one), the best val Dice and the train state (step, LR, freeze,
+    accumulator). ``epoch`` counts finished epochs. ``extra`` entries are
+    added as they are (DANN: the discriminator's states). Written
+    atomically."""
     ckpt = {
         "epoch": epoch,
         "model_state_dict": state.model.state_dict(),
         "optimizer_state_dict": state.optimizer.state_dict(),
-        "scheduler_state_dict": scheduler.state_dict(),
+        "scheduler_state_dict": scheduler.state_dict() if scheduler is not None else None,
         "train_loss": train_metrics.get("loss"),
         "val_loss": val_metrics.get("loss"),
         "train_dice": train_metrics.get("dice"),
@@ -46,6 +70,7 @@ def save_train_checkpoint(path: str, state, epoch: int, best_val_dice: float, sc
         "best_val_dice": best_val_dice,
         "encoder_frozen": encoder_frozen,
         "train_state": state.state_dict(),
+        **(extra or {}),
     }
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.tmp"

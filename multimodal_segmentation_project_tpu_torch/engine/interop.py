@@ -15,6 +15,10 @@ numpy) become a state dict that the port loads with ``strict=True``.
   dec{i}/up/kernel (2,2,2,Cin,Cout)      upconvs.{i}.weight (Cin,Cout,2,2,2)
   dec{i}/conv/...                        decoder.{i}.double_conv...
   head_kernel (Cin,Co), head_bias        final_conv.weight (Co,Cin,1,1,1), final_conv.bias
+
+:func:`discriminator_params_to_state_dict` does the same for the DANN
+discriminator: a Dense ``{fc0,fc1,fc2,out}/kernel`` (in, out) becomes
+``{name}.weight`` (out, in), and its ``bias`` ``{name}.bias``.
 """
 
 from __future__ import annotations
@@ -57,9 +61,23 @@ def trees_to_state_dict(params, batch_stats) -> dict[str, torch.Tensor]:
     return sd
 
 
+def discriminator_params_to_state_dict(params) -> dict[str, torch.Tensor]:
+    """The JAX ``DomainDiscriminator``'s params -> the port's state dict."""
+    sd: dict[str, torch.Tensor] = {}
+    for name, dense in params.items():
+        sd[f"{name}.weight"] = _t(np.asarray(dense["kernel"]).T)
+        sd[f"{name}.bias"] = _t(dense["bias"])
+    return sd
+
+
 def load_reference_state_dict(path: str) -> dict[str, torch.Tensor]:
     """State dict of a reference-layout ``.pth``: the ``model_state_dict``
-    entry when present, with DDP ``module.`` prefixes stripped."""
+    entry when present, with DDP ``module.`` prefixes stripped. A JAX
+    ``.msgpack`` checkpoint is refused: the port reads ``.pth`` only."""
+    if str(path).endswith(".msgpack"):
+        raise ValueError(
+            f"{path}: the port reads .pth checkpoints only; it does not read the JAX "
+            "package's .msgpack checkpoints")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model_state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
     return {k.removeprefix("module."): v for k, v in sd.items()}

@@ -1,18 +1,29 @@
-"""The training loop on one device.
+"""The training loop on one device, for all four workloads.
 
-Port of ``multimodal_segmentation_project_tpu/engine/trainer.py:Trainer``
-(its baseline use), with the same loop semantics:
+Port of ``multimodal_segmentation_project_tpu/engine/trainer.py``'s
+``Trainer`` and ``DannTrainer``. The workloads differ only in their step,
+their datasets and a few config fields:
+
+* baseline  = Trainer(train step, augment, plateau scheduler);
+* fine-tune = Trainer(train step, strict pretrained load, a freeze of the
+  encoder and bottleneck, no augmentation, no scheduler);
+* distill   = Trainer(distillation step, a frozen teacher model);
+* DANN      = DannTrainer (a discriminator state beside the segmentation
+  state, zipped source and target loaders).
+
+The loop semantics are the JAX package's:
 
 * epoch metrics = mean of the per-batch metrics; validation averages per
   volume (batch 1);
-* the five augment transforms on every train step (p = 0.3 each);
-* the plateau scheduler steps on val Dice;
-* freeze the encoder at epoch N and unfreeze at N + 1, each with a fresh
-  optimizer;
-* a checkpoint every 25 epochs and a best-by-val-Dice checkpoint, as
-  reference-layout ``.pth`` files (``engine/checkpoint.py``);
+* with ``augment``, the five augment transforms on every train step
+  (p = 0.3 each);
+* with ``use_scheduler``, the plateau scheduler steps on val Dice;
+* freeze ``freeze_prefixes`` at the start, or at epoch N and unfreeze at
+  N + 1, each with a fresh optimizer;
+* a checkpoint every ``checkpoint_every`` epochs and a best-by-val-Dice
+  checkpoint, as reference-layout ``.pth`` files (``engine/checkpoint.py``);
 * early stopping on val-Dice patience, and true resume (model, optimizer,
-  scheduler, train state, epoch);
+  scheduler, train state, epoch; DANN: the discriminator's too);
 * the CSV columns, the epoch lines, ``experiments/<name>/{checkpoints,
   logs,plots}`` and ``config.txt``.
 
@@ -40,8 +51,13 @@ from multimodal_segmentation_project_tpu_torch.data import DataLoader
 from multimodal_segmentation_project_tpu_torch.engine import checkpoint as ckpt
 from multimodal_segmentation_project_tpu_torch.engine.schedule import ReduceLROnPlateau
 from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
-from multimodal_segmentation_project_tpu_torch.engine.steps import make_eval_step, make_train_step
-from multimodal_segmentation_project_tpu_torch.models import UNet3D
+from multimodal_segmentation_project_tpu_torch.engine.steps import (
+    make_dann_step,
+    make_distill_step,
+    make_eval_step,
+    make_train_step,
+)
+from multimodal_segmentation_project_tpu_torch.models import DomainDiscriminator, UNet3D
 from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
 from multimodal_segmentation_project_tpu_torch.utils.experiment import (
     ExperimentPaths,
@@ -52,8 +68,6 @@ from multimodal_segmentation_project_tpu_torch.utils.experiment import (
 from multimodal_segmentation_project_tpu_torch.utils.plotting import plot_training_metrics
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
-CHECKPOINT_EVERY = 25  # epochs
-FREEZE_PREFIXES = ("enc",)  # the reference freezes the encoder only
 
 
 @dataclass
@@ -68,16 +82,27 @@ class TrainerConfig:
     loss: str = "ce_tversky"
     dropout_rate: float = 0.1
     seed: int = 42
+    augment: bool = False
+    use_scheduler: bool = False
     freeze_encoder_epoch: int | None = None
+    freeze_at_start: bool = False
+    freeze_prefixes: tuple = ("enc",)
     early_stopping: bool = False
     patience: int = 10
     precision: str = "bf16"
     features: tuple = (16, 32, 64, 128)
+    checkpoint_every: int = 25  # epochs
+    log_name: str = "train_log.csv"
+    ckpt_prefix: str = "checkpoint"
+    best_prefix: str = "best_model"
     resume: str | None = None
     nan_guard: bool = True
     profile_first_epoch: bool = False
+    pretrained_model: str | None = None
+    pretrained_strict: bool = True
     num_workers: int = 2
     device: str = "cuda"
+    plot_title: str = "Training Metrics"
     extra_config: dict = field(default_factory=dict)
 
 
@@ -91,14 +116,17 @@ def build_model(cfg: TrainerConfig) -> UNet3D:
 
 
 class Trainer:
-    """The baseline training loop on one device."""
+    """The loop of the baseline, fine-tune and distillation workloads. With
+    ``teacher`` (a ``UNet3D`` whose weights are loaded) and ``kd_loss_fn``
+    the step is the distillation step."""
 
     CSV_COLUMNS = [
         "epoch", "time", "train_loss", "val_loss", "train_dice", "val_dice",
         "train_iou", "val_iou", "train_acc", "val_acc", "encoder_frozen",
     ]
 
-    def __init__(self, cfg: TrainerConfig, train_dataset, val_dataset):
+    def __init__(self, cfg: TrainerConfig, train_dataset, val_dataset,
+                 teacher: UNet3D | None = None, kd_loss_fn=None):
         self.cfg = cfg
         self.device = torch.device(cfg.device)
         self.paths = ExperimentPaths.create(cfg.experiment_dir, cfg.experiment_name)
@@ -112,15 +140,29 @@ class Trainer:
         self.val_loader = DataLoader(val_dataset, batch_size=1, shuffle=False,
                                      num_workers=cfg.num_workers)
 
-        self.state = TrainState(build_model(cfg).to(self.device), cfg.lr, cfg.weight_decay,
-                                cfg.grad_accum)
+        model = build_model(cfg)
+        if cfg.pretrained_model:
+            self._load_pretrained(model, cfg.pretrained_model, cfg.pretrained_strict)
+        self.state = TrainState(model.to(self.device), cfg.lr, cfg.weight_decay, cfg.grad_accum)
         self.encoder_frozen = False
+        if cfg.freeze_at_start:
+            self._freeze(cfg.freeze_prefixes)
+
         self.loss_fn = get_loss_fn(cfg.loss)
-        self.train_step = make_train_step(self.loss_fn, augment=True, nan_guard=cfg.nan_guard)
+        self.teacher = None
+        if teacher is not None:
+            if kd_loss_fn is None:
+                raise ValueError("a teacher needs kd_loss_fn")
+            self.teacher = teacher.to(self.device).eval().requires_grad_(False)
+            self.train_step = make_distill_step(kd_loss_fn, augment=cfg.augment,
+                                                nan_guard=cfg.nan_guard)
+        else:
+            self.train_step = make_train_step(self.loss_fn, augment=cfg.augment,
+                                              nan_guard=cfg.nan_guard)
         self.eval_step = make_eval_step(self.loss_fn)
-        self.scheduler = ReduceLROnPlateau(cfg.lr, mode="max", patience=10, factor=0.1,
-                                           min_lr=1e-6)
-        self.log_file = os.path.join(self.paths.logs, "train_log.csv")
+        self.scheduler = (ReduceLROnPlateau(cfg.lr, mode="max", patience=10, factor=0.1,
+                                            min_lr=1e-6) if cfg.use_scheduler else None)
+        self.log_file = os.path.join(self.paths.logs, cfg.log_name)
         self.best_val_dice = 0.0
         self.start_epoch = 0
         if cfg.resume:
@@ -132,6 +174,19 @@ class Trainer:
 
     # ---------- helpers ----------
 
+    @staticmethod
+    def _load_pretrained(model: UNet3D, path: str, strict: bool) -> None:
+        """Initialise from a reference-layout ``.pth``: strictly, or as the
+        JAX package's non-strict load (a missing or shape-mismatched key
+        keeps the model's value)."""
+        if strict:
+            ckpt.load_pth(model, path)
+            print(f"[PRETRAINED] loaded {path} (strict)")
+        else:
+            kept = ckpt.load_pth_nonstrict(model, path)
+            print(f"[PRETRAINED] loaded {path} (non-strict; {len(kept)} tensors kept their "
+                  f"initial values{': ' + ', '.join(kept) if kept else ''})")
+
     def _freeze(self, prefixes):
         self.state.with_mask(prefixes)
         self.encoder_frozen = bool(prefixes)
@@ -142,10 +197,10 @@ class Trainer:
             print(f"[FREEZE] frozen={frozen:,} ({frozen / total * 100:.1f}%) "
                   f"trainable={total - frozen:,} ({(total - frozen) / total * 100:.1f}%)")
 
-    def _upload(self, images, labels):
+    def _upload(self, *arrays):
         """numpy batch -> device tensors, through pinned memory, non-blocking."""
         out = []
-        for a in (images, labels):
+        for a in arrays:
             t = torch.from_numpy(a)
             if self.device.type == "cuda":
                 t = t.pin_memory()
@@ -174,8 +229,8 @@ class Trainer:
         if fe is None:
             return
         if epoch == fe and not self.encoder_frozen:
-            print(f"[INFO] freezing {FREEZE_PREFIXES} at epoch {epoch + 1}")
-            self._freeze(FREEZE_PREFIXES)
+            print(f"[INFO] freezing {self.cfg.freeze_prefixes} at epoch {epoch + 1}")
+            self._freeze(self.cfg.freeze_prefixes)
         elif epoch == fe + 1 and self.encoder_frozen:
             print(f"[INFO] unfreezing at epoch {epoch + 1}")
             self._freeze(())
@@ -186,8 +241,11 @@ class Trainer:
         total, n = None, 0
         for step_idx, (images, labels) in enumerate(self.train_loader):
             images, labels = self._upload(images, labels)
-            metrics = self.train_step(self.state, images, labels,
-                                      self._step_generator(epoch, step_idx))
+            gen = self._step_generator(epoch, step_idx)
+            if self.teacher is not None:
+                metrics = self.train_step(self.state, self.teacher, images, labels, gen)
+            else:
+                metrics = self.train_step(self.state, images, labels, gen)
             total = self._accumulate(total, metrics)
             n += 1
         return self._finalize(total, n)
@@ -202,21 +260,28 @@ class Trainer:
 
     # ---------- checkpoints ----------
 
+    def _ckpt_extra(self, train_metrics, val_metrics) -> dict:
+        """Entries a subclass adds to its checkpoints."""
+        return {}
+
     def save_checkpoint(self, path, epoch, train_metrics, val_metrics):
         ckpt.save_train_checkpoint(
             path, self.state, epoch + 1, self.best_val_dice, self.scheduler,
             train_metrics, val_metrics, self.encoder_frozen,
+            extra=self._ckpt_extra(train_metrics, val_metrics),
         )
 
-    def _resume(self, path: str):
+    def _resume(self, path: str) -> dict:
         saved = ckpt.load_train_checkpoint(path)
         self.state.model.load_state_dict(saved["model_state_dict"], strict=True)
         self.state.load_state_dict(saved["train_state"], saved["optimizer_state_dict"])
         self.start_epoch = int(saved["epoch"])
         self.best_val_dice = float(saved["best_val_dice"])
-        self.scheduler.load_state_dict(saved["scheduler_state_dict"])
+        if self.scheduler is not None and saved.get("scheduler_state_dict"):
+            self.scheduler.load_state_dict(saved["scheduler_state_dict"])
         self.encoder_frozen = bool(saved.get("encoder_frozen", False))
         print(f"[RESUME] from {path} at epoch {self.start_epoch}")
+        return saved
 
     # ---------- the loop ----------
 
@@ -261,7 +326,7 @@ class Trainer:
                 print(f"[WARN] {train_metrics['nonfinite'] * 100:.1f}% of steps in epoch "
                       f"{epoch + 1} had non-finite gradients (skipped)")
 
-            if "dice" in val_metrics:
+            if self.scheduler is not None and "dice" in val_metrics:
                 self.state.lr = self.scheduler.step(val_metrics["dice"])
                 print(f"[LR] learning rate after epoch {epoch + 1}: {self.state.lr}")
 
@@ -269,15 +334,15 @@ class Trainer:
             self._log_epoch(epoch, epoch_time, train_metrics, val_metrics)
             log_device_usage(self.device_log, self.device, tag=f"epoch={epoch + 1}")
 
-            if (epoch + 1) % CHECKPOINT_EVERY == 0:
-                name = f"checkpoint_epoch{epoch + 1}_{cfg.experiment_name}.pth"
+            if (epoch + 1) % cfg.checkpoint_every == 0:
+                name = f"{cfg.ckpt_prefix}_epoch{epoch + 1}_{cfg.experiment_name}.pth"
                 self.save_checkpoint(os.path.join(self.paths.checkpoints, name), epoch,
                                      train_metrics, val_metrics)
 
             if val_metrics.get("dice", -1.0) > self.best_val_dice:
                 self.best_val_dice = val_metrics["dice"]
                 patience_counter = 0
-                name = f"best_model_{cfg.experiment_name}.pth"
+                name = f"{cfg.best_prefix}_{cfg.experiment_name}.pth"
                 self.save_checkpoint(os.path.join(self.paths.checkpoints, name), epoch,
                                      train_metrics, val_metrics)
             elif cfg.early_stopping:
@@ -289,7 +354,7 @@ class Trainer:
             summary = {"train": train_metrics, "val": val_metrics, "epoch": epoch + 1}
 
         try:
-            plot_training_metrics(self.log_file, self.paths.plots)
+            plot_training_metrics(self.log_file, self.paths.plots, title=cfg.plot_title)
         except Exception as e:  # plotting must never kill a finished run
             print(f"[WARN] plotting failed: {e}")
         print(f"[END] training completed in {format_time(time.time() - run_start)}; "
@@ -310,5 +375,78 @@ class Trainer:
         )
         row = [epoch + 1, epoch_time, tm["loss"], vm["loss"], tm["dice"], vm["dice"],
                tm["iou"], vm["iou"], tm["acc"], vm["acc"], self.encoder_frozen]
+        with open(self.log_file, "a") as f:
+            f.write(",".join(str(v) for v in row) + "\n")
+
+
+class DannTrainer(Trainer):
+    """DANN: zipped source and target loaders, a segmentation state and a
+    discriminator state. An epoch is as long as the shorter loader; the
+    metrics are the source batches'; validation runs on the target
+    modality's val split. The target loader shuffles with seed + 1000."""
+
+    CSV_COLUMNS = [
+        "epoch", "time", "train_loss", "task_loss", "domain_loss", "val_loss",
+        "train_dice", "val_dice", "train_iou", "val_iou", "train_acc", "val_acc",
+        "encoder_frozen",
+    ]
+
+    def __init__(self, cfg: TrainerConfig, source_dataset, target_dataset, val_dataset,
+                 lambda_domain: float = 0.1):
+        self.lambda_domain = lambda_domain
+        # built before Trainer.__init__, which may resume into it
+        disc = DomainDiscriminator(2 * cfg.features[-1],
+                                   generator=torch.Generator().manual_seed(cfg.seed + 7))
+        self.disc_state = TrainState(disc.to(torch.device(cfg.device)), cfg.lr,
+                                     cfg.weight_decay, cfg.grad_accum)
+        super().__init__(cfg, source_dataset, val_dataset)
+        self.target_loader = DataLoader(target_dataset, batch_size=cfg.batch_size, shuffle=True,
+                                        seed=cfg.seed + 1000, num_workers=cfg.num_workers)
+        self.dann_step = make_dann_step(self.loss_fn, lambda_domain, nan_guard=cfg.nan_guard)
+
+    def train_epoch(self, epoch: int) -> dict:
+        total, n = None, 0
+        for step_idx, ((src_img, src_lbl), (tgt_img, _)) in enumerate(
+                zip(self.train_loader, self.target_loader)):
+            src_img, src_lbl = self._upload(src_img, src_lbl)
+            (tgt_img,) = self._upload(tgt_img)
+            metrics = self.dann_step(self.state, self.disc_state, src_img, src_lbl, tgt_img,
+                                     self._step_generator(epoch, step_idx))
+            total = self._accumulate(total, metrics)
+            n += 1
+        return self._finalize(total, n)
+
+    def _ckpt_extra(self, train_metrics, val_metrics) -> dict:
+        """The discriminator beside the reference-layout ``model_state_dict``
+        (which the eval CLI loads unchanged)."""
+        return {
+            "discriminator_state_dict": self.disc_state.model.state_dict(),
+            "discriminator_optimizer_state_dict": self.disc_state.optimizer.state_dict(),
+            "discriminator_train_state": self.disc_state.state_dict(),
+            "task_loss": train_metrics.get("task_loss"),
+            "domain_loss": train_metrics.get("domain_loss"),
+            "lambda_domain": self.lambda_domain,
+        }
+
+    def _resume(self, path: str) -> dict:
+        saved = super()._resume(path)
+        self.disc_state.model.load_state_dict(saved["discriminator_state_dict"], strict=True)
+        self.disc_state.load_state_dict(saved["discriminator_train_state"],
+                                        saved["discriminator_optimizer_state_dict"])
+        return saved
+
+    def _log_epoch(self, epoch, epoch_time, tm, vm):
+        if not vm:
+            vm = {k: float("nan") for k in ("loss", "dice", "iou", "acc")}
+        train_total = tm["task_loss"] + self.lambda_domain * tm["domain_loss"]
+        print(
+            f"[EPOCH] {epoch + 1}/{self.cfg.epochs} - {format_time(epoch_time)} | "
+            f"Train Loss: {train_total:.4f} | Task: {tm['task_loss']:.4f} | "
+            f"Domain: {tm['domain_loss']:.4f} | Val Loss: {vm['loss']:.4f} | "
+            f"Train Dice: {tm['dice']:.4f} | Val Dice: {vm['dice']:.4f}"
+        )
+        row = [epoch + 1, epoch_time, train_total, tm["task_loss"], tm["domain_loss"],
+               vm["loss"], tm["dice"], vm["dice"], tm["iou"], vm["iou"], tm["acc"], vm["acc"],
+               self.encoder_frozen]
         with open(self.log_file, "a") as f:
             f.write(",".join(str(v) for v in row) + "\n")

@@ -56,13 +56,20 @@ def resolve_device(name: str, precision: str) -> torch.device:
     return device
 
 
-def add_common_args(parser: argparse.ArgumentParser):
+def experiment_name(args, default) -> str:
+    """``args.experiment_name`` where the caller set one on the namespace (no
+    flag sets it, as in the JAX package's CLIs, which read it with ``getattr``),
+    else ``default()``."""
+    return getattr(args, "experiment_name", None) or default()
+
+
+def add_common_args(parser: argparse.ArgumentParser, lr_default: float = 1e-3):
     parser.add_argument("--data_root", type=str, required=True,
                         help="Root directory of the dataset splits")
     parser.add_argument("--experiment_dir", type=str, default="experiments")
     parser.add_argument("--batch_size", type=int, default=4)
     parser.add_argument("--epochs", type=int, default=100)
-    parser.add_argument("--lr", type=float, default=1e-3)
+    parser.add_argument("--lr", type=float, default=lr_default)
     parser.add_argument("--weight_decay", type=float, default=0.01)
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--gradient_accumulation_steps", type=int, default=1)

@@ -31,6 +31,7 @@ from multimodal_segmentation_project_tpu_torch.utils.experiment import create_ex
 from multimodal_segmentation_project_tpu_torch.workloads.common import (
     add_common_args,
     check_one_device,
+    experiment_name,
     parse_features,
     parse_modalities,
     resolve_device,
@@ -63,8 +64,7 @@ def main(args) -> dict:
 
     cfg = TrainerConfig(
         experiment_dir=args.experiment_dir,
-        experiment_name=getattr(args, "experiment_name", None)
-        or create_experiment_name("exp", args),
+        experiment_name=experiment_name(args, lambda: create_experiment_name("exp", args)),
         epochs=args.epochs,
         batch_size=args.batch_size,
         lr=args.lr,
@@ -73,7 +73,10 @@ def main(args) -> dict:
         loss=args.loss,
         dropout_rate=args.dropout_rate,
         seed=args.seed,
+        augment=True,
+        use_scheduler=True,
         freeze_encoder_epoch=args.freeze_encoder_epoch,
+        freeze_prefixes=("enc",),
         early_stopping=args.early_stopping,
         patience=args.patience,
         precision=precision,

@@ -30,8 +30,10 @@ def _port_modules():
 
 def test_port_imports_without_jax_flax_optax():
     modules = _port_modules()
-    assert f"{port.__name__}.workloads.test_model" in modules
-    assert f"{port.__name__}.workloads.train_unet" in modules
+    for name in ("workloads.test_model", "workloads.train_unet", "workloads.finetune_ct",
+                 "workloads.distill_unet", "workloads.train_dann", "workloads.main",
+                 "models.discriminator", "ops.grl"):
+        assert f"{port.__name__}.{name}" in modules
     code = (
         "import sys, importlib\n"
         "for m in ('jax', 'flax', 'optax'):\n"
