@@ -60,7 +60,31 @@ Phases, each printing one line per check; any failure exits non-zero:
    device-resident inputs, peak memory, launches per step) and holds one
    DANN step at 64^3 against the CPU (fp32 and the bf16 emulation): the
    task and domain losses and every discriminator gradient, with a control
-   that a zeroed fc0 gradient is refused.
+   that a zeroed fc0 gradient is refused;
+9. checkpoints and preprocessing (run last): writes phase 6's trained state
+   (its optimizer and its ``optax.MultiSteps`` accumulator included) as the
+   JAX package's ``.msgpack`` with the port's writer, reads it back and
+   holds every leaf bit-equal (size, write and read seconds); serves it:
+   the eval CLI on the ``.msgpack`` gives the ``.pth``'s predictions and
+   per-sample Dice bit for bit, and ``main.py --experiment distill
+   --teacher_model`` and ``finetune --pretrained_model`` take it, with exact
+   launches; resume continuity: a train run (and a DANN run) of two epochs
+   of two steps saved as ``.msgpack`` after epoch 1 and resumed by a fresh
+   trainer gives bit-equal epoch-2 step losses and final weights to an
+   uninterrupted run (cuDNN held deterministic for these runs); resampling:
+   ``workloads.resample --backend torch`` on one synthetic 512x512x160 CT
+   case at 0.78x0.78x2.5 mm (int16, uint8 labels) on the GPU, then the eval
+   CLI on its 192^3 result; the card's image against the same function on
+   the CPU within 1e-5 * max |x|, the labels equal; the seconds per case and
+   the peak device memory.
+
+``python3 chip_smoke.py --time-scipy-resample`` instead times the resampling
+case once with the scipy backend on the host and once with the torch
+backend on the GPU, and nothing else. ``python3 chip_smoke.py
+--time-accum-step [ROOT]`` instead times and profiles the full-width train
+step with gradient accumulation 2, with the port imported from ROOT (this
+checkout by default): run it on a parent's checkout and on this one in one
+call to compare the two.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Scratch files go to
@@ -1343,10 +1367,10 @@ LAMBDA_DOMAIN = 0.2
 
 
 def _run_workload(experiment: str, argv: list, steps: int, per_step: dict, evals: int,
-                  log_name: str, columns: tuple) -> Path:
+                  log_name: str, columns: tuple, tag: str = "") -> Path:
     """One experiment through the port's orchestrator on the GPU: the exact
     launches per kernel over its steps and validation forwards, finite CSV
-    rows; returns the run's directory."""
+    rows; returns the run's directory (under ``<experiment><tag>_exp``)."""
     import csv
 
     import torch
@@ -1354,7 +1378,7 @@ def _run_workload(experiment: str, argv: list, steps: int, per_step: dict, evals
     from multimodal_segmentation_project_tpu_torch import ops
     from multimodal_segmentation_project_tpu_torch.workloads import main as orchestrator
 
-    exp = SCRATCH / f"{experiment}_exp"
+    exp = SCRATCH / f"{experiment}{tag}_exp"
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     orchestrator.main(["--experiment", experiment, "--experiment_dir", str(exp),
@@ -1689,8 +1713,418 @@ def phase_train_parity() -> None:
             fail_unless(refused, f"the parity check accepts a {how} {name} gradient")
 
 
+# ---- phase 9: checkpoints and preprocessing ------------------------------------------
+
+# a real abdominal CT scan's grid: 512 x 512 in-plane at 0.78 mm, 160 slices
+# at 2.5 mm (int16 HU), and its labels (uint8)
+RESAMPLE_SHAPE = (512, 512, 160)
+RESAMPLE_SPACING = (0.78, 0.78, 2.5)
+RESAMPLE_TOL = 1e-5  # card vs CPU, of max |x|
+
+
+def _leaves_equal(got, want, path="") -> list:
+    """Paths where two checkpoint trees differ in keys, dtype, shape or bits."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or list(got) != list(want):
+            return [path or "/"]
+        return [p for k in want for p in _leaves_equal(got[k], want[k], f"{path}/{k}")]
+    same = (type(got) is type(want) and got.dtype == want.dtype and got.shape == want.shape
+            and got.tobytes() == want.tobytes())
+    return [] if same else [path]
+
+
+def _phase6_trainer(resume: str):
+    """A Trainer of phase 6's recipe (run_training.sh's flags, accumulation 2)
+    on its data, resumed from ``resume``."""
+    from multimodal_segmentation_project_tpu_torch.data import CombinedDataset
+    from multimodal_segmentation_project_tpu_torch.engine.trainer import Trainer
+
+    data = SCRATCH / "train_data"
+    return Trainer(_train_cfg("ckpt_source", 1, resume),
+                   CombinedDataset(str(data / "train")), CombinedDataset(str(data / "val")))
+
+
+def _train_cfg(name: str, epochs: int, resume=None, dann: bool = False):
+    """train_unet's (or train_dann's) TrainerConfig for phase 6's recipe."""
+    from multimodal_segmentation_project_tpu_torch.engine.trainer import TrainerConfig
+
+    return TrainerConfig(
+        experiment_dir=str(SCRATCH / "resume_exp"), experiment_name=name, epochs=epochs,
+        batch_size=1, lr=1e-3, weight_decay=1e-4, grad_accum=2, loss="ce_tversky",
+        dropout_rate=0.1, seed=42, augment=not dann, use_scheduler=not dann,
+        early_stopping=True, patience=10, precision="bf16", resume=resume, device="cuda")
+
+
+def _format_check() -> Path:
+    """Phase 6's trained state in the JAX layout, written and read back."""
+    import numpy as np
+
+    from multimodal_segmentation_project_tpu_torch.engine import checkpoint as ckpt
+    from multimodal_segmentation_project_tpu_torch.engine import msgpack_codec
+
+    best = SCRATCH / "train_exp" / "smoke_train" / "checkpoints" / "best_model_smoke_train.pth"
+    trainer = _phase6_trainer(str(best))
+    fail_unless(trainer.state.grad_accum_steps == 2, "phase 6 accumulates over 2 steps")
+    extra = {"epoch": np.asarray(trainer.start_epoch, np.int32),
+             "best_val_dice": np.asarray(trainer.best_val_dice, np.float32)}
+    path = SCRATCH / "best_model_smoke_train.msgpack"
+    t0 = time.perf_counter()
+    tree = ckpt.state_checkpoint_tree(trainer.state, extra)
+    ckpt.save_checkpoint(str(path), tree, metadata=trainer._metadata(
+        trainer.start_epoch - 1, {}, {}))
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ckpt.load_checkpoint(str(path))
+    t_read = time.perf_counter() - t0
+    payload = path.read_bytes()
+    t0 = time.perf_counter()
+    msgpack_codec.unpackb(payload)
+    t_decode = time.perf_counter() - t0
+    diff = _leaves_equal(back, tree)
+    fail_unless(set(tree["opt_state"]) == {"mini_step", "gradient_step", "inner_opt_state",
+                                           "acc_grads", "skip_state"},
+                f"opt_state is not optax.MultiSteps': {list(tree['opt_state'])}")
+    n_leaves = sum(1 for _ in _iter_leaves(tree))
+    print(f"[format] {path.name}: {len(payload) / 2**20:.2f} MiB, {n_leaves} leaves (params, "
+          f"batch_stats, AdamW mu/nu/count, MultiSteps acc_grads/mini_step, mask, step, lr); "
+          f"write (tree + encode + file) {t_write:.3f} s, read (file + decode) {t_read:.3f} s, "
+          f"decode alone {t_decode:.3f} s | leaves not bit-equal after the round trip: "
+          f"{diff or 'none'}", flush=True)
+    fail_unless(not diff, f"the .msgpack round trip changed {diff}")
+    fail_unless(msgpack_codec.packb(back) == payload, "re-encoding the read tree changed bytes")
+    return path
+
+
+def _iter_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _iter_leaves(v)
+    else:
+        yield tree
+
+
+def _serve_checks(msgpack_path: Path, size: int) -> None:
+    """The eval CLI on the .msgpack against the .pth of the same weights, and
+    the distillation teacher and the fine-tune's pretrained model from it."""
+    import csv
+
+    import numpy as np
+
+    from multimodal_segmentation_project_tpu_torch.data import load_nifti
+
+    data = SCRATCH / "train_data"
+    _run_eval_cli(str(msgpack_path), data, SCRATCH / "msgpack_eval_exp", "smoke_msgpack",
+                  TRAIN_SPLITS["test"], size)
+    (pth_dir,) = (SCRATCH / "train_eval_exp").glob("test_results_smoke_trained_*")
+    (mp_dir,) = (SCRATCH / "msgpack_eval_exp").glob("test_results_smoke_msgpack_*")
+    rows = []
+    for d in (pth_dir, mp_dir):
+        with open(d / "metrics" / "per_sample_metrics.csv") as f:
+            rows.append([{k: v for k, v in r.items() if k.startswith(("dice_", "iou_"))}
+                         for r in csv.DictReader(f)])
+    preds = [sorted((d / "predictions").glob("*_pred.nii.gz")) for d in (pth_dir, mp_dir)]
+    same_preds = [p.name for p in preds[0]] == [p.name for p in preds[1]] and all(
+        np.array_equal(load_nifti(str(a)).data, load_nifti(str(b)).data)
+        for a, b in zip(*preds))
+    print(f"[serve] eval CLI on {msgpack_path.name} vs on the .pth of the same weights: "
+          f"predictions {'bit-equal' if same_preds else 'DIFFERENT'}, per-sample Dice and IoU "
+          f"{'equal' if rows[0] == rows[1] else 'DIFFERENT'} (test cases: {len(rows[1])})",
+          flush=True)
+    fail_unless(same_preds and rows[0] == rows[1], ".msgpack eval differs from .pth eval")
+    steps, evals = TRAIN_SPLITS["train"], TRAIN_SPLITS["val"]
+    _run_workload(
+        "distill", ["--teacher_model", str(msgpack_path), "--data_root", str(data), "--lr",
+                    "1e-3", "--modalities", "ct", "--alpha", "0.7", "--temperature", "2.0",
+                    "--n_samples", "5", *RECIPE],
+        steps, PER_DISTILL_STEP, evals, "distill_log.csv", ("train_loss", "val_loss"),
+        tag="_msgpack")
+    _run_workload(
+        "finetune", ["--pretrained_model", str(msgpack_path), "--data_root", str(data), "--lr",
+                     "1e-4", "--modalities", "ct", "--n_samples", "5", "--freeze_encoder",
+                     *RECIPE],
+        steps, PER_STEP, evals, "finetune_log.csv", ("train_loss", "val_loss"), tag="_msgpack")
+
+
+def _recorded(trainer, attr: str, losses: list) -> None:
+    """Record every step's loss of ``trainer`` (its step function ``attr``)."""
+    step = getattr(trainer, attr)
+
+    def wrapped(*args):
+        metrics = step(*args)
+        losses.append(float(metrics["loss"]))
+        return metrics
+
+    setattr(trainer, attr, wrapped)
+
+
+def _resume_continuity(label: str, make, attr: str, per_step: dict, steps_per_epoch: int,
+                       evals_per_epoch: int) -> None:
+    """Run A: epoch 1, saved as .msgpack, resumed by a fresh trainer for
+    epoch 2; run B: both epochs uninterrupted. Epoch 2's step losses and the
+    final weights must be the same bits; each run's launches exact."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch import ops
+
+    def run(trainer, epochs_run):
+        losses: list = []
+        _recorded(trainer, attr, losses)
+        ops.reset_launch_counts()
+        trainer.run()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        for name, n in counts.items():
+            want = (per_step.get(name, 0) * steps_per_epoch
+                    + PER_FORWARD.get(name, 0) * evals_per_epoch) * epochs_run
+            fail_unless(n == want, f"{label}: {name}: {n} launches, want {want}")
+        return losses
+
+    t0 = time.perf_counter()
+    first = make(f"{label}_a1", 1, None)
+    run(first, 1)
+    path = SCRATCH / f"{label}_epoch1.msgpack"
+    first.save_checkpoint(str(path), 0, {}, {})
+    del first
+    resumed = make(f"{label}_a2", 2, str(path))
+    fail_unless(resumed.start_epoch == 1, f"{label}: resumed at epoch {resumed.start_epoch}")
+    losses_a = run(resumed, 1)
+    whole = make(f"{label}_b", 2, None)
+    losses_b = run(whole, 2)[steps_per_epoch:]
+    weights = [{k: v for k, v in t.state.model.state_dict().items()
+                if "num_batches" not in k} for t in (resumed, whole)]
+    if label == "dann":
+        for t, w in zip((resumed, whole), weights):
+            w.update({f"disc.{k}": v for k, v in t.disc_state.model.state_dict().items()})
+    differ = [k for k in weights[1] if not torch.equal(weights[0][k], weights[1][k])]
+    same_losses = losses_a == losses_b
+    print(f"[resume] {label}: epoch-2 step losses resumed {losses_a} vs uninterrupted "
+          f"{losses_b}: {'bit-equal' if same_losses else 'DIFFERENT'}; final weights "
+          f"{'bit-equal' if not differ else f'DIFFERENT in {differ[:4]}'} "
+          f"({len(weights[1])} tensors) | three runs in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    fail_unless(same_losses and not differ, f"{label}: the resumed run is not the uninterrupted")
+
+
+def _resume_checks() -> None:
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.data import CombinedDataset, ConcatDataset
+    from multimodal_segmentation_project_tpu_torch.engine.trainer import DannTrainer, Trainer
+
+    train = SCRATCH / "train_data"
+
+    def make_train(name, epochs, resume):
+        return Trainer(_train_cfg(name, epochs, resume), CombinedDataset(str(train / "train")),
+                       CombinedDataset(str(train / "val")))
+
+    dann = SCRATCH / "dann_data"
+
+    def make_dann(name, epochs, resume):
+        source = ConcatDataset([CombinedDataset(str(dann / "train")),
+                                CombinedDataset(str(dann / "dann_add_labeled"))])
+        target = ConcatDataset([CombinedDataset(str(dann / "target")),
+                                CombinedDataset(str(dann / "dann_add_unlabeled"))])
+        return DannTrainer(_train_cfg(name, epochs, resume, dann=True), source, target,
+                           CombinedDataset(str(dann / "val")), lambda_domain=LAMBDA_DOMAIN)
+
+    # the port's own kernels sum in a fixed order; cuDNN (the deep region's
+    # convs) may pick a non-deterministic algorithm unless asked not to
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        _resume_continuity("train", make_train, "train_step", PER_STEP,
+                           TRAIN_SPLITS["train"], TRAIN_SPLITS["val"])
+        n_src = DANN_SPLITS["train"][1] + DANN_SPLITS["dann_add_labeled"][1]
+        n_tgt = DANN_SPLITS["target"][1] + DANN_SPLITS["dann_add_unlabeled"][1]
+        _resume_continuity("dann", make_dann, "dann_step", PER_DANN_STEP, min(n_src, n_tgt),
+                           DANN_SPLITS["val"][1])
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+
+
+def _resample_case(root: Path):
+    """One synthetic CT case on a real scan's grid: ellipsoid organs in HU
+    over noise, int16, and its uint8 labels, as uncompressed NIfTI in an LPS
+    orientation (the reorientation runs too)."""
+    import numpy as np
+
+    from multimodal_segmentation_project_tpu_torch.data import save_nifti
+
+    rng = np.random.default_rng(SEED + 900)
+    grids = [(np.arange(n, dtype=np.float32) + 0.5) / n for n in RESAMPLE_SHAPE]
+    x, y, z = grids[0][:, None, None], grids[1][None, :, None], grids[2][None, None, :]
+    lbl = np.zeros(RESAMPLE_SHAPE, np.uint8)
+    for label, (cx, cy, cz), (rx, ry, rz) in ((2, (0.35, 0.45, 0.5), (0.2, 0.18, 0.3)),
+                                                (1, (0.7, 0.5, 0.45), (0.08, 0.09, 0.15)),
+                                                (3, (0.4, 0.7, 0.55), (0.06, 0.06, 0.12)),
+                                                (3, (0.65, 0.7, 0.55), (0.06, 0.06, 0.12))):
+        lbl[((x - cx) / rx) ** 2 + ((y - cy) / ry) ** 2 + ((z - cz) / rz) ** 2 <= 1.0] = label
+    levels = np.array(INTENSITIES["ct"][0], np.float32)
+    img = (levels[lbl] + rng.normal(0.0, 20.0, RESAMPLE_SHAPE).astype(np.float32)).astype(np.int16)
+    affine = np.diag([-RESAMPLE_SPACING[0], -RESAMPLE_SPACING[1], RESAMPLE_SPACING[2], 1.0])
+    for sub, vol in (("images", img), ("labels", lbl)):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+        save_nifti(vol, str(root / sub / "scan00.nii"), affine=affine)
+    return root / "images" / "scan00.nii", root / "labels" / "scan00.nii"
+
+
+def _resample_checks(model_path: Path) -> None:
+    """workloads.resample --backend torch on the GPU, the eval CLI on its
+    result, and the card's output against the CPU's."""
+    import numpy as np
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.data import load_nifti
+    from multimodal_segmentation_project_tpu_torch.data import resample as rs
+    from multimodal_segmentation_project_tpu_torch.workloads import resample as resample_cli
+
+    src = SCRATCH / "resample_src"
+    img_path, lbl_path = _resample_case(src)
+    out = SCRATCH / "resample_data" / "test" / "synth_ct"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    n = resample_cli.main(["--input_dir", str(src / "images"), "--output_dir",
+                           str(out / "images"), "--labels_dir", str(src / "labels"),
+                           "--labels_out_dir", str(out / "labels"), "--backend", "torch"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    peak_cli = torch.cuda.max_memory_allocated() / 2**20
+    fail_unless(n == 1, f"the resample CLI processed {n} cases")
+
+    img, lbl = load_nifti(str(img_path)), load_nifti(str(lbl_path))
+    times = []
+    for _ in range(3):  # the first call includes cuBLAS's warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gpu_img, _ = rs.resample_volume(img, backend="torch", device="cuda")
+        gpu_lbl, _ = rs.resample_volume(lbl, is_label=True, backend="torch", device="cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    cpu_img, _ = rs.resample_volume(img, backend="torch", device="cpu")
+    cpu_lbl, _ = rs.resample_volume(lbl, is_label=True, backend="torch", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(gpu_img - cpu_img).max() / np.abs(cpu_img).max())
+    lbl_equal = bool(np.array_equal(gpu_lbl, cpu_lbl))
+    written = load_nifti(str(out / "images" / "scan00.nii"))
+    fail_unless(written.data.shape == rs.TARGET_SHAPE and np.isfinite(written.data).all(),
+                f"resampled image {written.data.shape}")
+    fail_unless(np.array_equal(written.data, gpu_img.astype(np.float32)),
+                "the CLI's image is not the function's")
+    print(f"[resample] {RESAMPLE_SHAPE} int16 at {RESAMPLE_SPACING} mm -> 1 mm "
+          f"{tuple(int(round(s * f)) for s, f in zip(RESAMPLE_SHAPE, RESAMPLE_SPACING))} -> "
+          f"{rs.TARGET_SHAPE}: CLI (NIfTI read + image and label resample + write) {cli_s:.3f} "
+          f"s per case, peak allocated {peak_cli:.1f} MiB; resample_volume image + label on "
+          f"the card {[round(t, 4) for t in times]} s (host clock around synchronize), on the "
+          f"CPU {cpu_s:.2f} s | card vs CPU image error {err:.3g} of max |x| (<= "
+          f"{RESAMPLE_TOL}), labels {'equal' if lbl_equal else 'DIFFERENT'}", flush=True)
+    fail_unless(err <= RESAMPLE_TOL and lbl_equal, "the card's resample differs from the CPU's")
+    _run_eval_cli(str(model_path), SCRATCH / "resample_data", SCRATCH / "resample_eval_exp",
+                  "smoke_resampled", 1, rs.TARGET_SHAPE[0])
+
+
+def time_scipy_resample() -> None:
+    """The resampling case once with the scipy backend (host) and with the
+    torch backend (card), each on the image and the labels."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.data import load_nifti
+    from multimodal_segmentation_project_tpu_torch.data import resample as rs
+
+    img_path, lbl_path = _resample_case(SCRATCH / "resample_src")
+    img, lbl = load_nifti(str(img_path)), load_nifti(str(lbl_path))
+    for backend in ("torch", "torch", "scipy"):  # the first torch call warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs.resample_volume(img, backend=backend, device="cuda")
+        rs.resample_volume(lbl, is_label=True, backend=backend, device="cuda")
+        torch.cuda.synchronize()
+        print(f"[resample-time] {backend}: image + label {time.perf_counter() - t0:.3f} s "
+              f"(host clock)", flush=True)
+
+
+def time_accum_step(root: Path, size: int = 192) -> None:
+    """The train step with gradient accumulation over 2 steps (the train
+    CLI's accumulating path through ``TrainState.apply_gradients``) at full
+    width: the median of N_STEPS_TIMED distinct inputs (half of them apply
+    AdamW), then the profile of four steps (launches and summed kernel time
+    per step). The port is imported from ``root``, so that another checkout
+    of it (a parent commit) is timed by the same code in the same call."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    import multimodal_segmentation_project_tpu_torch as pkg
+    from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
+    from multimodal_segmentation_project_tpu_torch.engine.steps import make_train_step
+    from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
+
+    fail_unless(Path(pkg.__file__).resolve().is_relative_to(root),
+                f"port package imported from {pkg.__file__}, not from {root}")
+    print(f"[accum-step] port from {Path(pkg.__file__).parent}", flush=True)
+    state = TrainState(make_model(torch.bfloat16, dropout_rate=0.1).cuda(), 1e-3, 1e-4,
+                       grad_accum_steps=2)
+    step = make_train_step(get_loss_fn("ce_tversky"), augment=True, nan_guard=True)
+    dgen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def batch(i):
+        images = torch.rand(1, 1, size, size, size, generator=dgen, device="cuda")
+        labels = torch.randint(0, 4, (1, size, size, size), generator=dgen, device="cuda",
+                               dtype=torch.int32)
+        return images, labels, torch.Generator().manual_seed(i)
+
+    for i in range(4):  # warm-up: two updates, cuDNN's algorithm choice, allocator growth
+        step(state, *batch(i))
+    times = []
+    for i in range(N_STEPS_TIMED):
+        args = batch(100 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, *args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        fail_unless(math.isfinite(float(metrics["loss"])), f"timed step {i}: non-finite loss")
+    fail_unless(state.mini_step == 0, f"mini_step {state.mini_step} after whole updates")
+    print(f"[accum-step] step at {size}^3, batch 1, bf16, accumulation 2: median "
+          f"{statistics.median(times):.3f} ms over {N_STEPS_TIMED} distinct inputs (host clock "
+          f"around synchronize; all {[round(t, 3) for t in times]})", flush=True)
+    _profile_steps(lambda *args: step(state, *args), [batch(300 + i) for i in range(4)])
+
+
+def phase_checkpoints(size: int = 192) -> None:
+    """Phase 9: the JAX package's .msgpack checkpoints and the resampling
+    stage, at 192^3 and full width, bf16."""
+    t0 = time.perf_counter()
+    path = _format_check()
+    _serve_checks(path, size)
+    _resume_checks()
+    _resample_checks(path)
+    print(f"[phase9] checkpoints and preprocessing in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    if "--time-accum-step" in sys.argv[1:]:
+        rest = sys.argv[sys.argv.index("--time-accum-step") + 1:]
+        try:
+            phase_device()
+            time_accum_step(Path(rest[0]).resolve() if rest else ROOT)
+        except Exception as e:
+            print(f"[FAIL] {type(e).__name__}: {e}", flush=True)
+            return 1
+        return 0
+    if "--time-scipy-resample" in sys.argv[1:]:
+        try:
+            phase_device()
+            SCRATCH.mkdir(parents=True, exist_ok=True)
+            time_scipy_resample()
+        except Exception as e:
+            print(f"[FAIL] {type(e).__name__}: {e}", flush=True)
+            return 1
+        return 0
     try:
         name, _ = phase_device()
         phase_build()
@@ -1702,6 +2136,7 @@ def main() -> int:
         launches = phase_train()
         phase_workloads()
         phase_train_parity()
+        phase_checkpoints()
     except Exception as e:  # every phase's failure fails the run
         import traceback
 

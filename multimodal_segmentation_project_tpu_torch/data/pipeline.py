@@ -61,6 +61,11 @@ class DataLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def set_epoch(self, epoch: int) -> None:
+        """Draw ``epoch``'s shuffle on the next iteration (a resumed run
+        starts at its epoch; an uninterrupted one is there already)."""
+        self._epoch = epoch
+
     def _epoch_indices(self):
         idx = np.arange(len(self.dataset))
         if self.shuffle:

@@ -22,8 +22,13 @@ The loop semantics are the JAX package's:
   N + 1, each with a fresh optimizer;
 * a checkpoint every ``checkpoint_every`` epochs and a best-by-val-Dice
   checkpoint, as reference-layout ``.pth`` files (``engine/checkpoint.py``);
+  :meth:`Trainer.save_checkpoint` writes the JAX package's ``.msgpack``
+  layout instead for a path with that suffix;
 * early stopping on val-Dice patience, and true resume (model, optimizer,
-  scheduler, train state, epoch; DANN: the discriminator's too);
+  scheduler, train state, epoch; DANN: the discriminator's too) from the
+  port's ``.pth`` or from a JAX ``.msgpack`` train checkpoint and its JSON
+  sidecar (the scheduler and the freeze flag); a pretrained model or a
+  teacher loads from either format;
 * the CSV columns, the epoch lines, ``experiments/<name>/{checkpoints,
   logs,plots}`` and ``config.txt``.
 
@@ -34,8 +39,9 @@ guard reads one flag per step). ``logs/device_usage.log`` gets the CUDA
 allocator's statistics at the start and after every epoch. The plots need
 matplotlib; a failed plot warns and does not end the run.
 
-The per-step generator is seeded from (seed, epoch, step), so a resumed
-run draws the same augmentation and dropout as an uninterrupted one.
+The per-step generator is seeded from (seed, epoch, step), and each
+epoch's shuffle from (seed, epoch), so a resumed run draws the same batches,
+augmentation and dropout as an uninterrupted one.
 """
 
 from __future__ import annotations
@@ -44,11 +50,15 @@ import os
 import time
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from multimodal_segmentation_project_tpu_torch import NUM_CLASSES
 from multimodal_segmentation_project_tpu_torch.data import DataLoader
 from multimodal_segmentation_project_tpu_torch.engine import checkpoint as ckpt
+from multimodal_segmentation_project_tpu_torch.engine.interop import (
+    state_dict_to_discriminator_params,
+)
 from multimodal_segmentation_project_tpu_torch.engine.schedule import ReduceLROnPlateau
 from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
 from multimodal_segmentation_project_tpu_torch.engine.steps import (
@@ -176,14 +186,13 @@ class Trainer:
 
     @staticmethod
     def _load_pretrained(model: UNet3D, path: str, strict: bool) -> None:
-        """Initialise from a reference-layout ``.pth``: strictly, or as the
-        JAX package's non-strict load (a missing or shape-mismatched key
-        keeps the model's value)."""
+        """Initialise from a reference-layout ``.pth`` or a JAX ``.msgpack``:
+        strictly, or as the JAX package's non-strict load (a missing or
+        shape-mismatched key keeps the model's value)."""
+        kept = ckpt.load_params_any(model, path, strict=strict)
         if strict:
-            ckpt.load_pth(model, path)
             print(f"[PRETRAINED] loaded {path} (strict)")
         else:
-            kept = ckpt.load_pth_nonstrict(model, path)
             print(f"[PRETRAINED] loaded {path} (non-strict; {len(kept)} tensors kept their "
                   f"initial values{': ' + ', '.join(kept) if kept else ''})")
 
@@ -239,6 +248,7 @@ class Trainer:
 
     def train_epoch(self, epoch: int) -> dict:
         total, n = None, 0
+        self.train_loader.set_epoch(epoch)
         for step_idx, (images, labels) in enumerate(self.train_loader):
             images, labels = self._upload(images, labels)
             gen = self._step_generator(epoch, step_idx)
@@ -264,7 +274,32 @@ class Trainer:
         """Entries a subclass adds to its checkpoints."""
         return {}
 
+    def _jax_extra(self) -> dict:
+        """Entries a subclass adds to the JAX layout's tree."""
+        return {}
+
+    def _metadata(self, epoch, train_metrics, val_metrics) -> dict:
+        """The JAX layout's JSON sidecar (``engine/trainer.py:_metadata``)."""
+        return {
+            "epoch": epoch + 1,
+            "train_loss": train_metrics.get("loss"),
+            "val_loss": val_metrics.get("loss"),
+            "train_dice": train_metrics.get("dice"),
+            "val_dice": val_metrics.get("dice"),
+            "encoder_frozen": self.encoder_frozen,
+            "scheduler": self.scheduler.state_dict() if self.scheduler else None,
+        }
+
     def save_checkpoint(self, path, epoch, train_metrics, val_metrics):
+        """After epoch ``epoch`` (0-based): a ``.msgpack`` path gets the JAX
+        package's train checkpoint and sidecar, any other a ``.pth``."""
+        if str(path).endswith(".msgpack"):
+            extra = {"epoch": np.asarray(epoch + 1, np.int32),
+                     "best_val_dice": np.asarray(self.best_val_dice, np.float32),
+                     **self._jax_extra()}
+            ckpt.save_checkpoint(path, ckpt.state_checkpoint_tree(self.state, extra),
+                                 metadata=self._metadata(epoch, train_metrics, val_metrics))
+            return
         ckpt.save_train_checkpoint(
             path, self.state, epoch + 1, self.best_val_dice, self.scheduler,
             train_metrics, val_metrics, self.encoder_frozen,
@@ -272,6 +307,8 @@ class Trainer:
         )
 
     def _resume(self, path: str) -> dict:
+        if str(path).endswith(".msgpack"):
+            return self._resume_msgpack(path)
         saved = ckpt.load_train_checkpoint(path)
         self.state.model.load_state_dict(saved["model_state_dict"], strict=True)
         self.state.load_state_dict(saved["train_state"], saved["optimizer_state_dict"])
@@ -282,6 +319,33 @@ class Trainer:
         self.encoder_frozen = bool(saved.get("encoder_frozen", False))
         print(f"[RESUME] from {path} at epoch {self.start_epoch}")
         return saved
+
+    def _resume_msgpack(self, path: str) -> dict:
+        """Resume from the JAX package's train checkpoint
+        (``engine/trainer.py:_resume``): the model, batch statistics,
+        optimizer, accumulator, step, LR and freeze mask, the epoch and the
+        best val Dice; the scheduler and the freeze flag from the sidecar."""
+        tree = ckpt.load_checkpoint(path)
+        missing = [k for k in ("epoch", "best_val_dice") if k not in tree]
+        if missing:
+            raise KeyError(f"{path} is not a train checkpoint of the JAX package: it lacks "
+                           f"{missing}")
+        ckpt.restore_train_state(self.state, tree)
+        self.start_epoch = int(tree["epoch"])
+        self.best_val_dice = float(tree["best_val_dice"])
+        meta = ckpt.load_metadata(path)
+        if self.scheduler is not None and meta.get("scheduler"):
+            self.scheduler.load_state_dict(meta["scheduler"])
+        self.encoder_frozen = bool(meta.get("encoder_frozen", False))
+        # The file holds the LR as float32. The run's LR is the scheduler's
+        # or the configured one (Python floats); where one of them rounds to
+        # the stored value, it is the LR the run stepped with.
+        lr = np.float32(tree["lr"])
+        candidates = [self.scheduler.lr] if self.scheduler is not None else []
+        self.state.lr = next((c for c in (*candidates, self.cfg.lr) if np.float32(c) == lr),
+                             float(lr))
+        print(f"[RESUME] from {path} at epoch {self.start_epoch}")
+        return tree
 
     # ---------- the loop ----------
 
@@ -406,6 +470,8 @@ class DannTrainer(Trainer):
 
     def train_epoch(self, epoch: int) -> dict:
         total, n = None, 0
+        self.train_loader.set_epoch(epoch)
+        self.target_loader.set_epoch(epoch)
         for step_idx, ((src_img, src_lbl), (tgt_img, _)) in enumerate(
                 zip(self.train_loader, self.target_loader)):
             src_img, src_lbl = self._upload(src_img, src_lbl)
@@ -428,8 +494,30 @@ class DannTrainer(Trainer):
             "lambda_domain": self.lambda_domain,
         }
 
+    def _jax_extra(self) -> dict:
+        """The discriminator's params and optimizer, as the JAX DannTrainer
+        writes them (its step, LR and mask are not written)."""
+        return {"disc_params": state_dict_to_discriminator_params(
+                    self.disc_state.model.state_dict()),
+                "disc_opt_state": self.disc_state.optax_state()}
+
+    def _metadata(self, epoch, train_metrics, val_metrics) -> dict:
+        return {**super()._metadata(epoch, train_metrics, val_metrics),
+                "task_loss": train_metrics.get("task_loss"),
+                "domain_loss": train_metrics.get("domain_loss"),
+                "lambda_domain": self.lambda_domain}
+
     def _resume(self, path: str) -> dict:
         saved = super()._resume(path)
+        if str(path).endswith(".msgpack"):
+            for key in ("disc_params", "disc_opt_state"):
+                if key not in saved:
+                    raise KeyError(f"{path} is not a DANN checkpoint: it lacks '{key}'")
+            ckpt.load_tree_into(self.disc_state.model, saved["disc_params"], None, strict=True)
+            self.disc_state.load_optax_state(saved["disc_opt_state"])
+            # the two states step together; the JAX checkpoint keeps only one step
+            self.disc_state.step = self.state.step
+            return saved
         self.disc_state.model.load_state_dict(saved["discriminator_state_dict"], strict=True)
         self.disc_state.load_state_dict(saved["discriminator_train_state"],
                                         saved["discriminator_optimizer_state_dict"])

@@ -3,7 +3,7 @@
 Port of ``multimodal_segmentation_project_tpu/workloads/distill_unet.py``:
 the same flags and defaults, plus ``--device``. The teacher is a UNet3D of
 the same widths, loaded strictly from ``--teacher_model`` (a
-reference-layout ``.pth``) and held frozen: on every step it runs its eval
+reference-layout ``.pth`` or a JAX ``.msgpack``) and held frozen: on every step it runs its eval
 forward (BatchNorm folded) under ``torch.no_grad()``. The student trains
 on the KD loss, ``alpha * (CE + Tversky) + (1 - alpha) * T^2 * KL``
 (``ops/losses.py:distillation_loss``, with ``--alpha`` and
@@ -106,7 +106,8 @@ def main(args) -> dict:
             "temperature": args.temperature,
         },
     )
-    teacher = ckpt.load_pth(build_model(cfg), args.teacher_model)
+    teacher = build_model(cfg)
+    ckpt.load_params_any(teacher, args.teacher_model)
     print(f"[START] knowledge distillation (teacher: {args.teacher_model})")
 
     def kd(student_logits, teacher_logits, labels):

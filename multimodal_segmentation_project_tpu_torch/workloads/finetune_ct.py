@@ -5,7 +5,8 @@ the same flags and defaults, plus ``--device``. It differs from baseline
 training as the JAX CLI does:
 
 * the weights start from ``--pretrained_model``, a reference-layout
-  ``.pth``, loaded strictly (another ``--features`` is refused);
+  ``.pth`` or a JAX ``.msgpack``, loaded strictly (another ``--features``
+  is refused);
 * ``--freeze_encoder`` freezes the encoder and the bottleneck from the
   start, ``--freeze_encoder_epoch N`` at epoch N (for one epoch); the
   frozen parameters' gradients are still computed and dropped before

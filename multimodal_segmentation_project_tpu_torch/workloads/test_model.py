@@ -14,8 +14,8 @@ the same flags and the same artifacts under
         --model_path model.pth --data_root data --experiment_dir exp --model_name unet
 
 One UNet3D eval forward per batch (batch 1 by default, no sliding window),
-then argmax and the metrics on the device. The model loads from a
-reference-layout ``.pth``. It runs on CUDA; with no GPU it runs on the CPU
+then argmax and the metrics on the device. The model loads strictly from
+a reference-layout ``.pth`` or from a JAX ``.msgpack`` checkpoint. It runs on CUDA; with no GPU it runs on the CPU
 only when asked with ``--device cpu``. On the GPU the kernels of this slice
 take bf16, so ``--precision fp32`` is a CPU option. The first forward is a
 warm-up (kernel build and load included) and is not timed; every timed
@@ -42,7 +42,7 @@ from multimodal_segmentation_project_tpu_torch.data import (
     load_nifti_header,
     save_nifti,
 )
-from multimodal_segmentation_project_tpu_torch.engine.checkpoint import load_pth
+from multimodal_segmentation_project_tpu_torch.engine.checkpoint import load_params_any
 from multimodal_segmentation_project_tpu_torch.models.unet3d import UNet3D
 from multimodal_segmentation_project_tpu_torch.ops.metrics import per_class_dice_iou_per_sample
 from multimodal_segmentation_project_tpu_torch.workloads.common import (
@@ -290,7 +290,7 @@ def main(args) -> dict:
         in_channels=1, out_channels=NUM_CLASSES, features=parse_features(args.features),
         dropout_rate=0.0, dtype=DTYPES[args.precision],
     )
-    load_pth(model, args.model_path)
+    load_params_any(model, args.model_path)
     model.to(device).eval()
 
     test_dataset = CombinedDataset(

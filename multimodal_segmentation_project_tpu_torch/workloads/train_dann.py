@@ -12,8 +12,9 @@ directories under ``--data_root``:
 
 ``--n_add_source`` limits both extra pools, ``--n_target`` the volumes of
 ``target/``, and ``--n_samples`` the merged streams, each by the JAX
-CLI's seeded draw (:func:`_rng_subset`). ``--pretrained_model`` loads
-non-strictly (a missing or shape-mismatched key keeps its initial value).
+CLI's seeded draw (:func:`_rng_subset`). ``--pretrained_model`` (``.pth``
+or JAX ``.msgpack``) loads non-strictly (a missing or shape-mismatched key
+keeps its initial value), and ``--resume`` takes either format.
 The encoder freezes at ``--freeze_encoder_epoch``; there is no
 augmentation and no scheduler. The step (``engine/steps.py:make_dann_step``)
 keeps the JAX package's double lambda, one backward and two AdamW states.

@@ -6,6 +6,7 @@ package's extras) and the same loop (``engine/trainer.py``): on-device
 augmentation, the plateau LR scheduler on val Dice, and the
 ``experiments/<name>/{checkpoints,logs,plots}`` layout, with ``.pth``
 checkpoints that the eval CLI (``workloads/test_model.py``) loads.
+``--resume`` takes the port's ``.pth`` or the JAX package's ``.msgpack``.
 
     python -m multimodal_segmentation_project_tpu_torch.workloads.train_unet \\
         --data_root data --experiment_dir exp --batch_size 1 --epochs 100 \\

@@ -32,15 +32,17 @@ def test_port_imports_without_jax_flax_optax():
     modules = _port_modules()
     for name in ("workloads.test_model", "workloads.train_unet", "workloads.finetune_ct",
                  "workloads.distill_unet", "workloads.train_dann", "workloads.main",
-                 "models.discriminator", "ops.grl"):
+                 "models.discriminator", "ops.grl", "engine.msgpack_codec",
+                 "engine.checkpoint", "data.resample", "workloads.resample"):
         assert f"{port.__name__}.{name}" in modules
     code = (
         "import sys, importlib\n"
-        "for m in ('jax', 'flax', 'optax'):\n"
+        "for m in ('jax', 'flax', 'optax', 'msgpack'):\n"
         "    sys.modules[m] = None  # any import of them raises\n"
         f"for name in {modules!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'msgpack')\n"
         "             and sys.modules[m] is not None)\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
@@ -52,11 +54,12 @@ def test_port_imports_without_jax_flax_optax():
 
 
 def test_only_the_data_module_takes_code_from_the_jax_package():
-    """No module of the port imports JAX, flax, optax or anything of the JAX
-    package (its data stack and CLI helpers are the port's own copies), and
-    neither does chip_smoke.py."""
+    """No module of the port imports JAX, flax, optax, msgpack or anything of
+    the JAX package (its data stack, resampling, checkpoint codec and CLI
+    helpers are the port's own copies), and neither does chip_smoke.py."""
     imports = re.compile(
-        r"^\s*(?:from|import)\s+(jax|flax|optax|multimodal_segmentation_project_tpu)\b", re.M)
+        r"^\s*(?:from|import)\s+(jax|flax|optax|msgpack|multimodal_segmentation_project_tpu)\b",
+        re.M)
     pkg_dir = Path(port.__file__).parent
     borrowing = sorted(str(p.relative_to(pkg_dir)) for p in pkg_dir.rglob("*.py")
                        if imports.search(p.read_text()))

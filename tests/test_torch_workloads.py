@@ -272,15 +272,46 @@ def test_clis_refuse_cuda_without_a_gpu(data_root, tmp_path, module, extra):
     assert not any(tmp_path.iterdir())  # refused before anything was written
 
 
-@pytest.mark.parametrize("flag", ["--pretrained_model", "--teacher_model", "--model_path"])
-def test_a_msgpack_checkpoint_is_refused(data_root, tmp_path, flag):
-    path = tmp_path / "model.msgpack"
-    path.write_bytes(b"\x80")
+@pytest.fixture(scope="module")
+def jax_msgpack(tmp_path_factory):
+    """A toy UNet3D (features 4, 8) as the JAX package saves it: its params
+    and batch_stats through ``engine/checkpoint.py:save_checkpoint``."""
+    import jax
+    import jax.numpy as jnp
+
+    from multimodal_segmentation_project_tpu.engine import checkpoint as jax_ckpt
+    from multimodal_segmentation_project_tpu.models import UNet3D as JaxUNet3D
+
+    model = JaxUNet3D(out_channels=4, features=(4, 8), dtype=jnp.float32, conv_impl="xla")
+    variables = jax.jit(model.init)(jax.random.key(1), jnp.zeros((1, 1, SIZE, SIZE, SIZE)))
+    path = tmp_path_factory.mktemp("jax_ckpt") / "model.msgpack"
+    jax_ckpt.save_checkpoint(str(path), {"params": variables["params"],
+                                         "batch_stats": variables["batch_stats"]})
+    return path
+
+
+@pytest.mark.parametrize("flag", ["--pretrained_model", "--teacher_model", "--model_path",
+                                  "malformed"])
+def test_a_msgpack_checkpoint_is_refused(data_root, tmp_path, jax_msgpack, flag, capsys):
+    """A JAX ``.msgpack`` loads wherever main.py takes a model path (the
+    name is kept from when the port refused them); a file that is not a
+    checkpoint is refused with a ValueError that says so."""
     experiment = {"--pretrained_model": "finetune", "--teacher_model": "distill",
-                  "--model_path": "eval"}[flag]
-    with pytest.raises(ValueError, match=r"reads \.pth checkpoints only"):
-        main.main(["--experiment", experiment, flag, str(path), "--data_root", str(data_root),
-                   "--experiment_dir", str(tmp_path / "exp"), *TOY])
+                  "--model_path": "eval", "malformed": "eval"}[flag]
+    argv = ["--experiment", experiment, "--data_root", str(data_root),
+            "--experiment_dir", str(tmp_path / "exp"), "--epochs", "1", *TOY]
+    if flag == "malformed":
+        bad = tmp_path / "model.msgpack"
+        bad.write_bytes(b"\x80")  # an empty msgpack map
+        with pytest.raises(ValueError, match="not a model checkpoint"):
+            main.main([*argv, "--model_path", str(bad)])
+        return
+    main.main([*argv, flag, str(jax_msgpack)])
+    out = capsys.readouterr().out
+    if flag == "--model_path":
+        assert "Overall Mean - Dice" in out
+    else:
+        assert "[END] training completed" in out
 
 
 def test_dann_subsets_as_the_jax_cli():
