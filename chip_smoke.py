@@ -10,16 +10,21 @@ Phases, each printing one line per check; any failure exits non-zero:
 2. build: compiles every kernel of ``multimodal_segmentation_project_tpu_torch/csrc``
    with nvcc (one process per source, in parallel), from this checkout;
    prints ptxas's registers and spills of each of the 24 instances of the
-   conv body (``csrc/conv3.cu``), of the 8 of the dW body
-   (``csrc/conv3_dw.cu``) and of the head's and the upconv's 34
-   (``csrc/head1x1.cu``, ``csrc/upconv_d2s.cu``; none of these 42 may
-   spill), and their dynamic shared memory per block;
+   conv body (``csrc/conv3.cu``), of the 4 of the fp32 conv body
+   (``csrc/conv3_f32.cu``), of the 8 of the dW body (``csrc/conv3_dw.cu``)
+   and of the head's and the upconv's 42 (``csrc/head1x1.cu``,
+   ``csrc/upconv_d2s.cu``; none of the last 54 may spill), and their dynamic
+   shared memory per block;
 3. kernels: each kernel against its plain PyTorch version at every shape
-   the 192^3 eval forward and train step give it, in bf16, on seeded
-   inputs; prints the error against the stated tolerance, the median time
-   of the kernel as called, of its plain version and of one library call
-   over distinct inputs (CUDA events), and its bound: the larger of its
-   bytes over 3.35 TB/s and its FLOPs over 989 TFLOP/s. For every kernel
+   the 192^3 eval forward and train step give it, in bf16, and the fp32
+   instances of 7, 8 and 11 at every shape of the fp32 eval forward, on
+   seeded inputs; prints the error against the stated tolerance, the median
+   time of the kernel as called, of its plain version and of one library
+   call over distinct inputs (CUDA events; cuDNN's TF32 off), and its bound:
+   the larger of its bytes over 3.35 TB/s and its FLOPs over 989 TFLOP/s
+   (bf16) or 67 TFLOP/s (fp32). The fp32 pool also with NaNs planted, and a
+   control: the 16->16 192^3 conv by cuDNN with TF32 allowed must miss the
+   fp32 bound. For every kernel
    also the bare launch (operands packed before the timed window,
    BARE_REPS runs over the distinct inputs between two CUDA events, over
    the count) and the kernel/library ratios per shape, and the conv and
@@ -32,14 +37,22 @@ Phases, each printing one line per check; any failure exits non-zero:
    11 conv, 4 pool, 3 upconv and 1 head kernel;
 5. parity: the GPU's bf16 eval forward against the port's fp32 plain
    forward on the CPU, one 64^3 volume at full width;
+5b. fp32 eval: the eval CLI with ``--precision fp32`` on phase 4's cases
+   and model, with cuDNN's flags at PyTorch's defaults (TF32 allowed): 11
+   fp32 conv, 4 fp32 pool and 1 fp32 head launches per forward and no
+   upconv kernel, and 7 library convs and 4 library transpose convs; the
+   GPU's fp32 forward against the CPU's at 64^3; the fp32 forward's time
+   and peak beside bf16's, and their predictions' agreement;
 6. train: writes two train, one val and one test synthetic 192^3 CT case,
    runs the port's train CLI (``workloads.train_unet``) as
    ``run_training.sh`` does (batch 1, bf16, ce_tversky, augmentation on)
    for two epochs, checks finite losses and the launches of every kernel
    per train step (the fused DoubleConv's kernels in enc0-enc2, dec2 and
-   dec3, the per-conv chain in dec1) and per validation forward, evaluates the best
-   checkpoint with the eval CLI; then times the train step (median over
-   distinct inputs, host clock around ``torch.cuda.synchronize()``),
+   dec3, the per-conv chain in dec1) and per validation forward, that the
+   checkpoints are the JAX CLI's files (``best_model_<name>.msgpack`` and
+   its JSON sidecar), evaluates the best checkpoint with the eval CLI;
+   then times the train step (median over distinct inputs, host clock
+   around ``torch.cuda.synchronize()``),
    reports the peak allocated memory, and breaks a few steps' device time
    down from a ``torch.profiler`` trace;
 7. train parity: one train step at 128^3 and full width, GPU bf16 against
@@ -65,8 +78,9 @@ Phases, each printing one line per check; any failure exits non-zero:
    (its optimizer and its ``optax.MultiSteps`` accumulator included) as the
    JAX package's ``.msgpack`` with the port's writer, reads it back and
    holds every leaf bit-equal (size, write and read seconds); serves it:
-   the eval CLI on the ``.msgpack`` gives the ``.pth``'s predictions and
-   per-sample Dice bit for bit, and ``main.py --experiment distill
+   the eval CLI on the ``.msgpack`` gives the predictions of the ``.pth``
+   train checkpoint of the same weights (which the trainer writes) and
+   its per-sample Dice bit for bit, and ``main.py --experiment distill
    --teacher_model`` and ``finetune --pretrained_model`` take it, with exact
    launches; resume continuity: a train run (and a DANN run) of two epochs
    of two steps saved as ``.msgpack`` after epoch 1 and resumed by a fresh
@@ -138,11 +152,18 @@ HEAD_DW_SHAPES = [(16, 4, 192)]                              # (Cin, classes, S)
 
 # launches per eval forward and per train step (default widths, 192^3)
 PER_FORWARD = {"conv3x3x3_cf_relu": 11, "max_pool2x_cf": 4, "upconv2x_cf": 3, "head1x1_cf": 1}
+# per fp32 eval forward: the fp32 instances of 7, 8 and 11, no upconv kernel
+# (the JAX package's fp32 upconv is XLA), and the library's convs (the deep
+# region) and transpose convs (every upconv)
+PER_FP32_FORWARD = {"conv3x3x3_cf_relu_f32": 11, "max_pool2x_cf_f32": 4, "head1x1_cf_f32": 1}
+LIBRARY_PER_FP32_FORWARD = {"conv3d": 7, "conv_transpose3d": 4}
+F32_KERNELS = tuple(PER_FP32_FORWARD)
 PER_STEP = {"conv3x3x3_cf_stats": 5, "conv3x3x3_cf_boundary_stats": 5, "conv3x3x3_cf": 1,
             "conv3x3x3_cf_dx": 5, "conv3x3x3_cf_dx_epilogue": 5, "conv3x3x3_cf_dw": 6,
             "conv3x3x3_cf_dw_prologue": 5, "max_pool2x_cf": 4, "max_pool2x_cf_bwd": 4,
             "upconv2x_cf": 3, "head1x1_cf": 1, "head1x1_cf_dx": 1, "head1x1_cf_dw": 1}
 CONV3 = "multimodal_segmentation_project_tpu_torch/csrc/conv3.cu"
+CONV3_F32 = "multimodal_segmentation_project_tpu_torch/csrc/conv3_f32.cu"
 CONV3_DW = "multimodal_segmentation_project_tpu_torch/csrc/conv3_dw.cu"
 PALLAS_CONV = "multimodal_segmentation_project_tpu/ops/pallas_conv.py"
 
@@ -169,6 +190,12 @@ KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
     # no Pallas kernel: _head_bwd_rule's dkernel dot_general and dbias sum (XLA)
     "head1x1_cf_dw": ("multimodal_segmentation_project_tpu_torch/csrc/head1x1.cu",
                       "multimodal_segmentation_project_tpu/ops/head.py:108"),
+    # the fp32 instances the JAX package's fp32 policy runs in its eval forward
+    "conv3x3x3_cf_relu_f32": (CONV3_F32, f"{PALLAS_CONV}:314"),
+    "max_pool2x_cf_f32": ("multimodal_segmentation_project_tpu_torch/csrc/pool2x.cu",
+                          "multimodal_segmentation_project_tpu/ops/pool.py:65"),
+    "head1x1_cf_f32": ("multimodal_segmentation_project_tpu_torch/csrc/head1x1.cu",
+                       "multimodal_segmentation_project_tpu/ops/head.py:39"),
 }
 # conv/upconv/head-dx: the kernel and the plain version round to bf16 once,
 # at the same point, from fp32 sums taken in different orders, so an output
@@ -211,6 +238,11 @@ STATS_TOL = 1e-5
 # (at most 5e-8 of the sums of |terms| on the H100 at the train step's
 # shapes). A block's partials lost would move a 96^3 entry by 1/3456 of it.
 DADT_TOL = 1e-5
+# the fp32 instances (7, 11): the same fp32 products as the plain version,
+# summed in another order, scaled by max|plain| (CHANGES PR 1's fp32 ops'
+# tolerance); a TF32 pass (10 mantissa bits a product) errs far above it,
+# which the TF32 control shows on the card
+F32_TOL = 2e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -271,6 +303,17 @@ def conv_body_resources(log: str) -> list:
         lambda cout, epi, pro: f"conv3_kernel<COUT={cout}, {EPILOGUES[epi]}, prologue={pro}>")
 
 
+F32_BODY_INSTANCES = 4  # conv3_f32.cu: COUT 16, 32, 48, 64, the bias+ReLU epilogue (7)
+
+
+def f32_body_resources(log: str) -> list:
+    """conv3_f32.cu's conv3_f32_kernel<COUT, EPI, PRO> instances."""
+    return ptxas_resources(
+        log, r"conv3_f32_kernelILi(\d+)ELi(\d)ELb(\d)E",
+        lambda cout, epi, pro: f"conv3_f32_kernel<COUT={cout}, {EPILOGUES[epi]}, "
+                               f"prologue={pro}>")
+
+
 DW_INSTANCES = 8  # conv3_dw.cu: COUT 16, 32, 48, 64, each without and with the prologue
 
 
@@ -281,24 +324,26 @@ def dw_body_resources(log: str) -> list:
         lambda cout, pro: f"conv3_dw_partial_kernel<COUT={cout}, prologue={pro}>")
 
 
-# head1x1.cu: 8 forward (CO = 1..8), 8 dx (NC = 1..8), 16 weight-gradient
-# (NC = 1..8, 16-byte or guarded loads) and the weight gradient's block
-# reduce; upconv_d2s.cu: 1
-SMALL_INSTANCES = 34
+# head1x1.cu: 16 forward (bf16 and fp32 features, CO = 1..8), 8 dx (NC =
+# 1..8), 16 weight-gradient (NC = 1..8, 16-byte or guarded loads) and the
+# weight gradient's block reduce; upconv_d2s.cu: 1
+SMALL_INSTANCES = 42
 
 
 def small_kernel_resources(log: str) -> list:
     """head1x1.cu's and upconv_d2s.cu's kernel instances."""
-    def label(kname, n, vec):
+    def label(kname, dtype, n, vec):
         if n is None:
             return kname
-        return (f"{kname}<{'CO' if kname == 'head1x1_kernel' else 'NC'}={n}"
+        return (f"{kname}<"
+                + ("" if dtype is None else f"{'fp32' if dtype == 'f' else 'bf16'}, ")
+                + f"{'CO' if kname == 'head1x1_kernel' else 'NC'}={n}"
                 + ("" if vec is None else f", {'16-byte' if vec == '1' else 'guarded'} loads")
                 + ">")
 
     return ptxas_resources(
         log, r"(head1x1_kernel|head1x1_dx_kernel|head1x1_dw_kernel|head1x1_dw_reduce_kernel"
-             r"|upconv_d2s_kernel)(?:ILi(\d+)E(?:Lb(\d)E)?)?", label)
+             r"|upconv_d2s_kernel)(?:I(13__nv_bfloat16|f)?Li(\d+)E(?:Lb(\d)E)?)?", label)
 
 
 def phase_build() -> None:
@@ -324,6 +369,17 @@ def phase_build() -> None:
           "channels / more: " + ", ".join(
               f"COUT={c} {lib.mmseg_conv3_smem_bytes(c, 1)} / {lib.mmseg_conv3_smem_bytes(c, 2)} B"
               for c in (16, 32, 48, 64)), flush=True)
+    lines = f32_body_resources(log)
+    fail_unless(len(lines) == F32_BODY_INSTANCES, f"ptxas reported {len(lines)} "
+                f"conv3_f32_kernel instances, not {F32_BODY_INSTANCES}")
+    for line in lines:
+        print(f"[build] ptxas {line}", flush=True)
+        fail_unless("0 bytes spill stores, 0 bytes spill loads" in line,
+                    f"fp32 conv body spills: {line}")
+    print("[build] conv3_f32_kernel dynamic shared memory per block, one chunk of 8 input "
+          "channels / more: " + ", ".join(
+              f"COUT={c} {lib.mmseg_conv3_f32_smem_bytes(c, 1)} / "
+              f"{lib.mmseg_conv3_f32_smem_bytes(c, 2)} B" for c in (16, 32, 48, 64)), flush=True)
     lines = dw_body_resources(log)
     fail_unless(len(lines) == DW_INSTANCES, f"ptxas reported {len(lines)} "
                 f"conv3_dw_partial_kernel instances, not {DW_INSTANCES}")
@@ -540,6 +596,10 @@ def _kernel_plan():
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
+    def tied_f32(*shape):
+        """fp32 values rounded to halves in [-4, 4]: most pool windows hold tied maxima."""
+        return (randn(*shape, scale=4.0, dtype=torch.float32).round().clamp(-8, 8) / 2)
+
     def conv_w(cin, cout):
         return randn(3, 3, 3, cin, cout, scale=(2.0 / (27 * cin)) ** 0.5, dtype=torch.float32)
 
@@ -607,6 +667,20 @@ def _kernel_plan():
     def head_dw_inputs(cin, co, s):
         return [(randn(1, cin, s, s, s), randn(1, co, s, s, s, scale=1e-3, dtype=torch.float32))
                 for _ in range(N_TIMED)]
+
+    f32 = torch.float32
+
+    def conv_f32_inputs(cin, cout, s):
+        w, b = conv_w(cin, cout), randn(cout, scale=0.1, dtype=f32)
+        return [(randn(1, cin, s, s, s, dtype=f32), w, b) for _ in range(N_TIMED)]
+
+    def pool_f32_inputs(c, s):
+        return [(tied_f32(1, c, s, s, s),) for _ in range(N_TIMED)]
+
+    def head_f32_inputs(cin, co, s):
+        k = randn(co, cin, scale=(1.0 / cin) ** 0.5, dtype=f32).t()
+        b = randn(co, scale=0.1, dtype=f32)
+        return [(randn(1, cin, s, s, s, dtype=f32), k, b) for _ in range(N_TIMED)]
 
     # library calls: one PyTorch call computing the same function, bf16
     def lib_conv(x, w, b):
@@ -702,6 +776,15 @@ def _kernel_plan():
     def head_dw_work(cin, co, s):  # bf16 x and fp32 ct in; dk's FMAs and db's adds
         return v(s) * (2 * cin + 4 * co), (2 * cin + 1) * co * v(s), FP32_FLOPS
 
+    def conv_f32_work(cin, cout, s):  # fp32 x, w and out; FFMA
+        return 4 * v(s) * (cin + cout) + 27 * cin * cout * 4, 2 * 27 * cin * cout * v(s), FP32_FLOPS
+
+    def pool_f32_work(c, s):
+        return 4 * c * v(s) * (1 + 1 / 8), 0.0, FP32_FLOPS
+
+    def head_f32_work(cin, co, s):  # fp32 in and out, fp32 FMAs
+        return 4 * v(s) * (cin + co), 2 * cin * co * v(s), FP32_FLOPS
+
     return {
         "conv3x3x3_cf_relu": (conv3.conv3x3x3_cf_relu, conv3.conv3x3x3_cf_relu_reference,
                               lib_conv, conv_inputs, CONV_SHAPES, BF16_ONE_ULP, conv_work,
@@ -756,6 +839,17 @@ def _kernel_plan():
                           head_dw_inputs, HEAD_DW_SHAPES, HEAD_DW, head_dw_work,
                           "torch.einsum fp32 of x.float() plus sum, the port's code before "
                           "the kernel"),
+        # the fp32 eval forward's instances; cuDNN's TF32 is off for every
+        # plain and library call here (phase_device)
+        "conv3x3x3_cf_relu_f32": (conv3.conv3x3x3_cf_relu_f32, conv3.conv3x3x3_cf_relu_reference,
+                                  lib_conv, conv_f32_inputs, CONV_SHAPES, F32_TOL, conv_f32_work,
+                                  "F.conv3d fp32, TF32 off (no ReLU)"),
+        "max_pool2x_cf_f32": (pool.max_pool2x_cf_f32, pool.max_pool2x_cf_reference,
+                              lambda x: F.max_pool3d(x, 2, 2), pool_f32_inputs, POOL_SHAPES, 0.0,
+                              pool_f32_work, "F.max_pool3d fp32"),
+        "head1x1_cf_f32": (head.head1x1_cf_f32, head.head1x1_cf_reference, lib_head,
+                           head_f32_inputs, HEAD_SHAPES, F32_TOL, head_f32_work,
+                           "1x1x1 F.conv3d fp32, TF32 off"),
     }, randn
 
 
@@ -775,7 +869,9 @@ def bare_calls() -> dict:
             "conv3x3x3_cf_dw_prologue": conv3_fused.dw_prologue_call,
             "max_pool2x_cf": pool.pool_call, "max_pool2x_cf_bwd": pool.bwd_call,
             "upconv2x_cf": upconv.upconv_call, "head1x1_cf": head.head_call,
-            "head1x1_cf_dx": head.dx_call, "head1x1_cf_dw": head.dw_call}
+            "head1x1_cf_dx": head.dx_call, "head1x1_cf_dw": head.dw_call,
+            "conv3x3x3_cf_relu_f32": conv3.relu_f32_call, "max_pool2x_cf_f32": pool.pool_f32_call,
+            "head1x1_cf_f32": head.head_f32_call}
 
 
 # the conv-body instances of the train step (12 has no caller, 7 is eval's)
@@ -783,6 +879,53 @@ TRAIN_BODY = ("conv3x3x3_cf", "conv3x3x3_cf_dx", "conv3x3x3_cf_stats",
               "conv3x3x3_cf_boundary_stats", "conv3x3x3_cf_dx_epilogue")
 # the dW body's instances: 2 over DW_SHAPES, 6 over CONV1_SHAPES
 TRAIN_DW = ("conv3x3x3_cf_dw", "conv3x3x3_cf_dw_prologue")
+
+
+def _pool_nan_checks(make) -> None:
+    """The fp32 pool at every eval shape on tied inputs with a NaN planted
+    in a few windows: the NaNs win where they are, every other value is
+    the plain version's exactly."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.ops import pool
+
+    for c, s in POOL_SHAPES:
+        (x,) = make(c, s)[0]
+        flat = x.view(-1)
+        planted = torch.arange(7, flat.numel(), flat.numel() // 5, device=x.device)[:5]
+        flat[planted] = float("nan")
+        got, want = pool.max_pool2x_cf_f32(x), pool.max_pool2x_cf_reference(x)
+        nan_got, nan_want = got.isnan(), want.isnan()
+        ok = (int(nan_want.sum()) == len(planted) and torch.equal(nan_got, nan_want)
+              and torch.equal(got[~nan_got], want[~nan_want]))
+        print(f"[kernel] max_pool2x_cf_f32 ({c}, {s}) with {len(planted)} NaNs planted: "
+              f"{int(nan_got.sum())} NaN outputs where the plain version has "
+              f"{int(nan_want.sum())}, the rest {'equal' if ok else 'DIFFERENT'}", flush=True)
+        fail_unless(ok, f"max_pool2x_cf_f32 ({c}, {s}): NaN propagation differs")
+
+
+def _tf32_control(make) -> None:
+    """The 16->16 192^3 conv by F.conv3d with cuDNN's TF32 allowed against
+    the plain version (TF32 off): its error must read above F32_TOL, so that
+    the bound can tell a TF32 pass from an fp32 one."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_segmentation_project_tpu_torch.ops import conv3
+
+    x, w, b = make(16, 16, 192)[0]
+    want = conv3.conv3x3x3_cf_relu_reference(x, w, b)
+    got = conv3.conv3x3x3_cf_relu_f32(x, w, b)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        tf32 = torch.relu(F.conv3d(x, w.permute(4, 3, 0, 1, 2), b, padding=1))
+    scale = want.abs().max()
+    err_tf32 = ((tf32 - want).abs().max() / scale).item()
+    err_kernel = ((got - want).abs().max() / scale).item()
+    print(f"[kernel] TF32 control, 16->16 at 192^3: F.conv3d with cuDNN's TF32 allowed is "
+          f"{err_tf32:.4g} of max|plain| from the fp32 plain version (must exceed "
+          f"{F32_TOL:g}); the fp32 kernel {err_kernel:.4g}", flush=True)
+    fail_unless(err_tf32 > F32_TOL, "the TF32 control reads within the fp32 bound")
+    fail_unless(not torch.backends.cudnn.allow_tf32, "cuDNN's TF32 left on after the control")
 
 
 def phase_kernels() -> dict:
@@ -906,6 +1049,23 @@ def phase_kernels() -> dict:
                  (unaligned(2, 16, 3, 9, 16), unaligned(2, 20, 3, 9, 16))):
         a, t = (randn(*x.shape[:2], scale=s, dtype=f32) for s in (1.0, 0.5))
         edges += [("conv3x3x3_cf_dw", (x, g)), ("conv3x3x3_cf_dw_prologue", (x, g, a, t))]
+    # the fp32 instances: the conv body (7-fp32) at W = 37 and 33 (4-byte
+    # staging and stores) and an unaligned view, Cin = 1, 3, 40 (five chunks,
+    # the last partial) and 64, Cout = 8, 20, 48 and 64 (partial channel
+    # groups), batch 2; the pool (8-fp32) at odd extents; the head (11-fp32)
+    # at V % 8 != 0, an unaligned view, classes 3, 4 and 8, 2 x 67^3 voxels
+    for x, cout in ((randn(2, 3, 5, 7, 37, dtype=f32), 8), (randn(1, 40, 3, 9, 20, dtype=f32), 20),
+                    (unaligned(2, 16, 4, 8, 16, dtype=f32), 48),
+                    (randn(1, 64, 5, 9, 33, dtype=f32), 64), (randn(1, 1, 3, 9, 16, dtype=f32), 16)):
+        edges.append(("conv3x3x3_cf_relu_f32",
+                      (x, randn(3, 3, 3, x.shape[1], cout, scale=(2 / (27 * x.shape[1])) ** 0.5,
+                                dtype=f32), randn(cout, scale=0.1, dtype=f32))))
+    edges.append(("max_pool2x_cf_f32", (randn(2, 3, 5, 7, 9, dtype=f32),)))
+    for x, co in ((randn(2, 5, 3, 5, 7, dtype=f32), 3), (unaligned(2, 40, 2, 4, 8, dtype=f32), 4),
+                  (randn(2, 16, 67, 67, 67, dtype=f32), 4), (randn(1, 64, 3, 3, 3, dtype=f32), 8)):
+        cf = x.shape[1]
+        edges.append(("head1x1_cf_f32", (x, randn(co, cf, scale=cf ** -0.5, dtype=f32).t(),
+                                         randn(co, scale=0.1, dtype=f32))))
     for name, args in edges:
         kern, plain, *_, tol, _, _ = plan[name]
         label = f"{name} edge input {tuple(args[0].shape)}"
@@ -915,13 +1075,18 @@ def phase_kernels() -> dict:
             label += f", Cout {args[1].shape[4]}"
         elif name == "head1x1_cf_dx":
             label += f", Cf {args[1].shape[0]}"
-        elif name in ("head1x1_cf", "head1x1_cf_dw"):
+        elif name in ("head1x1_cf", "head1x1_cf_dw", "head1x1_cf_f32"):
             label += f", classes {args[1].shape[1]}"
+        elif name == "conv3x3x3_cf_relu_f32":
+            label += f", Cout {args[1].shape[4]}"
         if any(a.data_ptr() % 16 for a in args[:2]):
             label += ", unaligned"
         err, rel, ok, _ = _errors(label, kern, plain, [args], tol)
         print(f"[kernel] {label}: scaled err {rel:.4g} {'ok' if ok else 'FAIL'}", flush=True)
         fail_unless(ok, f"{label}: error {err} over tolerance")
+
+    _pool_nan_checks(plan["max_pool2x_cf_f32"][3])
+    _tf32_control(plan["conv3x3x3_cf_relu_f32"][3])
 
     # the kernels that sum across blocks sum per-block partials in a fixed
     # order, and the others sum in a fixed order within a thread: the same
@@ -1054,7 +1219,7 @@ def _check_eval_results(exp: Path, model_name: str, n_cases: int, size: int) -> 
 
 
 def _run_eval_cli(pth: str, data: Path, exp: Path, model_name: str, n_cases: int,
-                  size: int) -> dict:
+                  size: int, precision: str = "bf16") -> dict:
     """The eval CLI on the GPU; checks per-forward launches and artifacts."""
     import torch
 
@@ -1063,16 +1228,17 @@ def _run_eval_cli(pth: str, data: Path, exp: Path, model_name: str, n_cases: int
 
     args = test_model.build_parser().parse_args([
         "--model_path", pth, "--data_root", str(data), "--experiment_dir", str(exp),
-        "--model_name", model_name, "--no_visualizations",
+        "--model_name", model_name, "--no_visualizations", "--precision", precision,
     ])
+    per_forward = PER_FORWARD if precision == "bf16" else PER_FP32_FORWARD
     ops.reset_launch_counts()
     test_model.main(args)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     n_forwards = 1 + n_cases  # the untimed warm-up, then one per case (batch 1)
-    print(f"[eval] launches over {n_forwards} forwards: {counts}", flush=True)
+    print(f"[eval] {precision}: launches over {n_forwards} forwards: {counts}", flush=True)
     for name, n in counts.items():
-        want = PER_FORWARD.get(name, 0) * n_forwards
+        want = per_forward.get(name, 0) * n_forwards
         fail_unless(n == want, f"{name}: {n} launches, want {want} over {n_forwards} forwards")
     per_volume = _check_eval_results(exp, model_name, n_cases, size)
     print(f"[eval] per-volume inference (host clock, H2D + forward + argmax + metrics + D2H) "
@@ -1149,6 +1315,103 @@ def phase_parity() -> None:
           f"error {err:.4g} (<= {PARITY_LOGIT_TOL}), argmax agreement {agree:.6f} "
           f"(>= {PARITY_ARGMAX_MIN}) {'ok' if ok else 'FAIL'}", flush=True)
     fail_unless(ok, "slice parity over tolerance")
+
+
+# fp32 eval parity: the GPU's fp32 forward against the CPU's, 64^3, full
+# width. Both compute in fp32 (cuDNN's TF32 off in the deep region and the
+# upconvs); they differ by the sums' order, about 1e-6 of a conv's value,
+# grown through 22 convs. A TF32 pass anywhere would put about 1e-3 there.
+F32_PARITY_TOL = 1e-4         # max |gpu - cpu| / max |cpu|
+F32_PARITY_ARGMAX_MIN = 0.999  # share of voxels with the same class
+
+
+def _library_calls(model, x) -> dict:
+    """The library convs and transpose convs one forward of ``model`` calls."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.models import unet3d
+
+    counts = dict.fromkeys(LIBRARY_PER_FP32_FORWARD, 0)
+    real = unet3d.F
+
+    class Counting:
+        def __getattr__(self, name):
+            fn = getattr(real, name)
+            if name not in counts:
+                return fn
+
+            def call(*args, **kwargs):
+                counts[name] += 1
+                return fn(*args, **kwargs)
+            return call
+
+    unet3d.F = Counting()
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        unet3d.F = real
+    return counts
+
+
+def phase_fp32_eval(n_cases: int = 2, size: int = 192) -> dict:
+    """The eval CLI with --precision fp32 on phase 4's cases and model, the
+    fp32 forward's library calls, its parity with the CPU at 64^3, and its
+    time and peak beside bf16's. It runs with cuDNN's flags at PyTorch's
+    defaults (TF32 allowed), as a user's process has them: the fp32
+    forward must turn TF32 off itself."""
+    import torch
+
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
+                     allow_tf32=True):
+        counts = _run_eval_cli(str(SCRATCH / "unet3d_seed0.pth"), SCRATCH / "eval_data",
+                               SCRATCH / "eval_fp32_exp", "smoke_fp32", n_cases, size,
+                               precision="fp32")
+        model32 = make_model(torch.float32).cuda()
+        model16 = make_model(torch.bfloat16).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        xs = [torch.rand(1, 1, size, size, size, generator=gen, device="cuda")
+              for _ in range(N_TIMED)]
+        lib = _library_calls(model32, xs[0])
+        print(f"[fp32] library calls per fp32 eval forward: {lib}", flush=True)
+        fail_unless(lib == LIBRARY_PER_FP32_FORWARD,
+                    f"library calls {lib}, want {LIBRARY_PER_FP32_FORWARD}")
+
+        x, _ = _parity_case(SEED + 100, PARITY_SIZE)
+        with torch.inference_mode():
+            want = make_model(torch.float32)(x)
+            got = model32(x.cuda()).cpu()
+        fail_unless(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                    f"fp32 logits {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        agree = (got.argmax(1) == want.argmax(1)).float().mean().item()
+        ok = err <= F32_PARITY_TOL and agree >= F32_PARITY_ARGMAX_MIN
+        print(f"[fp32] parity {PARITY_SIZE}^3 full width, GPU fp32 kernels vs CPU fp32 plain: "
+              f"scaled max logit error {err:.4g} (<= {F32_PARITY_TOL:g}), argmax agreement "
+              f"{agree:.6f} (>= {F32_PARITY_ARGMAX_MIN}) {'ok' if ok else 'FAIL'}", flush=True)
+        fail_unless(ok, "fp32 eval parity over tolerance")
+
+        times, peaks = {}, {}
+        with torch.inference_mode():
+            for label, model in (("fp32", model32), ("bf16", model16)):
+                times[label] = _time_ms(lambda v, m=model: m(v), [(v,) for v in xs])
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                model(xs[0])
+                torch.cuda.synchronize()
+                peaks[label] = torch.cuda.max_memory_allocated() / 2**30
+            case, _ = _parity_case(SEED + 500, size)
+            case = case.cuda()
+            pred32, pred16 = model32(case).argmax(1), model16(case).argmax(1)
+            share = (pred32 == pred16).float().mean().item()
+        print(f"[fp32] UNet3D eval forward at {size}^3, batch 1: fp32 median {times['fp32']:.3f} "
+              f"ms, bf16 {times['bf16']:.3f} ms (CUDA events, {N_TIMED} distinct inputs) | peak "
+              f"allocated fp32 {peaks['fp32']:.2f} GiB, bf16 {peaks['bf16']:.2f} GiB | fp32 and "
+              f"bf16 predictions agree on {share:.6f} of a synthetic {size}^3 CT case's voxels",
+              flush=True)
+    fail_unless(not cudnn.allow_tf32, "cuDNN's TF32 left on after the fp32 phase")
+    return counts
 
 
 TRAIN_SPLITS = {"train": 2, "val": 1, "test": 1}
@@ -1286,8 +1549,11 @@ def phase_train(size: int = 192) -> dict:
     print("[train] epochs (loss, dice): " + "; ".join(
         f"{r['epoch']}: train {float(r['train_loss']):.4f}/{float(r['train_dice']):.4f} "
         f"val {float(r['val_loss']):.4f}/{float(r['val_dice']):.4f}" for r in rows), flush=True)
-    best = exp / "smoke_train" / "checkpoints" / "best_model_smoke_train.pth"
-    fail_unless(best.exists(), f"no best checkpoint at {best}")
+    ckpts = sorted(p.name for p in (exp / "smoke_train" / "checkpoints").iterdir())
+    want_ckpts = ["best_model_smoke_train.msgpack", "best_model_smoke_train.msgpack.json"]
+    print(f"[train] checkpoints: {ckpts}", flush=True)
+    fail_unless(ckpts == want_ckpts, f"checkpoints {ckpts}, want the JAX CLI's {want_ckpts}")
+    best = exp / "smoke_train" / "checkpoints" / "best_model_smoke_train.msgpack"
     _run_eval_cli(str(best), data, SCRATCH / "train_eval_exp", "smoke_trained",
                   TRAIN_SPLITS["test"], size)
 
@@ -1441,6 +1707,21 @@ def _time_step(label: str, step, batch, per_step: dict, size: int) -> None:
     _profile_steps(step, [batch(300 + i) for i in range(N_STEPS_PROFILED)])
 
 
+PHASE6_BEST = (SCRATCH / "train_exp" / "smoke_train" / "checkpoints"
+               / "best_model_smoke_train.msgpack")
+
+
+def _model_state(path: Path) -> dict:
+    """The state dict of a default-width UNet3D loaded from a checkpoint."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.engine.checkpoint import load_params_any
+
+    model = make_model(torch.float32)
+    load_params_any(model, str(path))
+    return model.state_dict()
+
+
 def phase_workloads(size: int = 192) -> None:
     """Fine-tune, distillation and DANN through the port's orchestrator at
     full width, from phase 6's data and best checkpoint (the pretrained
@@ -1448,6 +1729,7 @@ def phase_workloads(size: int = 192) -> None:
     distillation and DANN steps alone, and one DANN step against the CPU."""
     import torch
 
+    from multimodal_segmentation_project_tpu_torch.engine import checkpoint as ckpt
     from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
     from multimodal_segmentation_project_tpu_torch.engine.steps import (
         make_dann_step,
@@ -1460,16 +1742,16 @@ def phase_workloads(size: int = 192) -> None:
     )
 
     data = SCRATCH / "train_data"  # phase 6's: 2 train, 1 val, 1 test CT cases
-    best = SCRATCH / "train_exp" / "smoke_train" / "checkpoints" / "best_model_smoke_train.pth"
+    best = PHASE6_BEST
     steps, evals = TRAIN_SPLITS["train"], TRAIN_SPLITS["val"]
 
     run = _run_workload(
         "finetune", ["--pretrained_model", str(best), "--data_root", str(data), "--lr", "1e-4",
                      "--modalities", "ct", "--n_samples", "5", "--freeze_encoder", *RECIPE],
         steps, PER_STEP, evals, "finetune_log.csv", ("train_loss", "val_loss", "val_dice"))
-    (tuned,) = (run / "checkpoints").glob("best_finetuned_model_*.pth")
-    before = torch.load(best, weights_only=True)["model_state_dict"]
-    after = torch.load(tuned, weights_only=True)["model_state_dict"]
+    (tuned,) = (run / "checkpoints").glob("best_finetuned_model_*.msgpack")
+    fail_unless(Path(f"{tuned}.json").exists(), f"no sidecar beside {tuned.name}")
+    before, after = _model_state(best), _model_state(tuned)
     names = [n for n, _ in make_model(torch.float32).named_parameters()]
     frozen = [n for n in names if n.startswith(("encoder.", "bottleneck."))]
     changed = [n for n in frozen if not torch.equal(before[n], after[n])]
@@ -1486,7 +1768,8 @@ def phase_workloads(size: int = 192) -> None:
                     "--n_samples", "5", *RECIPE],
         steps, PER_DISTILL_STEP, evals, "distill_log.csv", ("train_loss", "val_loss", "val_dice"))
     ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
-    fail_unless(ckpts == [f"best_student_{run.name}.pth"], f"distill checkpoints {ckpts}")
+    want_ckpts = [f"best_student_{run.name}.msgpack", f"best_student_{run.name}.msgpack.json"]
+    fail_unless(ckpts == want_ckpts, f"distill checkpoints {ckpts}, want {want_ckpts}")
 
     dann_data = SCRATCH / "dann_data"
     for i, (split, (modality, n)) in enumerate(DANN_SPLITS.items()):
@@ -1499,9 +1782,10 @@ def phase_workloads(size: int = 192) -> None:
                  "--loss", "ce_tversky", "--pretrained_model", str(best), *RECIPE],
         min(n_src, n_tgt), PER_DANN_STEP, DANN_SPLITS["val"][1], "train_log.csv",
         ("train_loss", "task_loss", "domain_loss", "val_loss", "val_dice"))
-    (dann_best,) = (run / "checkpoints").glob("best_model_*.pth")
-    saved = torch.load(dann_best, weights_only=True)
-    fail_unless("discriminator_state_dict" in saved, "no discriminator in the DANN checkpoint")
+    (dann_best,) = (run / "checkpoints").glob("best_model_*.msgpack")
+    saved = ckpt.load_checkpoint(str(dann_best))
+    fail_unless({"disc_params", "disc_opt_state"} <= set(saved),
+                "no discriminator in the DANN checkpoint")
     _run_eval_cli(str(dann_best), data, SCRATCH / "dann_eval_exp", "smoke_dann",
                   TRAIN_SPLITS["test"], size)
 
@@ -1757,15 +2041,16 @@ def _train_cfg(name: str, epochs: int, resume=None, dann: bool = False):
         early_stopping=True, patience=10, precision="bf16", resume=resume, device="cuda")
 
 
-def _format_check() -> Path:
-    """Phase 6's trained state in the JAX layout, written and read back."""
+def _format_check() -> tuple:
+    """Phase 6's trained state in the JAX layout, written and read back;
+    returns its path and that of the same weights as a ``.pth`` train
+    checkpoint, which the trainer writes for that suffix."""
     import numpy as np
 
     from multimodal_segmentation_project_tpu_torch.engine import checkpoint as ckpt
     from multimodal_segmentation_project_tpu_torch.engine import msgpack_codec
 
-    best = SCRATCH / "train_exp" / "smoke_train" / "checkpoints" / "best_model_smoke_train.pth"
-    trainer = _phase6_trainer(str(best))
+    trainer = _phase6_trainer(str(PHASE6_BEST))
     fail_unless(trainer.state.grad_accum_steps == 2, "phase 6 accumulates over 2 steps")
     extra = {"epoch": np.asarray(trainer.start_epoch, np.int32),
              "best_val_dice": np.asarray(trainer.best_val_dice, np.float32)}
@@ -1794,7 +2079,9 @@ def _format_check() -> Path:
           f"{diff or 'none'}", flush=True)
     fail_unless(not diff, f"the .msgpack round trip changed {diff}")
     fail_unless(msgpack_codec.packb(back) == payload, "re-encoding the read tree changed bytes")
-    return path
+    pth = SCRATCH / "best_model_smoke_train.pth"
+    trainer.save_checkpoint(str(pth), trainer.start_epoch - 1, {}, {})
+    return path, pth
 
 
 def _iter_leaves(tree):
@@ -1805,7 +2092,7 @@ def _iter_leaves(tree):
         yield tree
 
 
-def _serve_checks(msgpack_path: Path, size: int) -> None:
+def _serve_checks(msgpack_path: Path, pth: Path, size: int) -> None:
     """The eval CLI on the .msgpack against the .pth of the same weights, and
     the distillation teacher and the fine-tune's pretrained model from it."""
     import csv
@@ -1817,7 +2104,9 @@ def _serve_checks(msgpack_path: Path, size: int) -> None:
     data = SCRATCH / "train_data"
     _run_eval_cli(str(msgpack_path), data, SCRATCH / "msgpack_eval_exp", "smoke_msgpack",
                   TRAIN_SPLITS["test"], size)
-    (pth_dir,) = (SCRATCH / "train_eval_exp").glob("test_results_smoke_trained_*")
+    _run_eval_cli(str(pth), data, SCRATCH / "pth_eval_exp", "smoke_pth", TRAIN_SPLITS["test"],
+                  size)
+    (pth_dir,) = (SCRATCH / "pth_eval_exp").glob("test_results_smoke_pth_*")
     (mp_dir,) = (SCRATCH / "msgpack_eval_exp").glob("test_results_smoke_msgpack_*")
     rows = []
     for d in (pth_dir, mp_dir):
@@ -2097,8 +2386,8 @@ def phase_checkpoints(size: int = 192) -> None:
     """Phase 9: the JAX package's .msgpack checkpoints and the resampling
     stage, at 192^3 and full width, bf16."""
     t0 = time.perf_counter()
-    path = _format_check()
-    _serve_checks(path, size)
+    path, pth = _format_check()
+    _serve_checks(path, pth, size)
     _resume_checks()
     _resample_checks(path)
     print(f"[phase9] checkpoints and preprocessing in {time.perf_counter() - t0:.1f} s",
@@ -2133,6 +2422,7 @@ def main() -> int:
         kernels = phase_kernels()
         phase_slice()
         phase_parity()
+        f32_launches = phase_fp32_eval()
         launches = phase_train()
         phase_workloads()
         phase_train_parity()
@@ -2147,7 +2437,9 @@ def main() -> int:
     import torch
 
     # launches: the count of each kernel over the train CLI's run (its
-    # train steps and its validation forwards), this slice's main path
+    # train steps and its validation forwards); of the fp32 instances, over
+    # the fp32 eval CLI's run, this slice's main path
+    launches = {**launches, **{k: f32_launches[k] for k in F32_KERNELS}}
     report = {"kernels": [
         {"name": kname, "route": "cuda", "source": KERNEL_INFO[kname][0],
          "replaces": KERNEL_INFO[kname][1], "launches": launches[kname],

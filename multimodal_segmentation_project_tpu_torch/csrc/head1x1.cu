@@ -5,7 +5,10 @@
 // Replaces: multimodal_segmentation_project_tpu/ops/head.py _head_kernel:
 //   * the forward of head1x1_cf: bf16 features (B, Cin, D, H, W) in, fp32
 //     logits out[o] = bias[o] + sum_i x[i] * w[o, i], Co = the classes (at
-//     most 8; the model has 4): head1x1_kernel, mmseg_head1x1;
+//     most 8; the model has 4): head1x1_kernel<bf16, CO>, mmseg_head1x1;
+//     and its fp32 instance, fp32 features in (the JAX package's fp32
+//     policy, whose head kernel reads x's dtype): head1x1_kernel<float,
+//     CO>, mmseg_head1x1_f32;
 //   * the dx of its backward (_head_bwd_rule): the logits' fp32 cotangent
 //     ct (B, NC, D, H, W) in, NC = the classes, and the features' dtype
 //     out, dx[f] = bf16(sum_c w[c, f] * ct[c]) for f < Cf (16 on the main
@@ -21,9 +24,10 @@
 //
 // Forward design: one thread per 8 consecutive voxels of one batch
 // element. It walks the Cin channel planes FWD_UNROLL at a time, one
-// 16-byte load (8 bf16) per plane, so FWD_UNROLL loads are in flight a
-// thread (neighbouring threads read neighbouring 16 bytes: a warp reads
-// 512 contiguous bytes per plane). Per channel one 16-byte broadcast read
+// 16-byte load (8 bf16; two 16-byte loads of 8 fp32) per plane, so
+// FWD_UNROLL planes' loads are in flight a thread (neighbouring threads
+// read neighbouring 16 bytes: a warp reads 512 contiguous bytes per plane,
+// 1 KB in fp32). Per channel one 16-byte broadcast read
 // (two where Co > 4) of its Co weights from a [Cin][Co rounded up to 4]
 // shared table, zero past Co, and 8 * Co FMAs into Co x 8 fp32
 // accumulators; the sum starts at the bias and adds the channels in order
@@ -56,7 +60,8 @@
 // its kernel): the tail and an unaligned view stay in the kernels.
 //
 // What bounds them on an H100: device-memory bandwidth. At 192^3 the forward
-// (Cin = 16, Co = 4) reads 226 MB and writes 113 MB for 64 FMAs per voxel;
+// (Cin = 16, Co = 4) reads 226 MB (fp32: 453 MB) and writes 113 MB for 64
+// FMAs per voxel;
 // the dx (NC = 4, Cf = 16) reads 113 MB and writes 226 MB; the weight
 // gradient reads both, 339 MB, for 68 FMAs and adds per voxel: each 0.101
 // ms at 3.35 TB/s.
@@ -115,6 +120,30 @@ __device__ __forceinline__ void load8_f32(const float* p, int n, float v[VOX]) {
   }
 }
 
+// 8 voxels of one feature plane as loaded, and as fp32 values: the forward
+// keeps FWD_UNROLL planes of these in flight before it converts them.
+template <typename T>
+struct Vox8;
+
+template <>
+struct Vox8<bf16> {
+  uint4 q;
+  template <bool VEC>
+  __device__ __forceinline__ void load(const bf16* p, int n) { q = load8_bf16<VEC>(p, n); }
+  __device__ __forceinline__ void unpack(float v[VOX]) const { unpack8_bf16(q, v); }
+};
+
+template <>
+struct Vox8<float> {
+  float f[VOX];
+  template <bool VEC>
+  __device__ __forceinline__ void load(const float* p, int n) { load8_f32<VEC>(p, n, f); }
+  __device__ __forceinline__ void unpack(float v[VOX]) const {
+#pragma unroll
+    for (int j = 0; j < VOX; ++j) v[j] = f[j];
+  }
+};
+
 // The group gi of 8 voxels: its batch element, first voxel and voxel count.
 struct Group {
   long long b, v0;
@@ -131,8 +160,9 @@ __device__ __forceinline__ Group group_of(long long gi, long long V) {
 }
 
 // One channel plane of the forward: acc[o][j] += x[j] * w[o] for o < CO.
-template <int CO>
-__device__ __forceinline__ void fwd_channel(float (&acc)[CO][VOX], uint4 q, const float4* wrow) {
+template <typename T, int CO>
+__device__ __forceinline__ void fwd_channel(float (&acc)[CO][VOX], const Vox8<T>& q,
+                                            const float4* wrow) {
   constexpr int COP = (CO + 3) / 4 * 4;
   float wv[COP];
 #pragma unroll
@@ -141,7 +171,7 @@ __device__ __forceinline__ void fwd_channel(float (&acc)[CO][VOX], uint4 q, cons
     wv[4 * k] = t.x, wv[4 * k + 1] = t.y, wv[4 * k + 2] = t.z, wv[4 * k + 3] = t.w;
   }
   float xv[VOX];
-  unpack8_bf16(q, xv);
+  q.unpack(xv);
 #pragma unroll
   for (int o = 0; o < CO; ++o)
 #pragma unroll
@@ -149,26 +179,31 @@ __device__ __forceinline__ void fwd_channel(float (&acc)[CO][VOX], uint4 q, cons
 }
 
 // The forward's sums of one group, onto the bias: the Cin channels in order.
-template <int CO, bool VEC>
-__device__ __forceinline__ void fwd_group(float (&acc)[CO][VOX], const bf16* xp,
+template <typename T, int CO, bool VEC>
+__device__ __forceinline__ void fwd_group(float (&acc)[CO][VOX], const T* xp,
                                           const float4* sw4, int Cin, long long V, int n) {
   constexpr int COP = (CO + 3) / 4 * 4;
   int i = 0;
   for (; i + FWD_UNROLL <= Cin; i += FWD_UNROLL) {
-    uint4 q[FWD_UNROLL];
+    Vox8<T> q[FWD_UNROLL];
 #pragma unroll
-    for (int u = 0; u < FWD_UNROLL; ++u) q[u] = load8_bf16<VEC>(xp + size_t(i + u) * V, n);
+    for (int u = 0; u < FWD_UNROLL; ++u) q[u].template load<VEC>(xp + size_t(i + u) * V, n);
 #pragma unroll
-    for (int u = 0; u < FWD_UNROLL; ++u) fwd_channel<CO>(acc, q[u], sw4 + (i + u) * (COP / 4));
+    for (int u = 0; u < FWD_UNROLL; ++u)
+      fwd_channel<T, CO>(acc, q[u], sw4 + (i + u) * (COP / 4));
   }
-  for (; i < Cin; ++i)
-    fwd_channel<CO>(acc, load8_bf16<VEC>(xp + size_t(i) * V, n), sw4 + i * (COP / 4));
+  for (; i < Cin; ++i) {
+    Vox8<T> q;
+    q.template load<VEC>(xp + size_t(i) * V, n);
+    fwd_channel<T, CO>(acc, q, sw4 + i * (COP / 4));
+  }
 }
 
-// CO classes; COP = CO rounded up to 4, the pitch of a channel's weights.
-template <int CO>
+// T the features' type, CO classes; COP = CO rounded up to 4, the pitch of
+// a channel's weights.
+template <typename T, int CO>
 __global__ void __launch_bounds__(THREADS)
-head1x1_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+head1x1_kernel(const T* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ bias, float* __restrict__ out, int Cin, long long V,
                long long groups, bool vec) {
   constexpr int COP = (CO + 3) / 4 * 4;
@@ -183,7 +218,7 @@ head1x1_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
   const long long gi = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (gi >= groups) return;
   const Group g = group_of(gi, V);
-  const bf16* xp = x + size_t(g.b) * Cin * V + g.v0;
+  const T* xp = x + size_t(g.b) * Cin * V + g.v0;
 
   float acc[CO][VOX];
 #pragma unroll
@@ -191,9 +226,9 @@ head1x1_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < VOX; ++j) acc[o][j] = bias[o];
   if (vec)
-    fwd_group<CO, true>(acc, xp, sw4, Cin, V, g.n);
+    fwd_group<T, CO, true>(acc, xp, sw4, Cin, V, g.n);
   else
-    fwd_group<CO, false>(acc, xp, sw4, Cin, V, g.n);
+    fwd_group<T, CO, false>(acc, xp, sw4, Cin, V, g.n);
 
   float* op = out + size_t(g.b) * CO * V + g.v0;
 #pragma unroll
@@ -210,18 +245,41 @@ head1x1_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <int CO>
+// The forward's launch: blocks of THREADS groups, the [Cin][COP] weight
+// table as dynamic shared memory. Where the wrapper gives its descriptor
+// (blocks >= 0: the fp32 entry), it must be this one, or the launch is
+// refused with cudaErrorInvalidConfiguration.
+template <typename T, int CO>
 int launch_fwd(const void* x, const void* w, const void* bias, void* out, int B, int Cin,
-               long long V, cudaStream_t stream) {
+               long long V, long long blocks, int threads, int smem_given, cudaStream_t stream) {
   constexpr int COP = (CO + 3) / 4 * 4;
   const size_t smem = size_t(Cin) * COP * sizeof(float);
   if (smem > 48 * 1024) return int(cudaErrorInvalidValue);
   const long long groups = B * ((V + VOX - 1) / VOX);
+  const long long nblk = (groups + THREADS - 1) / THREADS;
+  if (blocks >= 0 && (blocks != nblk || threads != THREADS || size_t(smem_given) != smem))
+    return int(cudaErrorInvalidConfiguration);
   const bool vec = V % VOX == 0 && aligned16(x) && aligned16(out);
-  head1x1_kernel<CO><<<unsigned((groups + THREADS - 1) / THREADS), THREADS, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(w), static_cast<const float*>(bias),
+  head1x1_kernel<T, CO><<<unsigned(nblk), THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const float*>(bias),
       static_cast<float*>(out), Cin, V, groups, vec);
   return int(cudaGetLastError());
+}
+
+template <typename T>
+int forward(const void* x, const void* w, const void* bias, void* out, int B, int Cin, int Co,
+            long long V, long long blocks, int threads, int smem, cudaStream_t s) {
+  switch (Co) {
+    case 1: return launch_fwd<T, 1>(x, w, bias, out, B, Cin, V, blocks, threads, smem, s);
+    case 2: return launch_fwd<T, 2>(x, w, bias, out, B, Cin, V, blocks, threads, smem, s);
+    case 3: return launch_fwd<T, 3>(x, w, bias, out, B, Cin, V, blocks, threads, smem, s);
+    case 4: return launch_fwd<T, 4>(x, w, bias, out, B, Cin, V, blocks, threads, smem, s);
+    case 5: return launch_fwd<T, 5>(x, w, bias, out, B, Cin, V, blocks, threads, smem, s);
+    case 6: return launch_fwd<T, 6>(x, w, bias, out, B, Cin, V, blocks, threads, smem, s);
+    case 7: return launch_fwd<T, 7>(x, w, bias, out, B, Cin, V, blocks, threads, smem, s);
+    case 8: return launch_fwd<T, 8>(x, w, bias, out, B, Cin, V, blocks, threads, smem, s);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -425,18 +483,19 @@ MMSEG_API int mmseg_head1x1(const void* x, const void* w, const void* bias, void
                             int Cin, int Co, long long V, void* stream) {
   if (Cin < 1) return int(cudaErrorInvalidValue);
   if (V == 0 || B == 0) return int(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (Co) {
-    case 1: return launch_fwd<1>(x, w, bias, out, B, Cin, V, s);
-    case 2: return launch_fwd<2>(x, w, bias, out, B, Cin, V, s);
-    case 3: return launch_fwd<3>(x, w, bias, out, B, Cin, V, s);
-    case 4: return launch_fwd<4>(x, w, bias, out, B, Cin, V, s);
-    case 5: return launch_fwd<5>(x, w, bias, out, B, Cin, V, s);
-    case 6: return launch_fwd<6>(x, w, bias, out, B, Cin, V, s);
-    case 7: return launch_fwd<7>(x, w, bias, out, B, Cin, V, s);
-    case 8: return launch_fwd<8>(x, w, bias, out, B, Cin, V, s);
-    default: return int(cudaErrorInvalidValue);
-  }
+  return forward<bf16>(x, w, bias, out, B, Cin, Co, V, -1, 0, 0,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The same from fp32 features x (B, Cin, V); blocks, threads and smem as
+// ops/head.py:f32_launch_dims computes them.
+MMSEG_API int mmseg_head1x1_f32(const void* x, const void* w, const void* bias, void* out,
+                                int B, int Cin, int Co, long long V, long long blocks,
+                                int threads, int smem, void* stream) {
+  if (Cin < 1 || blocks < 0) return int(cudaErrorInvalidValue);
+  if (V == 0 || B == 0) return int(cudaSuccess);
+  return forward<float>(x, w, bias, out, B, Cin, Co, V, blocks, threads, smem,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // dx (B, Cf, V) bf16 from ct (B, NC, V) fp32 and w (NC, Cf) fp32; NC 1..8,

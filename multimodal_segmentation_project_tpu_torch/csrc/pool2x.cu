@@ -1,9 +1,12 @@
-// 2x2x2 stride-2 max pool on channel-first bf16 volumes, floor semantics for
-// odd extents (the trailing plane, row or column is dropped, as torch
-// MaxPool3d and the JAX reshape+max chain do), and its backward.
+// 2x2x2 stride-2 max pool on channel-first bf16 and fp32 volumes, floor
+// semantics for odd extents (the trailing plane, row or column is dropped,
+// as torch MaxPool3d and the JAX reshape+max chain do), and its backward
+// (bf16).
 //
 // Replaces: multimodal_segmentation_project_tpu/ops/pool.py
-//   * _fwd_pool_kernel (public op max_pool2x_cf, forward): pool2x_kernel;
+//   * _fwd_pool_kernel (public op max_pool2x_cf, forward): pool2x_kernel<T>,
+//     bf16 (mmseg_pool2x) and fp32 (mmseg_pool2x_f32: the JAX package's
+//     fp32 policy, whose pool kernel runs in x's dtype);
 //   * _bwd_kernel (its custom-VJP backward): pool2x_bwd_kernel,
 //       dx[v] = g[v/2] * [x[v] == y[v/2]] / count(v/2),
 //     equal shares to the window's tied maxima (JAX's convention, not
@@ -13,8 +16,8 @@
 // Design: one thread per output voxel reads its 8 inputs and writes their
 // maximum; neighbouring threads take neighbouring output columns, so a warp
 // reads two contiguous 64-byte runs per input row and writes one 64-byte
-// run. A max selects one of its inputs, so the result is exact. NaN wins,
-// as with jnp.maximum.
+// run (128 in fp32). A max selects one of its inputs, so the result is
+// exact in either type. NaN wins, as with jnp.maximum.
 //
 // The backward uses one thread per pooled voxel too: it reads y and g once
 // and its 8 inputs, and writes their 8 gradients. The wrapper zero-fills dx
@@ -32,14 +35,19 @@ namespace {
 
 constexpr int THREADS = 256;
 
-__device__ __forceinline__ bf16 nan_max(bf16 m, bf16 v) {
-  const float fm = __bfloat162float(m), fv = __bfloat162float(v);
+__device__ __forceinline__ float as_float(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float as_float(float v) { return v; }
+
+template <typename T>
+__device__ __forceinline__ T nan_max(T m, T v) {
+  const float fm = as_float(m), fv = as_float(v);
   return (fv > fm || fv != fv) ? v : m;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-pool2x_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, long long BC, int D, int H,
-              int W, int Do, int Ho, int Wo) {
+pool2x_kernel(const T* __restrict__ x, T* __restrict__ y, long long BC, int D, int H, int W,
+              int Do, int Ho, int Wo) {
   const long long n = BC * Do * Ho * Wo;
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
@@ -50,8 +58,8 @@ pool2x_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, long long BC, in
   const int dd = int(t % Do);
   const long long bc = t / Do;
   const size_t plane = size_t(H) * W;
-  const bf16* p = x + (size_t(bc) * D + 2 * dd) * plane + size_t(2 * ho) * W + 2 * wo;
-  bf16 m = p[0];
+  const T* p = x + (size_t(bc) * D + 2 * dd) * plane + size_t(2 * ho) * W + 2 * wo;
+  T m = p[0];
   m = nan_max(m, p[1]);
   m = nan_max(m, p[W]);
   m = nan_max(m, p[W + 1]);
@@ -100,8 +108,24 @@ MMSEG_API int mmseg_pool2x(const void* x, void* y, int B, int C, int D, int H, i
   const long long n = (long long)B * C * Do * Ho * Wo;
   if (n == 0) return int(cudaSuccess);
   const unsigned blocks = unsigned((n + THREADS - 1) / THREADS);
-  pool2x_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  pool2x_kernel<bf16><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<bf16*>(y), (long long)B * C, D, H, W, Do, Ho,
+      Wo);
+  return int(cudaGetLastError());
+}
+
+// The fp32 forward, with the wrapper's descriptor (ops/pool.py:f32_launch_dims:
+// one thread per pooled voxel, THREADS a block) checked against the
+// kernel's own: another gets cudaErrorInvalidConfiguration and nothing runs.
+MMSEG_API int mmseg_pool2x_f32(const void* x, void* y, int B, int C, int D, int H, int W,
+                               int blocks, int threads, void* stream) {
+  const int Do = D / 2, Ho = H / 2, Wo = W / 2;
+  const long long n = (long long)B * C * Do * Ho * Wo;
+  if (threads != THREADS || (long long)blocks != (n + THREADS - 1) / THREADS)
+    return int(cudaErrorInvalidConfiguration);
+  if (n == 0) return int(cudaSuccess);
+  pool2x_kernel<float><<<unsigned(blocks), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(y), (long long)B * C, D, H, W, Do, Ho,
       Wo);
   return int(cudaGetLastError());
 }

@@ -1,14 +1,15 @@
 """Checkpoints in two formats.
 
 * ``.pth`` in the reference layout: a dict whose ``model_state_dict`` holds
-  the model's state dict; the port's train CLIs write these.
+  the model's state dict (``Trainer.save_checkpoint`` writes a train
+  checkpoint in this layout for a ``.pth`` path).
 * The JAX package's ``.msgpack`` (``multimodal_segmentation_project_tpu/
   engine/checkpoint.py``): one flax-serialized tree and a JSON sidecar
   ``<path>.json`` with the scalar metadata. :func:`save_checkpoint`,
   :func:`load_checkpoint`, :func:`load_metadata` and
   :func:`state_checkpoint_tree` are its counterparts, on the port's own
   codec (``engine/msgpack_codec.py``), so the port reads and writes the
-  files without flax.
+  files without flax. The train CLIs write these, under the JAX CLIs' names.
 
 :func:`load_params_any` initialises a model from either, by suffix, with
 the JAX package's strict and non-strict semantics.

@@ -21,9 +21,12 @@ The loop semantics are the JAX package's:
 * freeze ``freeze_prefixes`` at the start, or at epoch N and unfreeze at
   N + 1, each with a fresh optimizer;
 * a checkpoint every ``checkpoint_every`` epochs and a best-by-val-Dice
-  checkpoint, as reference-layout ``.pth`` files (``engine/checkpoint.py``);
-  :meth:`Trainer.save_checkpoint` writes the JAX package's ``.msgpack``
-  layout instead for a path with that suffix;
+  checkpoint under the JAX package's names and layout,
+  ``{ckpt_prefix}_epoch{N}_{name}.msgpack`` and
+  ``{best_prefix}_{name}.msgpack``, each with its JSON sidecar
+  (``engine/checkpoint.py``), so that the JAX package resumes and serves
+  them; :meth:`Trainer.save_checkpoint` writes a reference-layout ``.pth``
+  instead for a path with that suffix;
 * early stopping on val-Dice patience, and true resume (model, optimizer,
   scheduler, train state, epoch; DANN: the discriminator's too) from the
   port's ``.pth`` or from a JAX ``.msgpack`` train checkpoint and its JSON
@@ -399,14 +402,14 @@ class Trainer:
             log_device_usage(self.device_log, self.device, tag=f"epoch={epoch + 1}")
 
             if (epoch + 1) % cfg.checkpoint_every == 0:
-                name = f"{cfg.ckpt_prefix}_epoch{epoch + 1}_{cfg.experiment_name}.pth"
+                name = f"{cfg.ckpt_prefix}_epoch{epoch + 1}_{cfg.experiment_name}.msgpack"
                 self.save_checkpoint(os.path.join(self.paths.checkpoints, name), epoch,
                                      train_metrics, val_metrics)
 
             if val_metrics.get("dice", -1.0) > self.best_val_dice:
                 self.best_val_dice = val_metrics["dice"]
                 patience_counter = 0
-                name = f"{cfg.best_prefix}_{cfg.experiment_name}.pth"
+                name = f"{cfg.best_prefix}_{cfg.experiment_name}.msgpack"
                 self.save_checkpoint(os.path.join(self.paths.checkpoints, name), epoch,
                                      train_metrics, val_metrics)
             elif cfg.early_stopping:

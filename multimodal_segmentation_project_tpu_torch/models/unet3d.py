@@ -6,27 +6,35 @@ The submodules carry the reference state-dict keys
 (``encoder.{i}.double_conv.{0,1,4,5}``, ``bottleneck``, ``upconvs.{i}``,
 ``decoder.{i}``, ``final_conv``), so a reference ``.pth`` loads with
 ``load_state_dict(strict=True)`` and ``engine.interop`` carries weights to
-and from the JAX package. Every op is routed by channel width alone:
+and from the JAX package. Every op is routed by channel width, and the
+upconv by its dtype too, as the JAX package routes them:
 
 * a 3x3x3 conv with Cin, Cout <= 64 -> ``ops.conv3`` (eval:
-  ``conv3x3x3_cf_relu``, BN folded; train: ``conv3x3x3_cf``, whose
-  backward runs the dx and dW kernels), and in train mode a DoubleConv
-  whose two convs both are -> ``ops.conv3_fused`` (the fused block);
+  ``conv3x3x3_cf_relu``, BN folded, in bf16 or fp32 (``conv3.eval_route``);
+  train: ``conv3x3x3_cf``, whose backward runs the dx and dW kernels), and
+  in train mode a DoubleConv whose two convs both are -> ``ops.conv3_fused``
+  (the fused block);
 * every pool, at every width -> ``ops.pool.max_pool2x_cf`` (forward and
-  backward kernels);
-* an upconv with Cout <= 64 -> ``ops.upconv.upconv2x_cf``;
-* the 1x1x1 head -> ``ops.head.head1x1_cf`` (its backward runs the dx kernel);
+  backward kernels; the forward in bf16 or fp32);
+* an upconv with Cout <= 64 -> ``ops.upconv.upconv2x_cf`` in bf16
+  (``upconv.runs_op``); on the GPU in fp32 every upconv is the library's
+  transpose conv, as the JAX package sends every non-bf16 upconv to an XLA
+  einsum (on the CPU the op's plain version is that einsum);
+* the 1x1x1 head -> ``ops.head.head1x1_cf`` (bf16 or fp32 features; its
+  backward runs the dx kernel);
 * everything wider is the deep region (enc3, the bottleneck, dec0 and
   dec1's 128->64 conv at the default widths), which runs as the library's
   conv and transpose conv in the working dtype, as the JAX package runs it
-  as XLA.
+  as XLA. In an fp32 forward the library runs in full fp32
+  (:func:`library_precision`: cuDNN's TF32 is off).
 
 Eval forward (``model.eval()``): each BatchNorm is folded per channel into
 its conv's weights and bias, in fp32, as the JAX package folds at
 ``unet3d.py:427-440``; in the deep region too (flax applies it unfolded
 there; in fp32 that moves the logits by rounding only). At 192^3 and
 default widths this is 11 conv, 4 pool, 3 upconv and 1 head kernel launch
-per forward on a GPU.
+per forward on a GPU in bf16; in fp32, 11 fp32 conv, 4 fp32 pool and 1 fp32
+head launches, 7 library convs and 4 library transpose convs.
 
 Train-mode forward (``model.train()``): the JAX package's training
 DoubleConv as it runs on its chip. A block whose two convs both have Cin,
@@ -52,11 +60,13 @@ pool forward, 4 pool backward, 3 upconv, 1 head, 1 head-dx and 1
 head-weight-gradient kernel on a GPU.
 
 On the CPU the same ops run their plain versions. ``dtype`` is the compute
-dtype (bf16 on the GPU, fp32 in the CPU tests); parameters stay fp32.
+dtype (bf16, or fp32: on the GPU in eval only so far, since the fp32
+instances of the training kernels are not ported yet); parameters stay fp32.
 """
 
 from __future__ import annotations
 
+import contextlib
 from collections.abc import Sequence
 
 import torch
@@ -67,6 +77,25 @@ from multimodal_segmentation_project_tpu_torch.ops import conv3, conv3_fused, he
 
 
 FLAX_MOMENTUM = 0.9  # weight of the old value in the running statistics
+
+
+@contextlib.contextmanager
+def library_precision(dtype: torch.dtype):
+    """cuDNN in full fp32 around an fp32 forward's library calls (the deep
+    region's convs, the fp32 upconvs): a float32 convolution goes through
+    TF32 by default (``torch.backends.cudnn.allow_tf32`` is True), which
+    errs by about 1e-3. The other cuDNN flags keep their values, and outside
+    the forward nothing changes (a bf16 path, the DANN discriminator). A
+    float32 matmul is full fp32 by default
+    (``torch.backends.cuda.matmul.allow_tf32`` is False), and the port
+    keeps it so."""
+    if dtype != torch.float32:
+        yield
+        return
+    c = torch.backends.cudnn
+    with c.flags(enabled=c.enabled, benchmark=c.benchmark, deterministic=c.deterministic,
+                 allow_tf32=False):
+        yield
 
 
 def _update_running(bn: nn.BatchNorm3d, mean: torch.Tensor, var: torch.Tensor) -> None:
@@ -164,7 +193,7 @@ class DoubleConv(nn.Module):
     def forward_eval(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         for w, b in self.folded():
             x = x.to(dtype)
-            if conv3.supported(w.shape[3], w.shape[4]):
+            if conv3.eval_route(dtype, w.shape[3], w.shape[4]) is not None:
                 x = conv3.conv3x3x3_cf_relu(x, w, b)
             else:  # deep region
                 wt = w.permute(4, 3, 0, 1, 2).to(dtype)
@@ -281,6 +310,11 @@ class UNet3D(nn.Module):
         """Logits (and the bottleneck's global-average feature vector with
         ``return_features``). In train mode ``generator`` draws the
         Dropout3d masks."""
+        with library_precision(self.dtype):
+            return self._forward(x, return_features, generator)
+
+    def _forward(self, x: torch.Tensor, return_features: bool,
+                 generator: torch.Generator | None):
         dt = self.dtype
         # the kernels take contiguous NCDHW; NIfTI volumes decode Fortran-ordered
         x = x.to(dt).contiguous()
@@ -294,9 +328,9 @@ class UNet3D(nn.Module):
 
         for up, dec, skip in zip(self.upconvs, self.decoder, reversed(skips)):
             k = up.weight.permute(2, 3, 4, 0, 1)  # (Cin, Cout, 2,2,2) -> (2,2,2,Cin,Cout)
-            if upconv.supported(k.shape[4]):
+            if upconv.runs_op(x, k.shape[4]):
                 x = upconv.upconv2x_cf(x, k, up.bias)
-            else:  # deep region
+            else:  # deep region, and every fp32 upconv on the card
                 x = F.conv_transpose3d(x, up.weight.to(dt), up.bias.to(dt), stride=2)
             if x.shape[2:] != skip.shape[2:]:
                 # shape guard for odd input sizes, trilinear as jax.image.resize

@@ -3,13 +3,15 @@ CUDA tensors and runs its plain PyTorch version on CPU tensors; each counts
 its kernel launches in a ``launches`` attribute. The differentiable ops
 (the training conv, the fused DoubleConv's convs, the pool, the upconv and
 the head) count their forward launches on themselves and their backward
-kernels on the wrappers named here."""
+kernels on the wrappers named here; the eval conv, the pool and the head
+count their fp32 instances on the ``*_f32`` wrappers."""
 
 from multimodal_segmentation_project_tpu_torch.ops.conv3 import (
     conv3x3x3_cf,
     conv3x3x3_cf_dw,
     conv3x3x3_cf_dx,
     conv3x3x3_cf_relu,
+    conv3x3x3_cf_relu_f32,
 )
 from multimodal_segmentation_project_tpu_torch.ops.conv3_fused import (
     conv3x3x3_cf_boundary,
@@ -22,8 +24,13 @@ from multimodal_segmentation_project_tpu_torch.ops.head import (
     head1x1_cf,
     head1x1_cf_dw,
     head1x1_cf_dx,
+    head1x1_cf_f32,
 )
-from multimodal_segmentation_project_tpu_torch.ops.pool import max_pool2x_cf, max_pool2x_cf_bwd
+from multimodal_segmentation_project_tpu_torch.ops.pool import (
+    max_pool2x_cf,
+    max_pool2x_cf_bwd,
+    max_pool2x_cf_f32,
+)
 from multimodal_segmentation_project_tpu_torch.ops.upconv import upconv2x_cf
 
 KERNEL_OPS = {
@@ -42,6 +49,10 @@ KERNEL_OPS = {
     "head1x1_cf": head1x1_cf,
     "head1x1_cf_dx": head1x1_cf_dx,
     "head1x1_cf_dw": head1x1_cf_dw,
+    # the fp32 instances of 7, 8 and 11 (the eval forward under the fp32 policy)
+    "conv3x3x3_cf_relu_f32": conv3x3x3_cf_relu_f32,
+    "max_pool2x_cf_f32": max_pool2x_cf_f32,
+    "head1x1_cf_f32": head1x1_cf_f32,
 }
 
 

@@ -46,6 +46,8 @@ _I = ctypes.c_int
 # name -> argtypes of every C entry point (restype is int: a cudaError_t)
 _SIGNATURES = {
     "mmseg_conv3_bias_relu": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "mmseg_conv3_f32_bias_relu": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _P),
     "mmseg_conv3": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "mmseg_conv3_prologue": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "mmseg_conv3_stats": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -54,14 +56,18 @@ _SIGNATURES = {
     "mmseg_conv3_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "mmseg_conv3_dw_prologue": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "mmseg_pool2x": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "mmseg_pool2x_f32": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "mmseg_pool2x_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mmseg_upconv_d2s": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "mmseg_head1x1": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P),
+    "mmseg_head1x1_f32": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong, _I,
+                          _I, _P),
     "mmseg_head1x1_dx": (_P, _P, _P, _I, _I, _I, ctypes.c_longlong, _P),
     "mmseg_head1x1_dw": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I, _P),
 }
 # name -> argtypes of the C functions that launch nothing (restype int)
-_QUERIES = {"mmseg_conv3_smem_bytes": (_I, _I), "mmseg_conv3_dw_smem_bytes": (_I,),
+_QUERIES = {"mmseg_conv3_smem_bytes": (_I, _I), "mmseg_conv3_f32_smem_bytes": (_I, _I),
+            "mmseg_conv3_dw_smem_bytes": (_I,),
             "mmseg_upconv_smem_bytes": (_I,)}
 
 _lock = threading.Lock()

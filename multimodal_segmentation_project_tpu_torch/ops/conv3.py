@@ -6,7 +6,8 @@ Port of ``multimodal_segmentation_project_tpu/ops/pallas_conv.py``:
 * :func:`conv3x3x3_cf_relu` -- ``conv3x3x3_cf_relu``, the eval forward's
   conv (BatchNorm already folded into ``w``/``b`` by the caller). Rounding:
   the weights are cast to the working dtype, products and sums are fp32,
-  the fp32 bias is added, ReLU, one cast back.
+  the fp32 bias is added, ReLU, one cast back. In bf16 or in fp32, as the
+  JAX package runs it under either policy.
 * :func:`conv3x3x3_cf` -- ``conv3x3x3_cf``, the training conv, as an
   autograd Function. Forward: the conv's one cast to the working dtype,
   then the bias added in the working dtype. Backward, as
@@ -16,11 +17,13 @@ Port of ``multimodal_segmentation_project_tpu/ops/pallas_conv.py``:
   weight gradient (:func:`conv3x3x3_cf_dw`), db a plain fp32 sum.
 
 On CUDA tensors each launches its hand-written kernel: ``csrc/conv3.cu``
-(one implicit-GEMM body; the eval conv's bias+ReLU epilogue and the
-training conv's cast-then-bias epilogue, also used for dx) and
-``csrc/conv3_dw.cu``. The fused DoubleConv's convs, on the same kernels,
-are in ``ops.conv3_fused``. On CPU tensors each runs its ``*_reference``, the
-plain version of the same arithmetic. Each wrapper counts its launches.
+(one implicit-GEMM body on bf16; the eval conv's bias+ReLU epilogue and the
+training conv's cast-then-bias epilogue, also used for dx),
+``csrc/conv3_f32.cu`` (the fp32 body: the eval conv on an fp32 x, counted
+on :func:`conv3x3x3_cf_relu_f32`) and ``csrc/conv3_dw.cu``. The fused
+DoubleConv's convs, on the same kernels, are in ``ops.conv3_fused``. On CPU
+tensors each runs its ``*_reference``, the plain version of the same
+arithmetic. Each wrapper counts its launches.
 """
 
 from __future__ import annotations
@@ -37,6 +40,14 @@ MAX_CHANNELS = 64  # the kernels' channel cap (supported_conv in the JAX package
 def supported(cin: int, cout: int) -> bool:
     """Convs the model routes to the kernels; wider ones are the deep region."""
     return cin <= MAX_CHANNELS and cout <= MAX_CHANNELS
+
+
+def eval_route(dtype: torch.dtype, cin: int, cout: int) -> str | None:
+    """The C entry point an eval conv of (dtype, Cin, Cout) launches on the
+    card, or None where the model calls the library (the deep region)."""
+    if not supported(cin, cout):
+        return None
+    return "mmseg_conv3_f32_bias_relu" if dtype == torch.float32 else "mmseg_conv3_bias_relu"
 
 
 # ---- plain versions ---------------------------------------------------
@@ -101,9 +112,10 @@ def pack_weights(w: torch.Tensor) -> torch.Tensor:
     return out.copy_(w27.reshape(27, cin_p // 16, 16, cout_p).permute(1, 0, 3, 2))
 
 
-def _check_conv(name: str, x: torch.Tensor, w: torch.Tensor) -> int:
-    """Raise unless the kernel takes (x, w); return Cout."""
-    _build.require(name, x, torch.bfloat16, 5)
+def _check_conv(name: str, x: torch.Tensor, w: torch.Tensor,
+                dtype: torch.dtype = torch.bfloat16) -> int:
+    """Raise unless the kernel takes (x, w), x of ``dtype``; return Cout."""
+    _build.require(name, x, dtype, 5)
     cin = x.shape[1]
     if w.dim() != 5 or tuple(w.shape[:4]) != (3, 3, 3, cin):
         raise ValueError(f"{name}: weights {tuple(w.shape)} do not match Cin={cin}")
@@ -113,18 +125,20 @@ def _check_conv(name: str, x: torch.Tensor, w: torch.Tensor) -> int:
     return cout
 
 
-def conv_operands(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None):
-    """Checks for a conv kernel on (x, w, b); the packed weights, the fp32
-    bias (None without one) and the bf16 output (B, Cout, D, H, W)."""
-    cout = _check_conv(name, x, w)
+def conv_operands(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+                  dtype: torch.dtype = torch.bfloat16):
+    """Checks for a conv kernel on (x, w, b), x of ``dtype``; the packed
+    weights (for the bf16 body or the fp32 one), the fp32 bias (None without
+    one) and the output (B, Cout, D, H, W) in ``dtype``."""
+    cout = _check_conv(name, x, w, dtype)
     bk = None
     if b is not None:
         if tuple(b.shape) != (cout,):
             raise ValueError(f"{name}: bias {tuple(b.shape)} does not match Cout={cout}")
         bk = b.to(x.device, torch.float32).contiguous()
-    wk = pack_weights(w.to(x.device))
-    out = torch.empty((x.shape[0], cout) + tuple(x.shape[2:]), dtype=torch.bfloat16,
-                      device=x.device)
+    pack = pack_weights_f32 if dtype == torch.float32 else pack_weights
+    wk = pack(w.to(x.device))
+    out = torch.empty((x.shape[0], cout) + tuple(x.shape[2:]), dtype=dtype, device=x.device)
     return wk, bk, out
 
 
@@ -153,11 +167,72 @@ def dx_call(g: torch.Tensor, w: torch.Tensor) -> Launch:
 
 
 def conv3x3x3_cf_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """relu(conv3d(x, w) + b) in x's dtype; bf16 only on CUDA."""
+    """relu(conv3d(x, w) + b) in x's dtype; on CUDA bf16 here, fp32 through
+    :func:`conv3x3x3_cf_relu_f32`."""
     if x.device.type == "cpu":
         return conv3x3x3_cf_relu_reference(x, w, b)
+    if x.dtype == torch.float32:
+        return conv3x3x3_cf_relu_f32(x, w, b)
     out = run("conv3x3x3_cf_relu", relu_call(x, w, b), x)
     conv3x3x3_cf_relu.launches += 1
+    return out
+
+
+# ---- the fp32 body (csrc/conv3_f32.cu) ------------------------------------
+
+F32_TILE = (4, 8, 16)  # TD, TH, TW: a block's output tile
+F32_CK = 8             # input channels per chunk of the K loop
+F32_PITCH = 20         # floats per staged input row
+F32_THREADS = 256
+
+
+def pack_weights_f32(w: torch.Tensor) -> torch.Tensor:
+    """(3, 3, 3, Cin, Cout) -> fp32 (ceil(Cin/8), 8, 27, Cout16), zero-padded:
+    one [channel][tap][cout] slab per chunk of F32_CK input channels, the
+    fp32 body's shared-memory image (Cout16 is Cout rounded up to 16). One
+    permuting copy; a pad first only where Cin is not a multiple of 8 or
+    Cout of 16."""
+    cin, cout = w.shape[3], w.shape[4]
+    cin_p, cout_p = -(-cin // F32_CK) * F32_CK, -(-cout // 16) * 16
+    w27 = w.reshape(27, cin, cout).float()
+    if (cin_p, cout_p) != (cin, cout):
+        w27 = F.pad(w27, (0, cout_p - cout, 0, cin_p - cin))
+    out = torch.empty((cin_p // F32_CK, F32_CK, 27, cout_p), dtype=torch.float32,
+                      device=w.device)
+    return out.copy_(w27.reshape(27, cin_p // F32_CK, F32_CK, cout_p).permute(1, 2, 0, 3))
+
+
+def f32_launch_dims(shape: tuple, cout: int) -> tuple:
+    """(grid x, grid y, grid z, threads, dynamic shared memory in bytes) of
+    the fp32 body on x of ``shape`` (B, Cin, D, H, W): a block per output
+    tile, its ring's stages (two where there is more than one chunk) each an
+    input tile of (TD + 2) (TH + 2) staged rows of F32_PITCH floats per
+    channel and a weight slab of 27 Cout16 floats per channel."""
+    bsz, cin, d, h, w = shape
+    td, th, tw = F32_TILE
+    stage = F32_CK * ((td + 2) * (th + 2) * F32_PITCH + 27 * (-(-cout // 16) * 16))
+    stages = 2 if cin > F32_CK else 1
+    return -(-w // tw) * -(-h // th), -(-d // td), bsz, F32_THREADS, stages * stage * 4
+
+
+def relu_f32_call(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> Launch:
+    """Kernel 7's fp32 call on CUDA tensors: relu(conv3d(x, w) + b) of an
+    fp32 x (B, Cin, D, H, W), w (3, 3, 3, Cin, Cout), b (Cout,) -> fp32
+    (B, Cout, D, H, W). The weights are packed in fp32 once per call."""
+    wk, bk, out = conv_operands("conv3x3x3_cf_relu_f32", x, w, b, torch.float32)
+    cout = out.shape[1]
+    args = (x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
+            cout, *x.shape[2:], *f32_launch_dims(tuple(x.shape), cout))
+    return Launch("mmseg_conv3_f32_bias_relu", args, out, (x, wk, bk, out))
+
+
+def conv3x3x3_cf_relu_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Kernel 7's fp32 instance: relu(conv3d(x, w) + b) of an fp32 x, in
+    fp32; the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return conv3x3x3_cf_relu_reference(x, w, b)
+    out = run("conv3x3x3_cf_relu_f32", relu_f32_call(x, w, b), x)
+    conv3x3x3_cf_relu_f32.launches += 1
     return out
 
 
@@ -230,6 +305,7 @@ def conv3x3x3_cf_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 conv3x3x3_cf_relu.launches = 0
+conv3x3x3_cf_relu_f32.launches = 0
 conv3x3x3_cf_dx.launches = 0
 conv3x3x3_cf_dw.launches = 0
 

@@ -10,14 +10,17 @@ over batch and volume (:func:`head1x1_cf_dw`), plain XLA in the JAX
 package and a kernel of the port's own here.
 
 On CUDA tensors the forward launches ``csrc/head1x1.cu:mmseg_head1x1``
-(bf16 features in, fp32 logits out), dx ``mmseg_head1x1_dx`` (fp32
+(bf16 features in, fp32 logits out) or, for fp32 features,
+``mmseg_head1x1_f32`` (counted on :func:`head1x1_cf_f32`), dx ``mmseg_head1x1_dx`` (fp32
 cotangent in, bf16 out, no bias) and the weight gradient
 ``mmseg_head1x1_dw`` (bf16 features and fp32 cotangent in, fp32 dkernel
 and dbias out); on CPU tensors they run :func:`head1x1_cf_reference`,
 :func:`head1x1_cf_dx_reference` and :func:`head1x1_cf_dw_reference`.
-:func:`head_call`, :func:`dx_call` and :func:`dw_call` build each launch
-with its operands and outputs ready, for the wrappers and for a bare
-timing.
+:func:`head_call`, :func:`head_f32_call`, :func:`dx_call` and
+:func:`dw_call` build each launch with its operands and outputs ready, for
+the wrappers and for a bare timing. The backward's kernels take bf16
+features, so off the CPU an fp32 head that needs a gradient is refused:
+their fp32 instances are not ported yet.
 """
 
 from __future__ import annotations
@@ -46,13 +49,16 @@ def head1x1_cf_dx_reference(ct: torch.Tensor, kernel: torch.Tensor,
     return torch.einsum("bodhw,io->bidhw", ct.float(), kernel.float()).to(dtype)
 
 
-def head_call(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> Launch:
-    """Kernel 11's call on CUDA tensors: fp32 logits (B, Co, D, H, W) from
-    bf16 features x (B, Cin, D, H, W), kernel (Cin, Co) and bias (Co,).
-    The kernel reads the weights as (Co, Cin) fp32: kernel.t(), a view of
-    the model's (classes, Cin) parameter, so no copy where it already is one."""
-    name = "head1x1_cf"
-    _build.require(name, x, torch.bfloat16, 5)
+def route(dtype: torch.dtype) -> str:
+    """The C entry point of a forward head on features of ``dtype`` on the card."""
+    return "mmseg_head1x1_f32" if dtype == torch.float32 else "mmseg_head1x1"
+
+
+def _head_operands(name: str, x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                   dtype: torch.dtype):
+    """Checks for a forward kernel on features x of ``dtype``; the weights
+    as (Co, Cin) fp32, the fp32 bias and the fp32 logits."""
+    _build.require(name, x, dtype, 5)
     b, cin, d, h, w = x.shape
     if kernel.dim() != 2 or kernel.shape[0] != cin:
         raise ValueError(f"{name}: kernel {tuple(kernel.shape)} does not match Cin={cin}")
@@ -67,8 +73,38 @@ def head_call(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> Laun
     wk = kernel.t().to(x.device, torch.float32).contiguous()
     bk = bias.to(x.device, torch.float32).contiguous()
     out = torch.empty((b, co, d, h, w), dtype=torch.float32, device=x.device)
+    return wk, bk, out
+
+
+def head_call(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> Launch:
+    """Kernel 11's call on CUDA tensors: fp32 logits (B, Co, D, H, W) from
+    bf16 features x (B, Cin, D, H, W), kernel (Cin, Co) and bias (Co,).
+    The kernel reads the weights as (Co, Cin) fp32: kernel.t(), a view of
+    the model's (classes, Cin) parameter, so no copy where it already is one."""
+    wk, bk, out = _head_operands("head1x1_cf", x, kernel, bias, torch.bfloat16)
+    b, cin, d, h, w = x.shape
     return Launch("mmseg_head1x1", (x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),
-                                    b, cin, co, d * h * w), out, (x, wk, bk, out))
+                                    b, cin, out.shape[1], d * h * w), out, (x, wk, bk, out))
+
+
+def f32_launch_dims(shape: tuple, co: int) -> tuple:
+    """(blocks, threads, dynamic shared memory in bytes) of the forward
+    kernel on features of ``shape`` (B, Cin, D, H, W): a thread per 8
+    voxels of one batch element, the [Cin][Co rounded up to 4] fp32 weight
+    table."""
+    b, cin, d, h, w = shape
+    groups = b * -(-(d * h * w) // 8)
+    return -(-groups // HEAD_THREADS), HEAD_THREADS, cin * -(-co // 4) * 4 * 4
+
+
+def head_f32_call(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> Launch:
+    """Kernel 11's fp32 call on CUDA tensors: fp32 logits from fp32
+    features x (B, Cin, D, H, W), kernel (Cin, Co) and bias (Co,)."""
+    wk, bk, out = _head_operands("head1x1_cf_f32", x, kernel, bias, torch.float32)
+    b, cin, d, h, w = x.shape
+    args = (x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), b, cin, out.shape[1],
+            d * h * w, *f32_launch_dims(tuple(x.shape), out.shape[1]))
+    return Launch("mmseg_head1x1_f32", args, out, (x, wk, bk, out))
 
 
 def dx_call(ct: torch.Tensor, kernel: torch.Tensor) -> Launch:
@@ -128,11 +164,24 @@ def dw_call(x: torch.Tensor, ct: torch.Tensor) -> Launch:
 
 
 def _head_fwd(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """The forward without autograd; its launches count on head1x1_cf."""
+    """The forward without autograd; its bf16 launches count on head1x1_cf,
+    its fp32 ones on head1x1_cf_f32."""
     if x.device.type == "cpu":
         return head1x1_cf_reference(x, kernel, bias)
+    if x.dtype == torch.float32:
+        return head1x1_cf_f32(x, kernel, bias)
     out = run("head1x1_cf", head_call(x, kernel, bias), x)
     head1x1_cf.launches += 1
+    return out
+
+
+def head1x1_cf_f32(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Kernel 11's fp32 instance, forward only: fp32 logits from fp32
+    features; the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return head1x1_cf_reference(x, kernel, bias)
+    out = run("head1x1_cf_f32", head_f32_call(x, kernel, bias), x)
+    head1x1_cf_f32.launches += 1
     return out
 
 
@@ -183,10 +232,16 @@ class _Head(torch.autograd.Function):
 
 def head1x1_cf(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """x (B, Cin, D, H, W), kernel (Cin, Co), bias (Co,) -> fp32 (B, Co, D, H, W),
-    differentiable; bf16 features only on CUDA."""
+    differentiable; on CUDA bf16 features, or fp32 ones without a gradient."""
+    if (x.device.type != "cpu" and x.dtype == torch.float32 and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x, kernel, bias))):
+        raise TypeError("head1x1_cf: an fp32 head that needs a gradient needs the fp32 "
+                        "instances of the head's dx and weight-gradient kernels, which are not "
+                        "ported yet")
     return _Head.apply(x, kernel, bias)
 
 
 head1x1_cf.launches = 0  # forward kernel launches
+head1x1_cf_f32.launches = 0
 head1x1_cf_dx.launches = 0
 head1x1_cf_dw.launches = 0

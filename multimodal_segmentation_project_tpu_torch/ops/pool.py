@@ -10,10 +10,13 @@ whole gradient to the first match):
 computed in fp32 with one cast, as the TPU kernel computes it. Odd extents
 use floor semantics; the dropped tail gets a zero gradient.
 
-On CUDA tensors the forward launches ``csrc/pool2x.cu:pool2x_kernel`` and
-the backward ``pool2x_bwd_kernel``, at every channel count and shape; on
-CPU tensors they run :func:`max_pool2x_cf_reference` and
-:func:`max_pool2x_cf_bwd_reference`.
+On CUDA tensors the forward launches ``csrc/pool2x.cu:pool2x_kernel``, in
+bf16 or, for an fp32 x, its fp32 instance (counted on
+:func:`max_pool2x_cf_f32`), and the backward ``pool2x_bwd_kernel`` (bf16),
+at every channel count and shape; on CPU tensors they run
+:func:`max_pool2x_cf_reference` and :func:`max_pool2x_cf_bwd_reference`. An
+fp32 pool that needs a gradient is refused off the CPU: the fp32 instance
+of the backward kernel is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +25,13 @@ import torch
 
 from multimodal_segmentation_project_tpu_torch.ops import _build
 from multimodal_segmentation_project_tpu_torch.ops._build import Launch, run
+
+POOL_THREADS = 256  # csrc/pool2x.cu THREADS: pooled voxels per block
+
+
+def route(dtype: torch.dtype) -> str:
+    """The C entry point of a forward pool of ``dtype`` on the card."""
+    return "mmseg_pool2x_f32" if dtype == torch.float32 else "mmseg_pool2x"
 
 
 def _windows(x: torch.Tensor) -> torch.Tensor:
@@ -57,6 +67,23 @@ def pool_call(x: torch.Tensor) -> Launch:
     return Launch("mmseg_pool2x", (x.data_ptr(), out.data_ptr(), b, c, d, h, w), out, (x, out))
 
 
+def f32_launch_dims(shape: tuple) -> tuple:
+    """(blocks, threads) of the fp32 forward on x of ``shape``: one thread
+    per pooled voxel."""
+    b, c, d, h, w = shape
+    return -(-(b * c * (d // 2) * (h // 2) * (w // 2)) // POOL_THREADS), POOL_THREADS
+
+
+def pool_f32_call(x: torch.Tensor) -> Launch:
+    """Kernel 8's fp32 call on CUDA tensors: fp32 x (B, C, D, H, W) -> (B,
+    C, D//2, H//2, W//2)."""
+    _build.require("max_pool2x_cf_f32", x, torch.float32, 5)
+    b, c, d, h, w = x.shape
+    out = torch.empty((b, c, d // 2, h // 2, w // 2), dtype=x.dtype, device=x.device)
+    return Launch("mmseg_pool2x_f32", (x.data_ptr(), out.data_ptr(), b, c, d, h, w,
+                                       *f32_launch_dims(tuple(x.shape))), out, (x, out))
+
+
 def bwd_call(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> Launch:
     """Kernel 9's call on CUDA tensors: dx (B, C, D, H, W) from the input
     x, the pooled y and its cotangent g, all bf16."""
@@ -74,11 +101,24 @@ def bwd_call(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> Launch:
 
 
 def _pool_fwd(x: torch.Tensor) -> torch.Tensor:
-    """The forward without autograd; its launches count on max_pool2x_cf."""
+    """The forward without autograd; its bf16 launches count on
+    max_pool2x_cf, its fp32 ones on max_pool2x_cf_f32."""
     if x.device.type == "cpu":
         return max_pool2x_cf_reference(x)
+    if x.dtype == torch.float32:
+        return max_pool2x_cf_f32(x)
     out = run("max_pool2x_cf", pool_call(x), x)
     max_pool2x_cf.launches += 1
+    return out
+
+
+def max_pool2x_cf_f32(x: torch.Tensor) -> torch.Tensor:
+    """Kernel 8's fp32 instance, forward only: the 2x2x2 max pool of an
+    fp32 x; the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return max_pool2x_cf_reference(x)
+    out = run("max_pool2x_cf_f32", pool_f32_call(x), x)
+    max_pool2x_cf_f32.launches += 1
     return out
 
 
@@ -107,9 +147,14 @@ class _MaxPool2x(torch.autograd.Function):
 
 def max_pool2x_cf(x: torch.Tensor) -> torch.Tensor:
     """Differentiable 2x2x2 stride-2 max pool, (B, C, D, H, W) -> (B, C,
-    D//2, H//2, W//2); bf16 only on CUDA."""
+    D//2, H//2, W//2); on CUDA bf16, or fp32 without a gradient."""
+    if (x.device.type != "cpu" and x.dtype == torch.float32 and torch.is_grad_enabled()
+            and x.requires_grad):
+        raise TypeError("max_pool2x_cf: an fp32 pool that needs a gradient needs the fp32 "
+                        "instance of the pool-backward kernel, which is not ported yet")
     return _MaxPool2x.apply(x)
 
 
 max_pool2x_cf.launches = 0  # forward kernel launches
+max_pool2x_cf_f32.launches = 0
 max_pool2x_cf_bwd.launches = 0

@@ -31,6 +31,25 @@ def supported(cout: int) -> bool:
     return cout <= MAX_OUT_CHANNELS
 
 
+def route(dtype: torch.dtype, cout: int) -> str | None:
+    """The C entry point of a forward upconv of (dtype, Cout) on the card,
+    or None where the model calls the library: an upconv wider than
+    MAX_OUT_CHANNELS (the deep region), and every upconv not in bf16, which
+    the JAX package sends to an XLA einsum (its kernel is bf16-only)."""
+    return "mmseg_upconv_d2s" if dtype == torch.bfloat16 and supported(cout) else None
+
+
+def runs_op(x: torch.Tensor, cout: int) -> bool:
+    """Whether the model's upconv of x (Cout channels out) goes through
+    :func:`upconv2x_cf`, or else through the library's transpose conv: on
+    the card where the kernel takes it (:func:`route`); on the CPU up to
+    MAX_OUT_CHANNELS in any dtype, since there the op runs its plain
+    version, in fp32 the JAX package's own einsum."""
+    if x.device.type == "cpu":
+        return supported(cout)
+    return route(x.dtype, cout) is not None
+
+
 def upconv2x_cf_reference(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Plain version: the per-voxel einsum, then depth-to-space by reshape."""
     b, _, d, h, w = x.shape

@@ -9,10 +9,11 @@ on the KD loss, ``alpha * (CE + Tversky) + (1 - alpha) * T^2 * KL``
 (``ops/losses.py:distillation_loss``, with ``--alpha`` and
 ``--temperature``), with no augmentation and no scheduler. Validation
 scores the student with ``--loss``. Only the best student is saved
-(``best_student_<name>.pth``); the log is ``logs/distill_log.csv``.
+(``best_student_<name>.msgpack`` and its JSON sidecar, as the JAX CLI
+writes it); the log is ``logs/distill_log.csv``.
 
     python -m multimodal_segmentation_project_tpu_torch.workloads.distill_unet \\
-        --teacher_model best_model.pth --data_root data --experiment_dir exp \\
+        --teacher_model best_model.msgpack --data_root data --experiment_dir exp \\
         --batch_size 1 --mixed_precision bf16 --alpha 0.7 --temperature 2.0
 
 It runs on the GPU unless ``--device cpu`` is given (see ``train_unet``).

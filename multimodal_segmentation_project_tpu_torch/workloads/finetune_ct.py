@@ -13,11 +13,12 @@ training as the JAX CLI does:
   AdamW, so they see no step and no weight decay;
 * no augmentation and no LR scheduler; lr 1e-4 by default; modalities
   ``ct``;
-* ``logs/finetune_log.csv``, ``finetune_checkpoint_epoch*_<name>.pth`` and
-  ``best_finetuned_model_<name>.pth``.
+* ``logs/finetune_log.csv``, ``finetune_checkpoint_epoch*_<name>.msgpack``
+  and ``best_finetuned_model_<name>.msgpack``, each with its JSON sidecar,
+  as the JAX CLI writes them.
 
     python -m multimodal_segmentation_project_tpu_torch.workloads.finetune_ct \\
-        --pretrained_model best_model.pth --data_root data --experiment_dir exp \\
+        --pretrained_model best_model.msgpack --data_root data --experiment_dir exp \\
         --batch_size 1 --mixed_precision bf16 --freeze_encoder
 
 It runs on the GPU unless ``--device cpu`` is given (see ``train_unet``).

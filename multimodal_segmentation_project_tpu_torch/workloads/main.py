@@ -9,7 +9,7 @@ default otherwise. ``eval`` runs the port's ``test_model``. ``transfer``
 and ``cyclegan`` are stubs that print, as in the reference.
 
     python -m multimodal_segmentation_project_tpu_torch.workloads.main \\
-        --experiment finetune --pretrained_model best_model.pth \\
+        --experiment finetune --pretrained_model best_model.msgpack \\
         --data_root data --batch_size 1 --mixed_precision bf16 --modalities ct
 
 It runs on the GPU unless ``--device cpu`` is given; asking for the GPU

@@ -11,15 +11,19 @@ the same flags and the same artifacts under
   ``--no_visualizations``.
 
     python -m multimodal_segmentation_project_tpu_torch.workloads.test_model \\
-        --model_path model.pth --data_root data --experiment_dir exp --model_name unet
+        --model_path best_model_unet.msgpack --data_root data --experiment_dir exp --model_name unet
 
 One UNet3D eval forward per batch (batch 1 by default, no sliding window),
 then argmax and the metrics on the device. The model loads strictly from
-a reference-layout ``.pth`` or from a JAX ``.msgpack`` checkpoint. It runs on CUDA; with no GPU it runs on the CPU
-only when asked with ``--device cpu``. On the GPU the kernels of this slice
-take bf16, so ``--precision fp32`` is a CPU option. The first forward is a
-warm-up (kernel build and load included) and is not timed; every timed
-forward is bracketed by ``torch.cuda.synchronize()``.
+a reference-layout ``.pth`` or from a JAX ``.msgpack`` checkpoint (the
+train CLIs of both packages write ``best_model_<name>.msgpack``). It runs
+on CUDA; with no GPU it runs on the CPU only when asked with ``--device
+cpu``. ``--precision`` picks the compute dtype on either device: bf16 (the
+default) or fp32, whose forward on the GPU runs the fp32 instances of the
+conv, pool and head kernels and the library's convs and transpose convs
+with cuDNN's TF32 off, as the JAX package's fp32 policy computes it. The
+first forward is a warm-up (kernel build and load included) and is not
+timed; every timed forward is bracketed by ``torch.cuda.synchronize()``.
 """
 
 from __future__ import annotations
@@ -285,7 +289,7 @@ def test_model(model, device, test_dataset, args, results_dir) -> dict:
 
 
 def main(args) -> dict:
-    device = resolve_device(args.device, args.precision)
+    device = resolve_device(args.device, args.precision, eval_only=True)
     model = UNet3D(
         in_channels=1, out_channels=NUM_CLASSES, features=parse_features(args.features),
         dropout_rate=0.0, dtype=DTYPES[args.precision],

@@ -18,8 +18,9 @@ keeps its initial value), and ``--resume`` takes either format.
 The encoder freezes at ``--freeze_encoder_epoch``; there is no
 augmentation and no scheduler. The step (``engine/steps.py:make_dann_step``)
 keeps the JAX package's double lambda, one backward and two AdamW states.
-The checkpoints hold the UNet3D in the reference layout, which the eval
-CLI loads, and the discriminator's state beside it.
+The checkpoints are the JAX CLI's ``.msgpack`` files and sidecars: the
+UNet3D's train state, which the eval CLI loads, and the discriminator's
+params and optimizer beside it (``disc_params``, ``disc_opt_state``).
 
     python -m multimodal_segmentation_project_tpu_torch.workloads.train_dann \\
         --source_modality mri --target_modality ct --data_root data_dann \\

@@ -4,20 +4,22 @@ Port of ``multimodal_segmentation_project_tpu/workloads/train_unet.py``:
 the same flags and defaults (the reference driver's, plus the JAX
 package's extras) and the same loop (``engine/trainer.py``): on-device
 augmentation, the plateau LR scheduler on val Dice, and the
-``experiments/<name>/{checkpoints,logs,plots}`` layout, with ``.pth``
-checkpoints that the eval CLI (``workloads/test_model.py``) loads.
-``--resume`` takes the port's ``.pth`` or the JAX package's ``.msgpack``.
+``experiments/<name>/{checkpoints,logs,plots}`` layout, with the JAX CLI's
+checkpoints, ``checkpoint_epoch<N>_<name>.msgpack`` and
+``best_model_<name>.msgpack`` and their JSON sidecars, which the eval CLI
+(``workloads/test_model.py``) and the JAX package load. ``--resume`` takes
+such a ``.msgpack`` or a ``.pth`` train checkpoint of the port.
 
     python -m multimodal_segmentation_project_tpu_torch.workloads.train_unet \\
         --data_root data --experiment_dir exp --batch_size 1 --epochs 100 \\
         --mixed_precision bf16 --loss ce_tversky --early_stopping --patience 10
 
 It runs on the GPU unless ``--device cpu`` is given; asking for the GPU
-where there is none raises. On the GPU the kernels take bf16, so
-``--mixed_precision`` must be bf16 (or fp16, which selects bf16 compute);
-``no`` (fp32) runs with ``--device cpu``. The mesh flags take one device
-only (``--n_spatial 1``, ``--n_data`` 1 or unset, no ``--multihost``) until
-the port trains on several GPUs. ``--no_remat`` and ``--no_auto_spatial``
+where there is none raises. The fp32 instances of the training kernels are
+not ported yet, so on the GPU ``--mixed_precision`` must be bf16 (or fp16,
+which selects bf16 compute); ``no`` (fp32) trains with ``--device cpu``.
+The mesh flags take one device only (``--n_spatial 1``, ``--n_data`` 1 or
+unset, no ``--multihost``) until the port trains on several GPUs. ``--no_remat`` and ``--no_auto_spatial``
 are accepted and change nothing here.
 """
 

@@ -21,11 +21,17 @@ against the JAX package and flax, on the CPU at a toy size (features 4, 8;
 * port to JAX: the port writes a checkpoint of its own run, and the JAX
   package's ``load_checkpoint(path, target)`` restores it against its own
   target and the values are the port's;
-* ``--resume`` of a JAX checkpoint in the train and DANN CLIs.
+* ``--resume`` of a JAX checkpoint in the train and DANN CLIs;
+* the port's train CLI writes the JAX train CLI's checkpoint files (the
+  same names, sidecars and trees, two epochs of each CLI on one split),
+  the JAX package's ``Trainer`` resumes the port's epoch-1 checkpoint and
+  trains on, and the port's eval CLI serves the port's best model.
 """
 
 import functools
 import json
+import os
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +41,7 @@ import pytest
 import torch
 from flax import serialization
 
+from multimodal_segmentation_project_tpu.data.dataset import CombinedDataset as JaxDataset
 from multimodal_segmentation_project_tpu.data.pipeline import DataLoader as JaxDataLoader
 from multimodal_segmentation_project_tpu.engine import checkpoint as jax_ckpt
 from multimodal_segmentation_project_tpu.engine.interop import torch_state_dict_to_trees
@@ -46,10 +53,14 @@ from multimodal_segmentation_project_tpu.engine.state import (
     ones_mask,
 )
 from multimodal_segmentation_project_tpu.engine.steps import make_train_step as jax_train_step
+from multimodal_segmentation_project_tpu.engine.trainer import Trainer as JaxTrainer
+from multimodal_segmentation_project_tpu.engine.trainer import TrainerConfig as JaxTrainerConfig
 from multimodal_segmentation_project_tpu.models import DomainDiscriminator as JaxDiscriminator
 from multimodal_segmentation_project_tpu.models import UNet3D as JaxUNet3D
 from multimodal_segmentation_project_tpu.ops.losses import get_loss_fn as jax_loss_fn
+from multimodal_segmentation_project_tpu.workloads import train_unet as jax_train_unet
 from multimodal_segmentation_project_tpu_torch import ops
+from multimodal_segmentation_project_tpu_torch.data import CombinedDataset
 from multimodal_segmentation_project_tpu_torch.data.pipeline import DataLoader
 from multimodal_segmentation_project_tpu_torch.engine import checkpoint as ckpt
 from multimodal_segmentation_project_tpu_torch.engine import msgpack_codec as codec
@@ -69,7 +80,7 @@ from multimodal_segmentation_project_tpu_torch.engine.trainer import (
 )
 from multimodal_segmentation_project_tpu_torch.models import DomainDiscriminator, UNet3D
 from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
-from multimodal_segmentation_project_tpu_torch.workloads import train_dann, train_unet
+from multimodal_segmentation_project_tpu_torch.workloads import test_model, train_dann, train_unet
 from tests.test_torch_workloads import _write_cases
 
 FEATURES = (4, 8)
@@ -450,6 +461,108 @@ def test_the_clis_resume_a_jax_checkpoint(data_root, tmp_path, capsys, cli):
     args.experiment_name = "resumed"
     summary = cli.main(args)
     assert f"[RESUME] from {path} at epoch 1" in capsys.readouterr().out
+    assert summary["epoch"] == 2 and np.isfinite(summary["train"]["loss"])
+
+
+# ---- the CLIs' checkpoint files ---------------------------------------------------------
+
+# one device for the JAX CLI too: the test process's CPU mesh would shard the volume
+CLI_ARGV = ["--features", "4,8", "--mixed_precision", "no", "--batch_size", "1",
+            "--num_workers", "0", "--epochs", "2", "--modalities", "ct", "--dropout_rate", "0.0",
+            "--n_data", "1", "--no_auto_spatial", "--no_remat"]
+
+
+def _layout(tree, path=()):
+    """{path: (shape, dtype)} of every leaf of a checkpoint tree."""
+    if isinstance(tree, dict):
+        return {p: v for k, sub in tree.items() for p, v in _layout(sub, (*path, k)).items()}
+    return {path: (tuple(np.shape(tree)), str(np.asarray(tree).dtype))}
+
+
+@pytest.fixture(scope="module")
+def cli_checkpoints(data_root, tmp_path_factory):
+    """The checkpoint directories of the port's train CLI and of the JAX
+    package's, each run for two epochs on the same CT split with the same
+    flags (the port's on the CPU)."""
+    dirs = []
+    for cli, extra in ((train_unet, ["--device", "cpu"]), (jax_train_unet, [])):
+        exp = tmp_path_factory.mktemp("cli")
+        args = cli.build_parser().parse_args(
+            ["--data_root", str(data_root), "--experiment_dir", str(exp), *CLI_ARGV, *extra])
+        args.experiment_name = "run"
+        cli.main(args)
+        dirs.append(exp / "run" / "checkpoints")
+    return dirs
+
+
+def test_the_train_cli_writes_the_jax_clis_checkpoint_files(cli_checkpoints):
+    """The same file names, the same sidecar keys, and trees with the same
+    leaves (paths, shapes, dtypes)."""
+    port, ref = cli_checkpoints
+    names = sorted(os.listdir(port))
+    assert names == sorted(os.listdir(ref)) == ["best_model_run.msgpack",
+                                                 "best_model_run.msgpack.json"]
+    mine, theirs = (str(d / "best_model_run.msgpack") for d in (port, ref))
+    assert _layout(ckpt.load_checkpoint(mine)) == _layout(ckpt.load_checkpoint(theirs))
+    assert set(ckpt.load_metadata(mine)) == set(ckpt.load_metadata(theirs))
+
+
+def test_the_eval_cli_serves_the_ports_best_model(cli_checkpoints, data_root, tmp_path,
+                                                  monkeypatch):
+    """The port's eval CLI on the port's best_model_*.msgpack: its model is
+    the checkpoint's, its metrics finite."""
+    best = cli_checkpoints[0] / "best_model_run.msgpack"
+    (tmp_path / "data").mkdir()
+    os.symlink(data_root / "val", tmp_path / "data" / "test")
+    loaded = []
+
+    def load(model, path):
+        loaded.append(model)
+        return ckpt.load_params_any(model, path)
+
+    monkeypatch.setattr(test_model, "load_params_any", load)
+    overall = test_model.main(test_model.build_parser().parse_args([
+        "--model_path", str(best), "--data_root", str(tmp_path / "data"), "--experiment_dir",
+        str(tmp_path), "--model_name", "served", "--precision", "fp32", "--features", "4,8",
+        "--device", "cpu", "--no_visualizations", "--modalities", "ct"]))
+    assert np.isfinite(overall["mean_dice_overall"])
+    tree = ckpt.load_checkpoint(str(best))
+    want = _sd(tree["params"], tree["batch_stats"])
+    for name, value in loaded[0].state_dict().items():
+        if "num_batches" not in name:
+            assert torch.equal(value, want[name]), name
+
+
+def test_the_jax_trainer_resumes_the_ports_epoch1_checkpoint(data_root, tmp_path):
+    """A port Trainer checkpointing every epoch writes
+    checkpoint_epoch1_<name>.msgpack and its sidecar; the JAX package's
+    Trainer resumes from it (params, statistics, step, best val Dice, the
+    scheduler) and trains epoch 2."""
+    datasets = [CombinedDataset(str(data_root / split), ["ct"]) for split in ("train", "val")]
+    cfg = TrainerConfig(experiment_dir=str(tmp_path / "port"), experiment_name="run", epochs=1,
+                        lr=LR, weight_decay=WD, dropout_rate=0.0, precision="fp32",
+                        features=FEATURES, num_workers=0, device="cpu", checkpoint_every=1,
+                        use_scheduler=True)
+    port = Trainer(cfg, *datasets)
+    port.run()
+    path = tmp_path / "port" / "run" / "checkpoints" / "checkpoint_epoch1_run.msgpack"
+    assert Path(f"{path}.json").exists()
+
+    jcfg = JaxTrainerConfig(experiment_dir=str(tmp_path / "jax"), experiment_name="resumed",
+                            epochs=2, lr=LR, weight_decay=WD, dropout_rate=0.0, precision="fp32",
+                            features=FEATURES, num_workers=0, checkpoint_every=1,
+                            use_scheduler=True, resume=str(path), verbose=False, n_data=1,
+                            auto_spatial=False)
+    resumed = JaxTrainer(jcfg, *[JaxDataset(str(data_root / s), ["ct"]) for s in ("train", "val")])
+    assert resumed.start_epoch == 1 and int(resumed.state.step) == port.state.step
+    # both trainers write the periodic checkpoint before the epoch's best-model update
+    assert resumed.best_val_dice == float(ckpt.load_checkpoint(str(path))["best_val_dice"])
+    assert resumed.scheduler.state_dict() == port.scheduler.state_dict()
+    got = _sd(resumed.state.params, resumed.state.batch_stats)
+    for name, value in port.state.model.state_dict().items():
+        if "num_batches" not in name:
+            np.testing.assert_array_equal(got[name].numpy(), value.numpy(), err_msg=name)
+    summary = resumed.run()
     assert summary["epoch"] == 2 and np.isfinite(summary["train"]["loss"])
 
 

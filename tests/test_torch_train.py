@@ -46,6 +46,7 @@ from multimodal_segmentation_project_tpu.models.unet3d import DoubleConv as JaxD
 from multimodal_segmentation_project_tpu.ops.losses import get_loss_fn as jax_loss_fn
 from multimodal_segmentation_project_tpu_torch import ops
 from multimodal_segmentation_project_tpu_torch.data import CombinedDataset, save_nifti
+from multimodal_segmentation_project_tpu_torch.engine import checkpoint as ckpt
 from multimodal_segmentation_project_tpu_torch.engine.interop import trees_to_state_dict
 from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
 from multimodal_segmentation_project_tpu_torch.engine.steps import make_train_step
@@ -346,17 +347,22 @@ def test_train_cli_checkpoints_resume_and_eval(data_root, tmp_path, capsys):
     assert all(np.isfinite(float(r[k])) for r in rows for k in ("train_loss", "val_loss"))
     assert (exp / "run" / "config.txt").exists()
     assert (exp / "run" / "logs" / "device_usage.log").exists()
-    best = exp / "run" / "checkpoints" / "best_model_run.pth"
-    assert best.exists()
-    saved = torch.load(best, weights_only=True)
-    assert {"epoch", "model_state_dict", "optimizer_state_dict", "scheduler_state_dict",
-            "train_loss", "val_loss", "train_dice", "val_dice", "encoder_frozen"} <= set(saved)
+    # the JAX CLI's checkpoint: the train state's tree and its JSON sidecar
+    best = exp / "run" / "checkpoints" / "best_model_run.msgpack"
+    assert sorted(os.listdir(best.parent)) == [best.name, f"{best.name}.json"]
+    tree, meta = ckpt.load_checkpoint(str(best)), ckpt.load_metadata(str(best))
+    assert set(tree) == {"best_val_dice", "batch_stats", "epoch", "lr", "opt_state", "params",
+                         "step", "trainable_mask"}
+    assert set(meta) == {"epoch", "train_loss", "val_loss", "train_dice", "val_dice",
+                         "encoder_frozen", "scheduler"}
+    epoch = int(tree["epoch"])
+    assert meta["epoch"] == epoch and meta["scheduler"] is not None
 
-    train_unet.main(_train_args(data_root, exp, "resumed", "--epochs", str(saved["epoch"] + 1),
+    train_unet.main(_train_args(data_root, exp, "resumed", "--epochs", str(epoch + 1),
                                 "--resume", str(best)))
-    assert f"[RESUME] from {best} at epoch {saved['epoch']}" in capsys.readouterr().out
+    assert f"[RESUME] from {best} at epoch {epoch}" in capsys.readouterr().out
     with open(exp / "resumed" / "logs" / "train_log.csv") as f:
-        assert [r["epoch"] for r in csv.DictReader(f)] == [str(saved["epoch"] + 1)]
+        assert [r["epoch"] for r in csv.DictReader(f)] == [str(epoch + 1)]
 
     overall = test_model.main(test_model.build_parser().parse_args([
         "--model_path", str(best), "--data_root", str(data_root), "--experiment_dir", str(exp),

@@ -4,6 +4,7 @@ fp32; ``--device cpu``), on synthetic NIfTI splits in the JAX CLIs'
 layouts, the DANN one's five directories included."""
 
 import csv
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,6 +17,12 @@ from multimodal_segmentation_project_tpu.workloads import main as jax_main
 from multimodal_segmentation_project_tpu.workloads import train_dann as jax_dann
 from multimodal_segmentation_project_tpu_torch import ops
 from multimodal_segmentation_project_tpu_torch.data import CombinedDataset, save_nifti
+from multimodal_segmentation_project_tpu_torch.engine import checkpoint as ckpt
+from multimodal_segmentation_project_tpu_torch.engine import msgpack_codec
+from multimodal_segmentation_project_tpu_torch.engine.checkpoint import load_params_any
+from multimodal_segmentation_project_tpu_torch.engine.interop import (
+    state_dict_to_discriminator_params,
+)
 from multimodal_segmentation_project_tpu_torch.engine.trainer import DannTrainer, TrainerConfig
 from multimodal_segmentation_project_tpu_torch.models import UNet3D
 from multimodal_segmentation_project_tpu_torch.workloads import (
@@ -73,9 +80,16 @@ def pretrained(data_root, tmp_path_factory):
         ["--data_root", str(data_root), "--experiment_dir", str(exp), "--epochs", "1", *TOY])
     args.experiment_name = "base"
     train_unet.main(args)
-    path = exp / "base" / "checkpoints" / "best_model_base.pth"
-    assert path.exists()
+    path = exp / "base" / "checkpoints" / "best_model_base.msgpack"
+    assert path.exists() and Path(f"{path}.json").exists()
     return path
+
+
+def _model_state(path):
+    """The state dict of a toy UNet3D loaded from a checkpoint."""
+    model = UNet3D(features=(4, 8), dtype=torch.float32)
+    assert load_params_any(model, str(path)) == []
+    return model.state_dict()
 
 
 def _only_run(exp):
@@ -100,10 +114,10 @@ def test_finetune_freezes_encoder_and_bottleneck(data_root, pretrained, tmp_path
     assert [r["epoch"] for r in rows] == ["1", "2"]
     assert all(r["encoder_frozen"] == "True" for r in rows)
     assert all(np.isfinite(float(r["train_loss"])) for r in rows)
-    (best,) = (run / "checkpoints").glob("best_finetuned_model_*.pth")
-    assert [p.name for p in (run / "checkpoints").iterdir()] == [best.name]
-    before = torch.load(pretrained, weights_only=True)["model_state_dict"]
-    after = torch.load(best, weights_only=True)["model_state_dict"]
+    (best,) = (run / "checkpoints").glob("best_finetuned_model_*.msgpack")
+    assert sorted(p.name for p in (run / "checkpoints").iterdir()) == [best.name,
+                                                                         f"{best.name}.json"]
+    before, after = _model_state(pretrained), _model_state(best)
     params = {n for n, _ in UNet3D(features=(4, 8), dtype=torch.float32).named_parameters()}
     frozen = [n for n in params if n.startswith(("encoder.", "bottleneck."))]
     assert frozen and all(torch.equal(before[n], after[n]) for n in frozen)
@@ -116,7 +130,8 @@ def test_finetune_refuses_a_checkpoint_of_other_widths(data_root, pretrained, tm
     args = finetune_ct.build_parser().parse_args(
         ["--pretrained_model", str(pretrained), "--data_root", str(data_root),
          "--experiment_dir", str(tmp_path), "--epochs", "1", *TOY, "--features", "4,8,16"])
-    with pytest.raises(RuntimeError, match="size mismatch|Missing key"):
+    # the pretrained model is the train CLI's .msgpack: the JAX package's strict KeyError
+    with pytest.raises(KeyError, match="missing or mismatched param"):
         finetune_ct.main(args)
 
 
@@ -130,8 +145,8 @@ def test_distill_saves_the_best_student_only(data_root, pretrained, tmp_path):
     _, rows = _rows(run / "logs" / "distill_log.csv")
     assert [r["epoch"] for r in rows] == ["1", "2"]
     assert all(np.isfinite(float(r[k])) for r in rows for k in ("train_loss", "val_loss"))
-    names = [p.name for p in (run / "checkpoints").iterdir()]
-    assert names == [f"best_student_{run.name}.pth"]
+    names = sorted(p.name for p in (run / "checkpoints").iterdir())
+    assert names == [f"best_student_{run.name}.msgpack", f"best_student_{run.name}.msgpack.json"]
     config = (run / "config.txt").read_text()
     assert "alpha: 0.7" in config and "temperature: 2.0" in config
 
@@ -161,13 +176,12 @@ def test_dann_cli_checkpoints_the_discriminator_and_resumes(data_root, pretraine
     r = rows[0]
     total = float(r["task_loss"]) + 0.2 * float(r["domain_loss"])
     np.testing.assert_allclose(float(r["train_loss"]), total, rtol=1e-6)
-    best = exp / "run" / "checkpoints" / "best_model_run.pth"
-    saved = torch.load(best, weights_only=True)
-    assert set(saved["discriminator_state_dict"]) == {
-        f"{n}.{p}" for n in ("fc0", "fc1", "fc2", "out") for p in ("weight", "bias")}
-    assert saved["discriminator_state_dict"]["fc0.weight"].shape == (256, 16)
-    assert saved["discriminator_optimizer_state_dict"]["state"]  # AdamW moments
-    assert saved["lambda_domain"] == 0.2
+    best = exp / "run" / "checkpoints" / "best_model_run.msgpack"
+    saved, meta = ckpt.load_checkpoint(str(best)), ckpt.load_metadata(str(best))
+    assert set(saved["disc_params"]) == {"fc0", "fc1", "fc2", "out"}
+    assert saved["disc_params"]["fc0"]["kernel"].shape == (16, 256)  # flax's (in, out)
+    assert saved["disc_opt_state"]  # AdamW moments
+    assert meta["lambda_domain"] == 0.2
 
     # the eval CLI loads the DANN model unchanged
     overall = test_model.main(test_model.build_parser().parse_args([
@@ -184,12 +198,13 @@ def test_dann_cli_checkpoints_the_discriminator_and_resumes(data_root, pretraine
     trainer = DannTrainer(cfg, CombinedDataset(str(data_root / "train"), ["mri"]),
                           CombinedDataset(str(data_root / "target"), ["ct"]),
                           CombinedDataset(str(data_root / "val"), ["ct"]), lambda_domain=0.2)
-    for k, v in trainer.disc_state.model.state_dict().items():
-        assert torch.equal(v, saved["discriminator_state_dict"][k]), k
-    moments = trainer.disc_state.optimizer.state_dict()["state"]
-    for i, st in saved["discriminator_optimizer_state_dict"]["state"].items():
-        assert torch.equal(moments[i]["exp_avg"], st["exp_avg"])
-    assert trainer.disc_state.step == saved["discriminator_train_state"]["step"] > 0
+    disc = state_dict_to_discriminator_params(trainer.disc_state.model.state_dict())
+    for layer, leaves in saved["disc_params"].items():
+        for k, v in leaves.items():
+            np.testing.assert_array_equal(np.asarray(disc[layer][k]), v, err_msg=f"{layer}/{k}")
+    assert msgpack_codec.packb(trainer.disc_state.optax_state()) == msgpack_codec.packb(
+        saved["disc_opt_state"])  # the discriminator's AdamW moments, as written
+    assert trainer.disc_state.step == trainer.state.step == int(saved["step"]) > 0
     assert trainer.start_epoch == 1
     capsys.readouterr()
     train_dann.main(args)
