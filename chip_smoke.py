@@ -10,21 +10,22 @@ Phases, each printing one line per check; any failure exits non-zero:
 2. build: compiles every kernel of ``multimodal_segmentation_project_tpu_torch/csrc``
    with nvcc (one process per source, in parallel), from this checkout;
    prints ptxas's registers and spills of each of the 24 instances of the
-   conv body (``csrc/conv3.cu``), of the 4 of the fp32 conv body
-   (``csrc/conv3_f32.cu``), of the 8 of the dW body (``csrc/conv3_dw.cu``)
-   and of the head's and the upconv's 42 (``csrc/head1x1.cu``,
-   ``csrc/upconv_d2s.cu``; none of the last 54 may spill), and their dynamic
-   shared memory per block;
+   conv body (``csrc/conv3.cu``), of the 8 of the fp32 conv body
+   (``csrc/conv3_f32.cu``), of the 8 of the dW body (``csrc/conv3_dw.cu``),
+   of the fp32 dW body's one (``csrc/conv3_dw_f32.cu``) and of the head's and
+   the upconv's 66 (``csrc/head1x1.cu``, ``csrc/upconv_d2s.cu``; none of the
+   last 83 may spill), and their dynamic shared memory per block;
 3. kernels: each kernel against its plain PyTorch version at every shape
-   the 192^3 eval forward and train step give it, in bf16, and the fp32
-   instances of 7, 8 and 11 at every shape of the fp32 eval forward, on
-   seeded inputs; prints the error against the stated tolerance, the median
+   the 192^3 eval forward and train step give it, in bf16, the fp32
+   instances of 7, 8 and 11 at every shape of the fp32 eval forward, and
+   those of 1, 1-dx, 2, 9, 11-dx and 11-dw at every shape of the fp32 train
+   step, on seeded inputs; prints the error against the stated tolerance, the median
    time of the kernel as called, of its plain version and of one library
    call over distinct inputs (CUDA events; cuDNN's TF32 off), and its bound:
    the larger of its bytes over 3.35 TB/s and its FLOPs over 989 TFLOP/s
-   (bf16) or 67 TFLOP/s (fp32). The fp32 pool also with NaNs planted, and a
-   control: the 16->16 192^3 conv by cuDNN with TF32 allowed must miss the
-   fp32 bound. For every kernel
+   (bf16) or 67 TFLOP/s (fp32). The fp32 pool also with NaNs planted, and
+   two controls: the 16->16 192^3 conv and its weight gradient by cuDNN
+   with TF32 allowed must miss the fp32 bound. For every kernel
    also the bare launch (operands packed before the timed window,
    BARE_REPS runs over the distinct inputs between two CUDA events, over
    the count) and the kernel/library ratios per shape, and the conv and
@@ -55,11 +56,21 @@ Phases, each printing one line per check; any failure exits non-zero:
    around ``torch.cuda.synchronize()``),
    reports the peak allocated memory, and breaks a few steps' device time
    down from a ``torch.profiler`` trace;
+6b. fp32 train: the train CLI on phase 6's data and recipe with no
+   ``--mixed_precision`` flag (fp32, the JAX CLIs' default): every block on
+   the per-conv chain, exact launches of the fp32 kernels per step and per
+   validation forward and the library's convs and transpose convs, fp32
+   parameters in its ``.msgpack``; then the fp32 step alone (time, peak,
+   profile);
 7. train parity: one train step at 128^3 and full width, GPU bf16 against
    CPU fp32 and against the CPU bf16 emulation, from the same weights: the
    loss and every parameter's gradient, and controls that the check
    refuses a zeroed or halved deep gradient and a fused block's bn0
    scale gradient;
+7b. fp32 train parity: one fp32 step at 64^3 and full width, GPU against
+   the CPU's plain fp32 step from the same weights: the loss and every
+   gradient; and a control that the same GPU step with the backward's TF32
+   scope removed moves the gradients off the scoped step's;
 8. workloads (run after phase 6, before phase 7): the port's orchestrator
    (``workloads.main``) runs ``--experiment finetune`` (with
    ``--freeze_encoder``), ``distill`` and ``dann`` at full width on phase
@@ -74,6 +85,9 @@ Phases, each printing one line per check; any failure exits non-zero:
    DANN step at 64^3 against the CPU (fp32 and the bf16 emulation): the
    task and domain losses and every discriminator gradient, with a control
    that a zeroed fc0 gradient is refused;
+8b. fp32 workloads: ``finetune``, ``distill`` and ``dann`` again in fp32 on
+   phase 8's data, exact launches (the teacher's eval forward in fp32), and
+   the fp32 DANN step alone (time, peak);
 9. checkpoints and preprocessing (run last): writes phase 6's trained state
    (its optimizer and its ``optax.MultiSteps`` accumulator included) as the
    JAX package's ``.msgpack`` with the port's writer, reads it back and
@@ -107,6 +121,7 @@ last line is ``{"ok": true, "device": {...}}``. Scratch files go to
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -149,6 +164,10 @@ UPCONV_SHAPES = [(128, 64, 24), (64, 32, 48), (32, 16, 96)]  # (Cin, Cout, S in)
 HEAD_SHAPES = [(16, 4, 192)]                                 # (Cin, classes, S)
 HEAD_DX_SHAPES = [(4, 16, 192)]                              # (classes, Cin, S)
 HEAD_DW_SHAPES = [(16, 4, 192)]                              # (Cin, classes, S)
+# the fp32 train step's: every DoubleConv on the per-conv chain, so the
+# eleven convs of CONV_SHAPES run kernel 1's fp32 instance and its dW, and
+# all but the image's its dx
+F32_DX_SHAPES = [(cout, cin, s) for cin, cout, s in CONV_SHAPES if cin > 1]
 
 # launches per eval forward and per train step (default widths, 192^3)
 PER_FORWARD = {"conv3x3x3_cf_relu": 11, "max_pool2x_cf": 4, "upconv2x_cf": 3, "head1x1_cf": 1}
@@ -158,6 +177,16 @@ PER_FORWARD = {"conv3x3x3_cf_relu": 11, "max_pool2x_cf": 4, "upconv2x_cf": 3, "h
 PER_FP32_FORWARD = {"conv3x3x3_cf_relu_f32": 11, "max_pool2x_cf_f32": 4, "head1x1_cf_f32": 1}
 LIBRARY_PER_FP32_FORWARD = {"conv3d": 7, "conv_transpose3d": 4}
 F32_KERNELS = tuple(PER_FP32_FORWARD)
+# per fp32 train step (every block on the per-conv chain), derived from the
+# shapes above, and the library's convs (the deep region) and transpose
+# convs (every upconv) of its forward; the backward's cuDNN calls run under
+# autograd and are not counted
+PER_FP32_STEP = {"conv3x3x3_cf_f32": len(CONV_SHAPES), "conv3x3x3_cf_dx_f32": len(F32_DX_SHAPES),
+                 "conv3x3x3_cf_dw_f32": len(CONV_SHAPES), "max_pool2x_cf_f32": len(POOL_SHAPES),
+                 "max_pool2x_cf_bwd_f32": len(POOL_SHAPES), "head1x1_cf_f32": 1,
+                 "head1x1_cf_dx_f32": 1, "head1x1_cf_dw_f32": 1}
+F32_TRAIN_KERNELS = ("conv3x3x3_cf_f32", "conv3x3x3_cf_dx_f32", "conv3x3x3_cf_dw_f32",
+                     "max_pool2x_cf_bwd_f32", "head1x1_cf_dx_f32", "head1x1_cf_dw_f32")
 PER_STEP = {"conv3x3x3_cf_stats": 5, "conv3x3x3_cf_boundary_stats": 5, "conv3x3x3_cf": 1,
             "conv3x3x3_cf_dx": 5, "conv3x3x3_cf_dx_epilogue": 5, "conv3x3x3_cf_dw": 6,
             "conv3x3x3_cf_dw_prologue": 5, "max_pool2x_cf": 4, "max_pool2x_cf_bwd": 4,
@@ -165,6 +194,7 @@ PER_STEP = {"conv3x3x3_cf_stats": 5, "conv3x3x3_cf_boundary_stats": 5, "conv3x3x
 CONV3 = "multimodal_segmentation_project_tpu_torch/csrc/conv3.cu"
 CONV3_F32 = "multimodal_segmentation_project_tpu_torch/csrc/conv3_f32.cu"
 CONV3_DW = "multimodal_segmentation_project_tpu_torch/csrc/conv3_dw.cu"
+CONV3_DW_F32 = "multimodal_segmentation_project_tpu_torch/csrc/conv3_dw_f32.cu"
 PALLAS_CONV = "multimodal_segmentation_project_tpu/ops/pallas_conv.py"
 
 KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
@@ -196,6 +226,16 @@ KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
                           "multimodal_segmentation_project_tpu/ops/pool.py:65"),
     "head1x1_cf_f32": ("multimodal_segmentation_project_tpu_torch/csrc/head1x1.cu",
                        "multimodal_segmentation_project_tpu/ops/head.py:39"),
+    # the fp32 instances the JAX package's fp32 policy runs in its train step
+    "conv3x3x3_cf_f32": (CONV3_F32, f"{PALLAS_CONV}:293"),
+    "conv3x3x3_cf_dx_f32": (CONV3_F32, f"{PALLAS_CONV}:293"),
+    "conv3x3x3_cf_dw_f32": (CONV3_DW_F32, f"{PALLAS_CONV}:468"),
+    "max_pool2x_cf_bwd_f32": ("multimodal_segmentation_project_tpu_torch/csrc/pool2x.cu",
+                              "multimodal_segmentation_project_tpu/ops/pool.py:145"),
+    "head1x1_cf_dx_f32": ("multimodal_segmentation_project_tpu_torch/csrc/head1x1.cu",
+                          "multimodal_segmentation_project_tpu/ops/head.py:39"),
+    "head1x1_cf_dw_f32": ("multimodal_segmentation_project_tpu_torch/csrc/head1x1.cu",
+                          "multimodal_segmentation_project_tpu/ops/head.py:108"),
 }
 # conv/upconv/head-dx: the kernel and the plain version round to bf16 once,
 # at the same point, from fp32 sums taken in different orders, so an output
@@ -238,10 +278,12 @@ STATS_TOL = 1e-5
 # (at most 5e-8 of the sums of |terms| on the H100 at the train step's
 # shapes). A block's partials lost would move a 96^3 entry by 1/3456 of it.
 DADT_TOL = 1e-5
-# the fp32 instances (7, 11): the same fp32 products as the plain version,
-# summed in another order, scaled by max|plain| (CHANGES PR 1's fp32 ops'
-# tolerance); a TF32 pass (10 mantissa bits a product) errs far above it,
-# which the TF32 control shows on the card
+# the fp32 instances (7, 1, 1-dx, 2, 11, 11-dx): the same fp32 products as
+# the plain version, summed in another order, scaled by max|plain| (the
+# port's fp32 ops' tolerance since its first slice); a TF32 pass (10
+# mantissa bits a product) errs far above it, which the TF32 controls show
+# on the card (the dW's sums run over up to 7.1M voxels: their order moves
+# an entry by about 1e-6 of max|dW|, a TF32 pass by about 1e-4)
 F32_TOL = 2e-5
 
 
@@ -303,7 +345,9 @@ def conv_body_resources(log: str) -> list:
         lambda cout, epi, pro: f"conv3_kernel<COUT={cout}, {EPILOGUES[epi]}, prologue={pro}>")
 
 
-F32_BODY_INSTANCES = 4  # conv3_f32.cu: COUT 16, 32, 48, 64, the bias+ReLU epilogue (7)
+# conv3_f32.cu: COUT 16, 32, 48, 64, each with the bias+ReLU epilogue (7)
+# and the cast-then-bias one (1, 1-dx)
+F32_BODY_INSTANCES = 8
 
 
 def f32_body_resources(log: str) -> list:
@@ -324,10 +368,20 @@ def dw_body_resources(log: str) -> list:
         lambda cout, pro: f"conv3_dw_partial_kernel<COUT={cout}, prologue={pro}>")
 
 
-# head1x1.cu: 16 forward (bf16 and fp32 features, CO = 1..8), 8 dx (NC =
-# 1..8), 16 weight-gradient (NC = 1..8, 16-byte or guarded loads) and the
-# weight gradient's block reduce; upconv_d2s.cu: 1
-SMALL_INSTANCES = 42
+DW_F32_INSTANCES = 1  # conv3_dw_f32.cu: the plain input (the prologue's is not written)
+
+
+def dw_f32_body_resources(log: str) -> list:
+    """conv3_dw_f32.cu's conv3_dw_f32_partial_kernel<PRO> instances."""
+    return ptxas_resources(log, r"conv3_dw_f32_partial_kernelILb(\d)E",
+                           lambda pro: f"conv3_dw_f32_partial_kernel<prologue={pro}>")
+
+
+# head1x1.cu: 16 forward (bf16 and fp32 features, CO = 1..8), 16 dx (bf16
+# and fp32 out, NC = 1..8), 32 weight-gradient (bf16 and fp32 features, NC
+# = 1..8, 16-byte or guarded loads) and the weight gradient's block
+# reduce; upconv_d2s.cu: 1
+SMALL_INSTANCES = 66
 
 
 def small_kernel_resources(log: str) -> list:
@@ -388,13 +442,21 @@ def phase_build() -> None:
         fail_unless("0 bytes spill stores, 0 bytes spill loads" in line, f"dW spills: {line}")
     print("[build] conv3_dw_partial_kernel dynamic shared memory per block: " + ", ".join(
         f"COUT={c} {lib.mmseg_conv3_dw_smem_bytes(c)} B" for c in (16, 32, 48, 64)), flush=True)
+    lines = dw_f32_body_resources(log)
+    fail_unless(len(lines) == DW_F32_INSTANCES, f"ptxas reported {len(lines)} "
+                f"conv3_dw_f32_partial_kernel instances, not {DW_F32_INSTANCES}")
+    for line in lines:
+        print(f"[build] ptxas {line}", flush=True)
+        fail_unless("0 bytes spill stores, 0 bytes spill loads" in line, f"fp32 dW spills: {line}")
+    print(f"[build] conv3_dw_f32_partial_kernel dynamic shared memory per block: "
+          f"{lib.mmseg_conv3_dw_f32_smem_bytes()} B", flush=True)
     lines = small_kernel_resources(log)
     fail_unless(len(lines) == SMALL_INSTANCES, f"ptxas reported {len(lines)} head and upconv "
                 f"kernel instances, not {SMALL_INSTANCES}")
     for line in lines:
         print(f"[build] ptxas {line}", flush=True)
-        fail_unless("0 bytes spill stores, 0 bytes spill loads" in line,
-                    f"head or upconv spills: {line}")
+    spills = [line for line in lines if "0 bytes spill stores, 0 bytes spill loads" not in line]
+    fail_unless(not spills, f"head or upconv spills: {spills}")
     print("[build] upconv_d2s_kernel dynamic shared memory per block: " + ", ".join(
         f"Cin={c} {lib.mmseg_upconv_smem_bytes(c)} B" for c in (32, 64, 128)), flush=True)
 
@@ -682,6 +744,30 @@ def _kernel_plan():
         b = randn(co, scale=0.1, dtype=f32)
         return [(randn(1, cin, s, s, s, dtype=f32), k, b) for _ in range(N_TIMED)]
 
+    def dx_f32_inputs(gc, xc, s):
+        w = conv_w(xc, gc)
+        return [(randn(1, gc, s, s, s, dtype=f32), w) for _ in range(N_TIMED)]
+
+    def dw_f32_inputs(cin, cout, s):
+        return [(randn(1, cin, s, s, s, dtype=f32), randn(1, cout, s, s, s, scale=1e-2, dtype=f32))
+                for _ in range(N_TIMED)]
+
+    def pool_bwd_f32_inputs(c, s):
+        out = []
+        for _ in range(N_TIMED):
+            x = tied_f32(1, c, s, s, s)
+            out.append((x, pool.max_pool2x_cf_reference(x),
+                        randn(1, c, s // 2, s // 2, s // 2, dtype=f32)))
+        return out
+
+    def head_dx_f32_inputs(co, cin, s):
+        k = randn(co, cin, scale=(1.0 / cin) ** 0.5, dtype=f32).t()
+        return [(randn(1, co, s, s, s, scale=1e-3, dtype=f32), k) for _ in range(N_TIMED)]
+
+    def head_dw_f32_inputs(cin, co, s):
+        return [(randn(1, cin, s, s, s, dtype=f32), randn(1, co, s, s, s, scale=1e-3, dtype=f32))
+                for _ in range(N_TIMED)]
+
     # library calls: one PyTorch call computing the same function, bf16
     def lib_conv(x, w, b):
         return F.conv3d(x, w.permute(4, 3, 0, 1, 2).to(x.dtype), b.to(x.dtype), padding=1)
@@ -721,6 +807,13 @@ def _kernel_plan():
     def lib_head_dw(x, ct):  # what the port ran before the kernel, as one einsum plus a sum
         return (torch.einsum("bidhw,bodhw->io", x.float(), ct),
                 ct.sum(dim=(0, 2, 3, 4)))
+
+    def lib_dx_input(g, w):  # the conv's input gradient, as cuDNN's backward computes it
+        shape = (g.shape[0], w.shape[3], *g.shape[2:])
+        return torch.nn.grad.conv3d_input(shape, w.permute(4, 3, 0, 1, 2), g, padding=1)
+
+    def lib_head_dx_f32(ct, k):
+        return torch.einsum("bodhw,io->bidhw", ct, k)
 
     no_grad = torch.no_grad()
 
@@ -784,6 +877,15 @@ def _kernel_plan():
 
     def head_f32_work(cin, co, s):  # fp32 in and out, fp32 FMAs
         return 4 * v(s) * (cin + co), 2 * cin * co * v(s), FP32_FLOPS
+
+    def pool_bwd_f32_work(c, s):  # x, y, g read, dx written, fp32
+        return 4 * c * v(s) * (2 + 2 / 8), 0.0, FP32_FLOPS
+
+    def head_dx_f32_work(co, cin, s):  # fp32 ct in, fp32 dx out
+        return 4 * v(s) * (co + cin), 2 * cin * co * v(s), FP32_FLOPS
+
+    def head_dw_f32_work(cin, co, s):  # fp32 x and ct in; dk's FMAs and db's adds
+        return 4 * v(s) * (cin + co), (2 * cin + 1) * co * v(s), FP32_FLOPS
 
     return {
         "conv3x3x3_cf_relu": (conv3.conv3x3x3_cf_relu, conv3.conv3x3x3_cf_relu_reference,
@@ -850,6 +952,27 @@ def _kernel_plan():
         "head1x1_cf_f32": (head.head1x1_cf_f32, head.head1x1_cf_reference, lib_head,
                            head_f32_inputs, HEAD_SHAPES, F32_TOL, head_f32_work,
                            "1x1x1 F.conv3d fp32, TF32 off"),
+        # the fp32 train step's instances (every block on the per-conv chain)
+        "conv3x3x3_cf_f32": (conv3.conv3x3x3_cf_f32, conv3.conv3x3x3_cf_reference, lib_conv,
+                             conv_f32_inputs, CONV_SHAPES, F32_TOL, conv_f32_work,
+                             "F.conv3d fp32, TF32 off"),
+        "conv3x3x3_cf_dx_f32": (conv3.conv3x3x3_cf_dx_f32, conv3.conv3x3x3_cf_dx_reference,
+                                lib_dx_input, dx_f32_inputs, F32_DX_SHAPES, F32_TOL,
+                                conv_f32_work, "torch.nn.grad.conv3d_input fp32, TF32 off"),
+        "conv3x3x3_cf_dw_f32": (conv3.conv3x3x3_cf_dw_f32, conv3.conv3x3x3_cf_dw_reference,
+                                lib_dw, dw_f32_inputs, CONV_SHAPES, F32_TOL, conv_f32_work,
+                                "torch.nn.grad.conv3d_weight fp32, TF32 off"),
+        "max_pool2x_cf_bwd_f32": (pool.max_pool2x_cf_bwd_f32, pool.max_pool2x_cf_bwd_reference,
+                                  lib_pool_bwd, pool_bwd_f32_inputs, POOL_SHAPES, 0.0,
+                                  pool_bwd_f32_work, "F.max_pool3d backward fp32 (first-match "
+                                  "ties, not the same function)"),
+        "head1x1_cf_dx_f32": (head.head1x1_cf_dx_f32,
+                              lambda ct, k: head.head1x1_cf_dx_reference(ct, k, torch.float32),
+                              lib_head_dx_f32, head_dx_f32_inputs, HEAD_DX_SHAPES, F32_TOL,
+                              head_dx_f32_work, "torch.einsum fp32"),
+        "head1x1_cf_dw_f32": (head.head1x1_cf_dw_f32, head.head1x1_cf_dw_reference, lib_head_dw,
+                              head_dw_f32_inputs, HEAD_DW_SHAPES, HEAD_DW, head_dw_f32_work,
+                              "torch.einsum fp32 plus sum"),
     }, randn
 
 
@@ -871,7 +994,10 @@ def bare_calls() -> dict:
             "upconv2x_cf": upconv.upconv_call, "head1x1_cf": head.head_call,
             "head1x1_cf_dx": head.dx_call, "head1x1_cf_dw": head.dw_call,
             "conv3x3x3_cf_relu_f32": conv3.relu_f32_call, "max_pool2x_cf_f32": pool.pool_f32_call,
-            "head1x1_cf_f32": head.head_f32_call}
+            "head1x1_cf_f32": head.head_f32_call, "conv3x3x3_cf_f32": conv3.conv_f32_call,
+            "conv3x3x3_cf_dx_f32": conv3.dx_f32_call, "conv3x3x3_cf_dw_f32": conv3.dw_f32_call,
+            "max_pool2x_cf_bwd_f32": pool.bwd_f32_call, "head1x1_cf_dx_f32": head.dx_f32_call,
+            "head1x1_cf_dw_f32": head.dw_f32_call}
 
 
 # the conv-body instances of the train step (12 has no caller, 7 is eval's)
@@ -879,6 +1005,8 @@ TRAIN_BODY = ("conv3x3x3_cf", "conv3x3x3_cf_dx", "conv3x3x3_cf_stats",
               "conv3x3x3_cf_boundary_stats", "conv3x3x3_cf_dx_epilogue")
 # the dW body's instances: 2 over DW_SHAPES, 6 over CONV1_SHAPES
 TRAIN_DW = ("conv3x3x3_cf_dw", "conv3x3x3_cf_dw_prologue")
+# the fp32 conv body's instances of the fp32 train step, and its dW body
+F32_TRAIN_BODY = ("conv3x3x3_cf_f32", "conv3x3x3_cf_dx_f32")
 
 
 def _pool_nan_checks(make) -> None:
@@ -902,6 +1030,30 @@ def _pool_nan_checks(make) -> None:
               f"{int(nan_got.sum())} NaN outputs where the plain version has "
               f"{int(nan_want.sum())}, the rest {'equal' if ok else 'DIFFERENT'}", flush=True)
         fail_unless(ok, f"max_pool2x_cf_f32 ({c}, {s}): NaN propagation differs")
+
+
+def _tf32_dw_control(make) -> None:
+    """The 16->16 192^3 weight gradient by cuDNN with TF32 allowed against
+    the plain version (TF32 off): its error must read above F32_TOL, the
+    fp32 dW's bound."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.ops import conv3
+
+    x, g = make(16, 16, 192)[0]
+    want = conv3.conv3x3x3_cf_dw_reference(x, g)
+    got = conv3.conv3x3x3_cf_dw_f32(x, g)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        tf32 = torch.nn.grad.conv3d_weight(x, (16, 16, 3, 3, 3), g, padding=1)
+    tf32 = tf32.permute(2, 3, 4, 1, 0)  # (Cout, Cin, kd, kh, kw) -> (kd, kh, kw, Cin, Cout)
+    scale = want.abs().max()
+    err_tf32 = ((tf32 - want).abs().max() / scale).item()
+    err_kernel = ((got - want).abs().max() / scale).item()
+    print(f"[kernel] TF32 control, dW 16->16 at 192^3: torch.nn.grad.conv3d_weight with "
+          f"cuDNN's TF32 allowed is {err_tf32:.4g} of max|plain| from the fp32 plain version "
+          f"(must exceed {F32_TOL:g}); the fp32 kernel {err_kernel:.4g}", flush=True)
+    fail_unless(err_tf32 > F32_TOL, "the dW TF32 control reads within the fp32 bound")
+    fail_unless(not torch.backends.cudnn.allow_tf32, "cuDNN's TF32 left on after the control")
 
 
 def _tf32_control(make) -> None:
@@ -982,6 +1134,13 @@ def phase_kernels() -> dict:
     print(f"[kernel] dW body per train step ({', '.join(TRAIN_DW)}): as called / bare / "
           f"library {step['ms']:.4f} / {step['bare_ms']:.4f} / {step['library_ms']:.4f} ms",
           flush=True)
+    for label, names in (("fp32 conv body", F32_TRAIN_BODY), ("fp32 dW body",
+                                                              ("conv3x3x3_cf_dw_f32",))):
+        step = {k: sum(results[n][k] for n in names)
+                for k in ("ms", "bare_ms", "bound_ms", "library_ms")}
+        print(f"[kernel] {label} per fp32 train step ({', '.join(names)}): as called / bare / "
+              f"bound / library {step['ms']:.4f} / {step['bare_ms']:.4f} / "
+              f"{step['bound_ms']:.4f} / {step['library_ms']:.4f} ms", flush=True)
     # ragged shapes the slice does not reach: batch 2, odd extents, partial
     # channel chunks and channel groups; correctness only
     f32 = torch.float32
@@ -1066,19 +1225,53 @@ def phase_kernels() -> dict:
         cf = x.shape[1]
         edges.append(("head1x1_cf_f32", (x, randn(co, cf, scale=cf ** -0.5, dtype=f32).t(),
                                          randn(co, scale=0.1, dtype=f32))))
+    # the fp32 train step's instances: the conv (1-fp32) and its dx at W = 7,
+    # 9, 20 and 37 and an unaligned view, Cin = 1 and 40, Cout = 20 and 48,
+    # batch 2; the dW (2-fp32) at the bf16 dW's ragged inputs and W = 7; the
+    # pool backward (9-fp32) at odd extents with ties; the head's dx and
+    # weight gradient (11-dx-fp32, 11-dw-fp32) at V % 8 != 0, Cf = 16, 40
+    # and 64, classes 1, 3, 4 and 8, batch 2, unaligned views and 2 x 67^3
+    for x, cout in ((randn(2, 3, 5, 7, 37, dtype=f32), 8), (randn(1, 40, 3, 9, 20, dtype=f32), 20),
+                    (randn(2, 1, 3, 9, 9, dtype=f32), 48), (randn(1, 20, 3, 9, 7, dtype=f32), 48),
+                    (unaligned(2, 16, 4, 8, 16, dtype=f32), 20)):
+        cin = x.shape[1]
+        w = randn(3, 3, 3, cin, cout, scale=(2 / (27 * cin)) ** 0.5, dtype=f32)
+        edges.append(("conv3x3x3_cf_f32", (x, w, randn(cout, scale=0.1, dtype=f32))))
+        edges.append(("conv3x3x3_cf_dx_f32", (randn(x.shape[0], cout, *x.shape[2:], dtype=f32),
+                                              w)))
+    for x, g in ((randn(2, 40, 3, 9, 37, dtype=f32), randn(2, 20, 3, 9, 37, dtype=f32)),
+                 (randn(2, 40, 3, 9, 9, dtype=f32), randn(2, 48, 3, 9, 9, dtype=f32)),
+                 (randn(1, 1, 3, 9, 20, dtype=f32), randn(1, 20, 3, 9, 20, dtype=f32)),
+                 (randn(1, 40, 3, 9, 20, dtype=f32), randn(1, 48, 3, 9, 20, dtype=f32)),
+                 (randn(1, 16, 5, 9, 7, dtype=f32), randn(1, 16, 5, 9, 7, dtype=f32)),
+                 (unaligned(2, 16, 3, 9, 16, dtype=f32), unaligned(2, 20, 3, 9, 16, dtype=f32))):
+        edges.append(("conv3x3x3_cf_dw_f32", (x, g)))
+    x_odd32 = randn(2, 3, 5, 7, 9, scale=4.0, dtype=f32).round().clamp(-8, 8) / 2  # ties
+    edges.append(("max_pool2x_cf_bwd_f32", (x_odd32, plan["max_pool2x_cf"][1](x_odd32),
+                                            randn(2, 3, 2, 3, 4, dtype=f32))))
+    for ct, cf in ((randn(2, 3, 3, 5, 7, dtype=f32), 40), (randn(2, 4, 2, 4, 8, dtype=f32), 64),
+                   (unaligned(2, 4, 2, 4, 8, dtype=f32), 40), (randn(1, 4, 3, 3, 3, dtype=f32), 16)):
+        edges.append(("head1x1_cf_dx_f32", (ct, randn(cf, ct.shape[1], dtype=f32))))
+    for x, co in ((randn(2, 5, 3, 5, 7, dtype=f32), 3), (randn(2, 40, 3, 5, 7, dtype=f32), 8),
+                  (randn(2, 64, 2, 4, 8, dtype=f32), 1), (unaligned(2, 40, 2, 4, 8, dtype=f32), 4),
+                  (randn(2, 16, 67, 67, 67, dtype=f32), 4)):
+        edges.append(("head1x1_cf_dw_f32",
+                      (x, randn(x.shape[0], co, *x.shape[2:], scale=1e-3, dtype=f32))))
     for name, args in edges:
         kern, plain, *_, tol, _, _ = plan[name]
         label = f"{name} edge input {tuple(args[0].shape)}"
-        if name in TRAIN_DW:
+        if name in (*TRAIN_DW, "conv3x3x3_cf_dw_f32"):
             label += f", Cout {args[1].shape[1]}"
         elif name == "upconv2x_cf":
             label += f", Cout {args[1].shape[4]}"
-        elif name == "head1x1_cf_dx":
+        elif name in ("head1x1_cf_dx", "head1x1_cf_dx_f32"):
             label += f", Cf {args[1].shape[0]}"
-        elif name in ("head1x1_cf", "head1x1_cf_dw", "head1x1_cf_f32"):
+        elif name in ("head1x1_cf", "head1x1_cf_dw", "head1x1_cf_f32", "head1x1_cf_dw_f32"):
             label += f", classes {args[1].shape[1]}"
-        elif name == "conv3x3x3_cf_relu_f32":
+        elif name in ("conv3x3x3_cf_relu_f32", "conv3x3x3_cf_f32"):
             label += f", Cout {args[1].shape[4]}"
+        elif name == "conv3x3x3_cf_dx_f32":
+            label += f", dx channels {args[1].shape[3]}"
         if any(a.data_ptr() % 16 for a in args[:2]):
             label += ", unaligned"
         err, rel, ok, _ = _errors(label, kern, plain, [args], tol)
@@ -1087,6 +1280,7 @@ def phase_kernels() -> dict:
 
     _pool_nan_checks(plan["max_pool2x_cf_f32"][3])
     _tf32_control(plan["conv3x3x3_cf_relu_f32"][3])
+    _tf32_dw_control(plan["conv3x3x3_cf_dw_f32"][3])
 
     # the kernels that sum across blocks sum per-block partials in a fixed
     # order, and the others sum in a fixed order within a thread: the same
@@ -1108,6 +1302,9 @@ def phase_kernels() -> dict:
                                          randn(16, 4, scale=0.5, dtype=f32))),
         ("head1x1_cf_dw", (16, 4, 192), (x16, randn(1, 4, 192, 192, 192, scale=1e-3,
                                                      dtype=f32))),
+        ("conv3x3x3_cf_dw_f32", (32, 16, 192), (x32.float(), g16.float())),
+        ("head1x1_cf_dw_f32", (16, 4, 192), (x16.float(), randn(1, 4, 192, 192, 192, scale=1e-3,
+                                                                 dtype=f32))),
     ]
     for name, shape, args in twice:
         kern = plan[name][0]
@@ -1325,10 +1522,10 @@ F32_PARITY_TOL = 1e-4         # max |gpu - cpu| / max |cpu|
 F32_PARITY_ARGMAX_MIN = 0.999  # share of voxels with the same class
 
 
-def _library_calls(model, x) -> dict:
-    """The library convs and transpose convs one forward of ``model`` calls."""
-    import torch
-
+@contextlib.contextmanager
+def _counting_library():
+    """The model's library convs and transpose convs (``unet3d.F.conv3d``,
+    ``conv_transpose3d``) counted while the block runs; yields the counts."""
     from multimodal_segmentation_project_tpu_torch.models import unet3d
 
     counts = dict.fromkeys(LIBRARY_PER_FP32_FORWARD, 0)
@@ -1347,10 +1544,17 @@ def _library_calls(model, x) -> dict:
 
     unet3d.F = Counting()
     try:
-        with torch.inference_mode():
-            model(x)
+        yield counts
     finally:
         unet3d.F = real
+
+
+def _library_calls(model, x) -> dict:
+    """The library convs and transpose convs one forward of ``model`` calls."""
+    import torch
+
+    with _counting_library() as counts, torch.inference_mode():
+        model(x)
     return counts
 
 
@@ -1425,8 +1629,9 @@ OTHER_CATEGORY = "elementwise and other torch kernels"
 
 def _kernel_category(name: str) -> str:
     """Device-time category of a kernel in the profiler trace."""
-    for key, cat in (("conv3_dw", "conv3_dw (dW kernels, plain and prologue: partial sums + "
-                                  "reduce)"),
+    for key, cat in (("conv3_dw", "conv3_dw (dW kernels, plain and prologue, and the fp32 dW: "
+                                  "partial sums + reduce)"),
+                     ("conv3_f32", "conv3_f32 (the fp32 conv body: forward and dx, eval conv)"),
                      ("conv3_stats_reduce", "conv3_stats_reduce (the fused convs' channel sums)"),
                      ("conv3_kernel", "conv3 (forward, fused stats/boundary and dx kernels)"),
                      ("pool2x_bwd", "pool2x_bwd kernel"), ("pool2x", "pool2x kernel"),
@@ -1594,6 +1799,85 @@ def phase_train(size: int = 192) -> dict:
     return counts
 
 
+def _leaf_dtypes(tree) -> set:
+    return {str(getattr(leaf, "dtype", type(leaf).__name__)) for leaf in _iter_leaves(tree)}
+
+
+def phase_fp32_train(size: int = 192) -> dict:
+    """Phase 6b: the train CLI on phase 6's data and recipe with no
+    --mixed_precision flag (fp32, the JAX CLIs' default): every block on
+    the per-conv chain, exact launches and library calls, fp32 parameters
+    in the .msgpack it writes; then the fp32 step alone."""
+    import csv
+
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch import ops
+    from multimodal_segmentation_project_tpu_torch.engine import checkpoint as ckpt
+    from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
+    from multimodal_segmentation_project_tpu_torch.engine.steps import make_train_step
+    from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
+    from multimodal_segmentation_project_tpu_torch.workloads import train_unet
+
+    data, exp = SCRATCH / "train_data", SCRATCH / "train_fp32_exp"
+    args = train_unet.build_parser().parse_args([
+        "--data_root", str(data), "--experiment_dir", str(exp), "--batch_size", "1",
+        "--epochs", str(TRAIN_EPOCHS), "--lr", "1e-3", "--weight_decay", "1e-4",
+        "--gradient_accumulation_steps", "2", "--loss", "ce_tversky", "--early_stopping",
+        "--patience", "10", "--seed", "42",
+    ])
+    fail_unless(args.mixed_precision == "no", f"the CLI's default is {args.mixed_precision}")
+    args.experiment_name = "smoke_train_fp32"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _counting_library() as lib:
+        train_unet.main(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    steps = TRAIN_SPLITS["train"] * TRAIN_EPOCHS
+    evals = TRAIN_SPLITS["val"] * TRAIN_EPOCHS
+    print(f"[train-fp32] CLI, no --mixed_precision flag (fp32): {TRAIN_EPOCHS} epochs, {steps} "
+          f"steps and {evals} validation forwards in {secs:.2f} s; launches {counts}; library "
+          f"calls {lib}", flush=True)
+    for name, n in counts.items():
+        want = PER_FP32_STEP.get(name, 0) * steps + PER_FP32_FORWARD.get(name, 0) * evals
+        fail_unless(n == want, f"{name}: {n} launches, want {want} ({PER_FP32_STEP.get(name, 0)}"
+                               f"/step, {PER_FP32_FORWARD.get(name, 0)}/forward)")
+    want_lib = {k: n * (steps + evals) for k, n in LIBRARY_PER_FP32_FORWARD.items()}
+    fail_unless(lib == want_lib, f"library calls {lib}, want {want_lib}")
+    with open(exp / "smoke_train_fp32" / "logs" / "train_log.csv") as f:
+        rows = list(csv.DictReader(f))
+    fail_unless(len(rows) == TRAIN_EPOCHS, f"train_log.csv has {len(rows)} rows")
+    for r in rows:
+        for key in ("train_loss", "val_loss", "train_dice", "val_dice"):
+            fail_unless(math.isfinite(float(r[key])), f"epoch {r['epoch']}: {key} {r[key]}")
+    print("[train-fp32] epochs (loss, dice): " + "; ".join(
+        f"{r['epoch']}: train {float(r['train_loss']):.4f}/{float(r['train_dice']):.4f} "
+        f"val {float(r['val_loss']):.4f}/{float(r['val_dice']):.4f}" for r in rows), flush=True)
+    ckpt_dir = exp / "smoke_train_fp32" / "checkpoints"
+    ckpts = sorted(p.name for p in ckpt_dir.iterdir())
+    want_ckpts = ["best_model_smoke_train_fp32.msgpack", "best_model_smoke_train_fp32.msgpack.json"]
+    fail_unless(ckpts == want_ckpts, f"checkpoints {ckpts}, want {want_ckpts}")
+    dtypes = _leaf_dtypes(ckpt.load_checkpoint(str(ckpt_dir / want_ckpts[0]))["params"])
+    print(f"[train-fp32] {want_ckpts[0]}: parameter dtypes {sorted(dtypes)}", flush=True)
+    fail_unless(dtypes == {"float32"}, f"the fp32 run's parameters are {dtypes}")
+
+    model = make_model(torch.float32, dropout_rate=0.1).cuda()
+    state = TrainState(model, 1e-3, 1e-4)
+    step = make_train_step(get_loss_fn("ce_tversky"), augment=True, nan_guard=True)
+    dgen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def batch(i):
+        images = torch.rand(1, 1, size, size, size, generator=dgen, device="cuda")
+        labels = torch.randint(0, 4, (1, size, size, size), generator=dgen, device="cuda",
+                               dtype=torch.int32)
+        return images, labels, torch.Generator().manual_seed(i)
+
+    _time_step("train-fp32", lambda *a: step(state, *a), batch, PER_FP32_STEP, size, "fp32")
+    return counts
+
+
 # The other three workloads, per step (default widths, 192^3). The train
 # step's counts are its forward's and its backward's. A distillation step is
 # a train step plus the teacher's eval forward. A DANN step runs two whole
@@ -1619,11 +1903,22 @@ def _add_counts(*counts: dict) -> dict:
 
 PER_DISTILL_STEP = _add_counts(PER_STEP, PER_FORWARD)
 PER_DANN_STEP = _add_counts(PER_STEP, STEP_FORWARD, ENCODER_BACKWARD)
+# in fp32 every block is on the per-conv chain: the target's backward runs
+# the dW of enc0-enc2's six convs (CONV_SHAPES[:6]) and the dx of all but
+# the image's, and the four pools' backward
+FP32_ENCODER_BACKWARD = {"conv3x3x3_cf_dx_f32": sum(c[0] > 1 for c in CONV_SHAPES[:6]),
+                         "conv3x3x3_cf_dw_f32": 6, "max_pool2x_cf_bwd_f32": len(POOL_SHAPES)}
+PER_FP32_DISTILL_STEP = _add_counts(PER_FP32_STEP, PER_FP32_FORWARD)
+PER_FP32_DANN_STEP = _add_counts(PER_FP32_STEP, {"conv3x3x3_cf_f32": len(CONV_SHAPES),
+                                                 "max_pool2x_cf_f32": len(POOL_SHAPES),
+                                                 "head1x1_cf_f32": 1}, FP32_ENCODER_BACKWARD)
 # the recipes' shared flags (run_finetune_ct.sh, run_distillation.sh,
 # run_dann.sh), with one epoch and gradient accumulation 2, not 8, as phase 6
 RECIPE = ["--batch_size", "1", "--epochs", "1", "--weight_decay", "1e-4",
           "--gradient_accumulation_steps", "2", "--mixed_precision", "bf16",
           "--early_stopping", "--patience", "10", "--seed", "42"]
+# the same in fp32, the JAX CLIs' default: no --mixed_precision flag
+RECIPE_FP32 = [a for a in RECIPE if a not in ("--mixed_precision", "bf16")]
 # the workloads phase's device: a CPU rehearsal of the phase, at a small
 # size, sets it to "cpu"
 DEVICE = "cuda"
@@ -1633,7 +1928,8 @@ LAMBDA_DOMAIN = 0.2
 
 
 def _run_workload(experiment: str, argv: list, steps: int, per_step: dict, evals: int,
-                  log_name: str, columns: tuple, tag: str = "") -> Path:
+                  log_name: str, columns: tuple, tag: str = "",
+                  per_forward: dict = PER_FORWARD) -> Path:
     """One experiment through the port's orchestrator on the GPU: the exact
     launches per kernel over its steps and validation forwards, finite CSV
     rows; returns the run's directory (under ``<experiment><tag>_exp``)."""
@@ -1652,12 +1948,12 @@ def _run_workload(experiment: str, argv: list, steps: int, per_step: dict, evals
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = ops.launch_counts()
-    print(f"[{experiment}] main.py --experiment {experiment}: {steps} steps and {evals} "
+    print(f"[{experiment}{tag}] main.py --experiment {experiment}: {steps} steps and {evals} "
           f"validation forwards in {secs:.2f} s; launches {counts}", flush=True)
     for name, n in counts.items():
-        want = per_step.get(name, 0) * steps + PER_FORWARD.get(name, 0) * evals
+        want = per_step.get(name, 0) * steps + per_forward.get(name, 0) * evals
         fail_unless(n == want, f"{experiment}: {name}: {n} launches, want {want} ("
-                               f"{per_step.get(name, 0)}/step, {PER_FORWARD.get(name, 0)}/forward)")
+                               f"{per_step.get(name, 0)}/step, {per_forward.get(name, 0)}/forward)")
     (run,) = [p for p in exp.iterdir() if p.is_dir()]
     with open(run / "logs" / log_name) as f:
         rows = list(csv.DictReader(f))
@@ -1669,7 +1965,8 @@ def _run_workload(experiment: str, argv: list, steps: int, per_step: dict, evals
     return run
 
 
-def _time_step(label: str, step, batch, per_step: dict, size: int) -> None:
+def _time_step(label: str, step, batch, per_step: dict, size: int,
+               precision: str = "bf16") -> None:
     """A step alone: its launches counted over one call, then the median of
     N_STEPS_TIMED calls on distinct device-resident inputs after two warm-up
     calls (host clock around synchronize), the peak allocated memory, and
@@ -1700,7 +1997,8 @@ def _time_step(label: str, step, batch, per_step: dict, size: int) -> None:
     step(*batch(200))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[{label}] step at {size}^3, batch 1, bf16: median {statistics.median(times):.3f} ms "
+    print(f"[{label}] step at {size}^3, batch 1, {precision}: median "
+          f"{statistics.median(times):.3f} ms "
           f"over {N_STEPS_TIMED} distinct inputs (host clock around synchronize; all "
           f"{[round(t, 3) for t in times]}) | peak allocated {peak:.2f} GiB | launches per step "
           f"{sum(counts.values())}: {counts}", flush=True)
@@ -1886,6 +2184,59 @@ def _dann_parity() -> None:
     fail_unless(refused, f"the DANN parity check accepts a zeroed {DANN_CONTROL} gradient")
 
 
+def phase_fp32_workloads(size: int = 192) -> None:
+    """Phase 8b: fine-tune, distillation and DANN through the orchestrator
+    in fp32 (no --mixed_precision flag) on phase 8's data, exact launches;
+    then the fp32 DANN step alone, the largest, with its peak."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
+    from multimodal_segmentation_project_tpu_torch.engine.steps import make_dann_step
+    from multimodal_segmentation_project_tpu_torch.models import DomainDiscriminator
+    from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
+
+    data, dann_data, best = SCRATCH / "train_data", SCRATCH / "dann_data", PHASE6_BEST
+    steps, evals = TRAIN_SPLITS["train"], TRAIN_SPLITS["val"]
+    _run_workload(
+        "finetune", ["--pretrained_model", str(best), "--data_root", str(data), "--lr", "1e-4",
+                     "--modalities", "ct", "--n_samples", "5", "--freeze_encoder",
+                     *RECIPE_FP32],
+        steps, PER_FP32_STEP, evals, "finetune_log.csv", ("train_loss", "val_loss", "val_dice"),
+        tag="_fp32", per_forward=PER_FP32_FORWARD)
+    _run_workload(
+        "distill", ["--teacher_model", str(best), "--data_root", str(data), "--lr", "1e-3",
+                    "--modalities", "ct", "--alpha", "0.7", "--temperature", "2.0",
+                    "--n_samples", "5", *RECIPE_FP32],
+        steps, PER_FP32_DISTILL_STEP, evals, "distill_log.csv",
+        ("train_loss", "val_loss", "val_dice"), tag="_fp32", per_forward=PER_FP32_FORWARD)
+    n_src = DANN_SPLITS["train"][1] + DANN_SPLITS["dann_add_labeled"][1]
+    n_tgt = DANN_SPLITS["target"][1] + DANN_SPLITS["dann_add_unlabeled"][1]
+    _run_workload(
+        "dann", ["--source_modality", "mri", "--target_modality", "ct", "--data_root",
+                 str(dann_data), "--lr", "1e-3", "--lambda_domain", str(LAMBDA_DOMAIN),
+                 "--loss", "ce_tversky", "--pretrained_model", str(best), *RECIPE_FP32],
+        min(n_src, n_tgt), PER_FP32_DANN_STEP, DANN_SPLITS["val"][1], "train_log.csv",
+        ("train_loss", "task_loss", "domain_loss", "val_loss", "val_dice"), tag="_fp32",
+        per_forward=PER_FP32_FORWARD)
+
+    dgen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def volume():
+        return torch.rand(1, 1, size, size, size, generator=dgen, device=DEVICE)
+
+    def labels():
+        return torch.randint(0, 4, (1, size, size, size), generator=dgen, device=DEVICE,
+                             dtype=torch.int32)
+
+    seg = TrainState(make_model(torch.float32, dropout_rate=0.1).to(DEVICE), 1e-3, 1e-4)
+    disc = TrainState(DomainDiscriminator(256, generator=torch.Generator().manual_seed(SEED))
+                      .to(DEVICE), 1e-3, 1e-4)
+    dann = make_dann_step(get_loss_fn("ce_tversky"), LAMBDA_DOMAIN, nan_guard=True)
+    _time_step("dann-fp32", lambda *a: dann(seg, disc, *a),
+               lambda i: (volume(), labels(), volume(), torch.Generator().manual_seed(i)),
+               PER_FP32_DANN_STEP, size, "fp32")
+
+
 # train parity: one step at 128^3, full width, dropout 0, augmentation off,
 # from the same weights, three ways: CPU fp32 plain (the function), CPU bf16
 # plain (the bf16 emulation: the port's plain path, which rounds to bf16
@@ -1995,6 +2346,112 @@ def phase_train_parity() -> None:
                   f"{rel_bad[name]:.4g}, bound {bounds[1][name]:.4g}: "
                   f"{'refused' if refused else 'ACCEPTED'}", flush=True)
             fail_unless(refused, f"the parity check accepts a {how} {name} gradient")
+
+
+# fp32 train parity: one fp32 step at 64^3, full width, dropout 0,
+# augmentation off, through make_train_step, from the same weights: the GPU
+# (every block on the per-conv chain, the fp32 kernels, cuDNN with TF32 off
+# in the forward and the backward) against the CPU's plain fp32 step. Both
+# compute in fp32 and differ by the sums' order, and this network at 64^3
+# amplifies that in its deep gradients (the loss barely moves): the phase
+# prints that floor, the CPU step's gradients moved by one ulp of noise on
+# its input, which reads a few 1e-3 at the deep levels. So the GPU is held
+# to the CPU within F32_TRAIN_GRAD_TOL per gradient (the BN-fed biases,
+# exact gradient 0, aside) and the loss within F32_TRAIN_LOSS_TOL scaled,
+# and the backward's precision is held apart from the forward's noise: the
+# same GPU step run again gives the same gradients (within the run-to-run
+# floor nd of cuDNN's backward), and the control, that step with the
+# backward's TF32 scope removed (TF32 allowed, as by PyTorch's default),
+# must move some gradient by more than max(F32_BACKWARD_TOL, 10 nd): the
+# forward is the same in both, so what moves is the backward's TF32.
+F32_TRAIN_PARITY_SIZE = 64
+F32_TRAIN_LOSS_TOL = 1e-5
+F32_TRAIN_GRAD_TOL = 2e-2
+F32_BACKWARD_TOL = 1e-5
+
+
+def _fp32_step_grads(device, x, y):
+    """(loss, {param name: gradient}) of one fp32 step of make_train_step
+    from make_model's weights."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
+    from multimodal_segmentation_project_tpu_torch.engine.steps import make_train_step
+    from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
+
+    model = make_model(torch.float32).to(device)
+    state = TrainState(model, 1e-3, 1e-4)
+    metrics = make_train_step(get_loss_fn("ce_tversky"))(state, x.to(device), y.to(device))
+    # apply_gradients leaves in p.grad what AdamW was given: the gradient
+    return float(metrics["loss"]), {n: p.grad.detach().float().cpu()
+                                    for n, p in model.named_parameters()}
+
+
+def _worst(rel: dict) -> tuple:
+    name = max(rel, key=rel.get)
+    return name, rel[name]
+
+
+def phase_fp32_train_parity() -> None:
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.engine import steps
+
+    s = F32_TRAIN_PARITY_SIZE
+    x, y = _parity_case(SEED + 210, s)
+    loss_w, want = _fp32_step_grads("cpu", x, y)
+    ulp = torch.where(torch.rand(x.shape, generator=torch.Generator().manual_seed(SEED)) < 0.5,
+                      -(2.0**-24), 2.0**-24)
+    loss_n, noisy = _fp32_step_grads("cpu", x * (1 + ulp), y)
+    name_n, floor_n = _worst(grad_rel(noisy, want))
+    print(f"[train-parity-fp32] the CPU step with one ulp of noise on its input: loss moved by "
+          f"{abs(loss_n - loss_w) / abs(loss_w):.4g} scaled, worst gradient {name_n} by "
+          f"{floor_n:.4g} (the sum-order floor)", flush=True)
+    loss_g, got = _fp32_step_grads("cuda", x, y)
+    fail_unless(math.isfinite(loss_g), "non-finite fp32 loss on the GPU")
+    loss_err = abs(loss_g - loss_w) / abs(loss_w)
+    rel = grad_rel(got, want)
+    levels: dict = {}
+    for n in rel:
+        level = n.split(".double_conv")[0] if ".double_conv" in n else n.rsplit(".", 1)[0]
+        levels[level] = max(levels.get(level, 0.0), rel[n])
+    print("[train-parity-fp32] largest norm-relative gradient error by level, GPU vs CPU: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in levels.items()), flush=True)
+    worst, err = _worst(rel)
+    ok = loss_err <= F32_TRAIN_LOSS_TOL and err <= F32_TRAIN_GRAD_TOL
+    print(f"[train-parity-fp32] {s}^3 full width, one fp32 step, GPU fp32 kernels vs CPU fp32 "
+          f"plain: loss {loss_g:.8f} vs {loss_w:.8f}, scaled error {loss_err:.4g} (<= "
+          f"{F32_TRAIN_LOSS_TOL:g}) | worst gradient {worst} {err:.4g} (<= "
+          f"{F32_TRAIN_GRAD_TOL:g}) {'ok' if ok else 'FAIL'}", flush=True)
+    fail_unless(ok, "fp32 train parity over tolerance")
+
+    _, again = _fp32_step_grads("cuda", x, y)
+    nd = _worst(grad_rel(again, got))[1]
+
+    @contextlib.contextmanager
+    def no_scope(dtype):
+        yield
+
+    cudnn = torch.backends.cudnn
+    real = steps.library_precision
+    steps.library_precision = no_scope
+    try:
+        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=True):
+            _, ctrl = _fp32_step_grads("cuda", x, y)
+    finally:
+        steps.library_precision = real
+    name_c, moved = _worst(grad_rel(ctrl, got))
+    name_v, vs_cpu = _worst(grad_rel(ctrl, want))
+    floor = max(F32_BACKWARD_TOL, 10 * nd)
+    refused = moved > floor
+    print(f"[train-parity-fp32] the GPU step run again: worst gradient moved by {nd:.4g} "
+          f"(run to run) | control, the backward's TF32 scope removed (cuDNN's TF32 allowed): "
+          f"worst gradient {name_c} moved by {moved:.4g} against the scoped step (must exceed "
+          f"{floor:.4g}): {'refused' if refused else 'ACCEPTED'}; against the CPU {name_v} "
+          f"{vs_cpu:.4g}", flush=True)
+    fail_unless(refused, "the fp32 backward with TF32 reads as the scoped one")
+    fail_unless(not cudnn.allow_tf32, "cuDNN's TF32 left on after the control")
 
 
 # ---- phase 9: checkpoints and preprocessing ------------------------------------------
@@ -2424,8 +2881,11 @@ def main() -> int:
         phase_parity()
         f32_launches = phase_fp32_eval()
         launches = phase_train()
+        f32_train_launches = phase_fp32_train()
         phase_workloads()
+        phase_fp32_workloads()
         phase_train_parity()
+        phase_fp32_train_parity()
         phase_checkpoints()
     except Exception as e:  # every phase's failure fails the run
         import traceback
@@ -2437,9 +2897,11 @@ def main() -> int:
     import torch
 
     # launches: the count of each kernel over the train CLI's run (its
-    # train steps and its validation forwards); of the fp32 instances, over
-    # the fp32 eval CLI's run, this slice's main path
-    launches = {**launches, **{k: f32_launches[k] for k in F32_KERNELS}}
+    # train steps and its validation forwards); of the fp32 eval instances,
+    # over the fp32 eval CLI's run; of the fp32 training instances, over the
+    # fp32 train CLI's run, this slice's main path
+    launches = {**launches, **{k: f32_launches[k] for k in F32_KERNELS},
+                **{k: f32_train_launches[k] for k in F32_TRAIN_KERNELS}}
     report = {"kernels": [
         {"name": kname, "route": "cuda", "source": KERNEL_INFO[kname][0],
          "replaces": KERNEL_INFO[kname][1], "launches": launches[kname],

@@ -6,22 +6,26 @@
 //   * _fwd_bias_act_kernel (public op conv3x3x3_cf_relu) on an fp32 x, as
 //     the JAX package runs it under its fp32 policy: the eval forward's
 //     conv, BatchNorm folded into w and b by the caller, epilogue
-//     kBiasRelu, out = relu(acc + bias) in fp32 (mmseg_conv3_f32_bias_relu).
-// The training kernels' fp32 instances (1, 1-dx, 3, 4, 5, 12) are further
-// epilogues and the prologue of this body; they are not written yet, and
-// the kernel refuses any other instance at compile time.
+//     kBiasRelu, out = relu(acc + bias) in fp32 (mmseg_conv3_f32_bias_relu);
+//   * _fwd_kernel (public op conv3x3x3_cf, the training conv, and the dx of
+//     its backward) on an fp32 x: epilogue kCastBias, out = acc + bias, or
+//     acc where bias is null (the dx, on the spatially flipped weights with
+//     Cin and Cout swapped); in fp32 the cast is the identity
+//     (mmseg_conv3_f32).
+// The fused DoubleConv's fp32 instances (3, 4, 5 and 12: the stats and dx
+// mask epilogues and the prologue) are not written yet, and the kernel
+// refuses them at compile time.
 //
 // Why a body of its own, and no MMA: conv3.cu runs mma.sync on bf16
 // operands. A TF32 MMA keeps 10 mantissa bits, about 5e-4 relative error
 // per product, where an fp32 conv is held to 2e-5 of max |out|. So this
 // body multiplies and adds in fp32 FFMA.
 //
-// Layout: x (B, Cin, D, H, W) fp32, bias (Cout,) fp32, out (B, Cout, D, H,
-// W) fp32, all contiguous. The weights arrive packed by the wrapper
-// (ops/conv3.py:pack_weights_f32) as (ceil(Cin/CK), CK, 27, Cout16) fp32,
-// zero-padded in Cin and Cout (Cout16 = Cout rounded up to 16): one
-// chunk's slab is its shared-memory image.
-//
+// Layout: x (B, Cin, D, H, W) fp32, bias (Cout,) fp32 or null (kCastBias),
+// out (B, Cout, D, H, W) fp32, all contiguous. The weights arrive packed
+// by the wrapper (ops/conv3.py:pack_weights_f32) as (ceil(Cin/CK), CK, 27,
+// Cout16) fp32, zero-padded in Cin and Cout (Cout16 = Cout rounded up to
+// 16): one chunk's slab is its shared-memory image.
 // Design: an implicit GEMM with M = output voxels, N = Cout16 (at most 64)
 // and K = 27 * Cin. A block of 256 threads computes conv3.cu's TD x TH x
 // TW = 4 x 8 x 16 output tile (a TW that divides 48, 96 and 192) for every
@@ -51,18 +55,20 @@
 // in order, then kd, kh, kw. A chunk's channel loop stops at Cin, so Cin =
 // 1 (the first encoder conv) costs 1/8 of a full chunk.
 //
-// Epilogue: from the registers, bias added after the whole sum, ReLU that
-// keeps a NaN (as jnp.maximum does), two 16-byte stores per channel (4-byte
-// stores at a ragged edge or an unaligned output).
+// Epilogue: from the registers, bias added after the whole sum (kBiasRelu:
+// then ReLU that keeps a NaN, as jnp.maximum does), two 16-byte stores per
+// channel (4-byte stores at a ragged edge or an unaligned output).
 //
 // What bounds it on an H100: the fp32 operations. The eval forward's eleven
 // convs do about 679 GFLOP (10.1 ms at 67 TFLOP/s of FFMA) and move about
-// 5.7 GB (1.7 ms at 3.35 TB/s). A 3xTF32 MMA path or wgmma is later work.
+// 5.7 GB (1.7 ms at 3.35 TB/s); an fp32 train step runs the same eleven
+// forward and ten of them again as dx (673 GFLOP). A 3xTF32 MMA path or
+// wgmma is later work.
 #include "common.cuh"
 
 namespace {
 
-enum Epilogue { kBiasRelu = 0 };  // conv3.cu's numbering; 1-3 are the training epilogues
+enum Epilogue { kBiasRelu = 0, kCastBias = 1 };  // conv3.cu's numbering; 2, 3 are the fused block's
 
 constexpr int TD = 4;               // output depth planes per block
 constexpr int TH = 8;               // output rows per plane
@@ -93,7 +99,7 @@ struct Smem {
 struct ConvArgs {
   const float* x;     // (B, Cin, D, H, W)
   const float* w;     // packed weights
-  const float* bias;  // (Cout,)
+  const float* bias;  // (Cout,); null for a kCastBias conv without one (the dx)
   float* out;         // (B, Cout, D, H, W)
   int B, Cin, Cout, D, H, W, tiles_w;
 };
@@ -162,8 +168,9 @@ __device__ __forceinline__ void issue_chunk(uint32_t st, const ConvArgs& p, int 
 
 template <int COUT, int EPI, bool PRO>
 __global__ void __launch_bounds__(THREADS, COUT == 16 ? 2 : 1) conv3_f32_kernel(const ConvArgs p) {
-  static_assert(EPI == kBiasRelu && !PRO,
-                "only the eval conv's bias+ReLU epilogue is written for the fp32 body");
+  static_assert((EPI == kBiasRelu || EPI == kCastBias) && !PRO,
+                "the fp32 body's fused-block instances (stats and dx mask epilogues, the "
+                "prologue: kernels 3, 4, 5, 12) are not written yet");
   using S = Smem<COUT>;
   constexpr int RN = COUT / GROUPS;  // output channels per thread
   extern __shared__ __align__(16) float smem[];
@@ -252,12 +259,21 @@ __global__ void __launch_bounds__(THREADS, COUT == 16 ? 2 : 1) conv3_f32_kernel(
   for (int n = 0; n < RN; ++n) {
     const int co = g * RN + n;
     if (co >= p.Cout) break;
-    const float bias = p.bias[co];
     float u[RM];
+    if (EPI == kBiasRelu) {
+      const float bias = p.bias[co];
 #pragma unroll
-    for (int m = 0; m < RM; ++m) {
-      const float t = acc[m][n] + bias;
-      u[m] = t < 0.0f ? 0.0f : t;  // ReLU that keeps a NaN
+      for (int m = 0; m < RM; ++m) {
+        const float t = acc[m][n] + bias;
+        u[m] = t < 0.0f ? 0.0f : t;  // ReLU that keeps a NaN
+      }
+    } else if (p.bias != nullptr) {
+      const float bias = p.bias[co];
+#pragma unroll
+      for (int m = 0; m < RM; ++m) u[m] = acc[m][n] + bias;
+    } else {
+#pragma unroll
+      for (int m = 0; m < RM; ++m) u[m] = acc[m][n];
     }
     float* o = p.out + (size_t(b) * p.Cout + co) * vol + voxel;
     if (vec_out) {
@@ -301,6 +317,17 @@ int dispatch(ConvArgs args, dim3 grid, int threads, int smem, void* stream) {
   }
 }
 
+ConvArgs conv_args(const void* x, const void* w, const void* bias, void* out, int B, int Cin,
+                   int Cout, int D, int H, int W) {
+  ConvArgs a{};
+  a.x = static_cast<const float*>(x);
+  a.w = static_cast<const float*>(w);
+  a.bias = static_cast<const float*>(bias);
+  a.out = static_cast<float*>(out);
+  a.B = B, a.Cin = Cin, a.Cout = Cout, a.D = D, a.H = H, a.W = W;
+  return a;
+}
+
 }  // namespace
 
 // Dynamic shared memory of a conv3_f32_kernel block for Cout16 = cout16
@@ -325,11 +352,18 @@ MMSEG_API int mmseg_conv3_f32_bias_relu(const void* x, const void* w, const void
   if (x == nullptr || w == nullptr || bias == nullptr || out == nullptr || Cin < 1)
     return int(cudaErrorInvalidValue);
   if (B == 0 || D == 0 || H == 0 || W == 0) return int(cudaSuccess);
-  ConvArgs a{};
-  a.x = static_cast<const float*>(x);
-  a.w = static_cast<const float*>(w);
-  a.bias = static_cast<const float*>(bias);
-  a.out = static_cast<float*>(out);
-  a.B = B, a.Cin = Cin, a.Cout = Cout, a.D = D, a.H = H, a.W = W;
-  return dispatch<kBiasRelu, false>(a, dim3(grid_x, grid_y, grid_z), threads, smem, stream);
+  return dispatch<kBiasRelu, false>(conv_args(x, w, bias, out, B, Cin, Cout, D, H, W),
+                                    dim3(grid_x, grid_y, grid_z), threads, smem, stream);
+}
+
+// Kernel 1 in fp32: out = conv(x, w) + bias, or conv(x, w) where bias is
+// null (its dx, on the flipped and transposed weights); the descriptor as
+// for mmseg_conv3_f32_bias_relu.
+MMSEG_API int mmseg_conv3_f32(const void* x, const void* w, const void* bias, void* out, int B,
+                              int Cin, int Cout, int D, int H, int W, int grid_x, int grid_y,
+                              int grid_z, int threads, int smem, void* stream) {
+  if (x == nullptr || w == nullptr || out == nullptr || Cin < 1) return int(cudaErrorInvalidValue);
+  if (B == 0 || D == 0 || H == 0 || W == 0) return int(cudaSuccess);
+  return dispatch<kCastBias, false>(conv_args(x, w, bias, out, B, Cin, Cout, D, H, W),
+                                    dim3(grid_x, grid_y, grid_z), threads, smem, stream);
 }

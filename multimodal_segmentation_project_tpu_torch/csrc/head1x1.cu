@@ -13,14 +13,16 @@
 //     ct (B, NC, D, H, W) in, NC = the classes, and the features' dtype
 //     out, dx[f] = bf16(sum_c w[c, f] * ct[c]) for f < Cf (16 on the main
 //     path, at most 64), fp32 sums and one rounding, no bias (the TPU
-//     kernel's is zero): head1x1_dx_kernel, mmseg_head1x1_dx. w is the
-//     head's (NC, Cf) weight as the model holds it.
+//     kernel's is zero): head1x1_dx_kernel<bf16, NC>, mmseg_head1x1_dx; and
+//     its fp32 instance for fp32 features (the fp32 policy's train step,
+//     no rounding): head1x1_dx_kernel<float, NC>, mmseg_head1x1_dx_f32. w
+//     is the head's (NC, Cf) weight as the model holds it.
 // and the XLA work of the same backward (ops/head.py, _head_bwd_rule's
 // dot_general and sum), which has no Pallas kernel:
 //   * dk[f, c] = sum_{b,v} x[b, f, v] * ct[b, c, v] and db[c] = sum_{b,v}
-//     ct[b, c, v] in fp32, from the bf16 features the forward saved and
-//     the fp32 cotangent: head1x1_dw_kernel, head1x1_dw_reduce_kernel,
-//     mmseg_head1x1_dw.
+//     ct[b, c, v] in fp32, from the features the forward saved and the
+//     fp32 cotangent: head1x1_dw_kernel<T, ..>, head1x1_dw_reduce_kernel;
+//     bf16 features (mmseg_head1x1_dw) or fp32 ones (mmseg_head1x1_dw_f32).
 //
 // Forward design: one thread per 8 consecutive voxels of one batch
 // element. It walks the Cin channel planes FWD_UNROLL at a time, one
@@ -39,20 +41,21 @@
 // fp32 values in registers, 2 * NC loads in flight a thread), then walks
 // the Cf output channels with a runtime loop: per channel one 16-byte
 // broadcast read of its NC weights from shared memory, 8 * NC FMAs and
-// one 16-byte store of the 8 rounded values (a warp writes 512
-// contiguous bytes per channel plane). Registers do not grow with Cf.
+// one 16-byte store of the 8 rounded values (fp32: two 16-byte stores; a
+// warp writes 512 contiguous bytes per channel plane, 1 KB in fp32).
+// Registers do not grow with Cf.
 //
 // Weight-gradient design: a fixed grid of nblk blocks (the wrapper picks
 // nblk, one a SM, from the SM count and the volume alone) times one block
-// row per slice of dw_slice(NC) feature channels. Thread t of block k
+// row per slice of dw_slice<T>(NC) feature channels. Thread t of block k
 // walks the 8-voxel groups t + 256 k, t + 256 (k + nblk), ... of the
 // flattened (batch, volume): per group two 16-byte loads per class plane
-// of ct and one per feature plane of x, and fp32 partials of dk over its
-// slice (slice * NC values) and of db in registers. The block then sums
-// its threads' partials in a fixed order (a shuffle tree per warp, the
-// warps in order) into its row of a [nblk][Cf * NC + NC] fp32 scratch,
-// and a second launch sums the rows in block order. No atomics: the same
-// bits every run on one card.
+// of ct and one per feature plane of x (two in fp32), and fp32 partials of
+// dk over its slice (slice * NC values) and of db in registers. The block
+// then sums its threads' partials in a fixed order (a shuffle tree per
+// warp, the warps in order) into its row of a [nblk][Cf * NC + NC] fp32
+// scratch, and a second launch sums the rows in block order. No atomics:
+// the same bits every run on one card.
 //
 // Tail and alignment: where V % 8 != 0 or a volume's pointer is not 16-byte
 // aligned, the same threads do guarded 2- or 4-byte loads and stores
@@ -64,8 +67,11 @@
 // FMAs per voxel;
 // the dx (NC = 4, Cf = 16) reads 113 MB and writes 226 MB; the weight
 // gradient reads both, 339 MB, for 68 FMAs and adds per voxel: each 0.101
-// ms at 3.35 TB/s.
+// ms at 3.35 TB/s. In fp32 the dx writes and the weight gradient reads 453
+// MB of features: 0.169 ms each.
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -287,11 +293,12 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
          (uint32_t(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
 }
 
-// NCP: NC rounded up to 4, the pitch of a channel's weights in shared memory.
-template <int NC>
+// NCP: NC rounded up to 4, the pitch of a channel's weights in shared
+// memory; T the features' type, which dx is written in.
+template <typename T, int NC>
 __global__ void __launch_bounds__(THREADS)
 head1x1_dx_kernel(const float* __restrict__ ct, const float* __restrict__ w,
-                  bf16* __restrict__ dx, int Cf, long long V, long long groups, bool vec) {
+                  T* __restrict__ dx, int Cf, long long V, long long groups, bool vec) {
   constexpr int NCP = (NC + 3) / 4 * 4;
   __shared__ __align__(16) float sw[DX_MAX_CF * NCP];  // [f][c], zero past NC
   for (int i = threadIdx.x; i < Cf * NCP; i += THREADS) {
@@ -304,7 +311,7 @@ head1x1_dx_kernel(const float* __restrict__ ct, const float* __restrict__ w,
   if (gi >= groups) return;
   const Group g = group_of(gi, V);
   const float* cp = ct + size_t(g.b) * NC * V + g.v0;
-  bf16* dp = dx + size_t(g.b) * Cf * V + g.v0;
+  T* dp = dx + size_t(g.b) * Cf * V + g.v0;
 
   float xv[NC][VOX];
   if (vec) {
@@ -330,8 +337,17 @@ head1x1_dx_kernel(const float* __restrict__ ct, const float* __restrict__ w,
 #pragma unroll
       for (int c = 1; c < NC; ++c) s[j] = fmaf(xv[c][j], wf[c], s[j]);
     }
-    bf16* op = dp + size_t(f) * V;
-    if (vec) {
+    T* op = dp + size_t(f) * V;
+    if constexpr (std::is_same<T, float>::value) {
+      if (vec) {
+        reinterpret_cast<float4*>(op)[0] = make_float4(s[0], s[1], s[2], s[3]);
+        reinterpret_cast<float4*>(op)[1] = make_float4(s[4], s[5], s[6], s[7]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < VOX; ++j)
+          if (j < g.n) op[j] = s[j];
+      }
+    } else if (vec) {
       uint4 q;
       q.x = pack_bf16x2(s[0], s[1]);
       q.y = pack_bf16x2(s[2], s[3]);
@@ -346,22 +362,50 @@ head1x1_dx_kernel(const float* __restrict__ ct, const float* __restrict__ w,
   }
 }
 
-template <int NC>
+// The dx's launch: blocks of THREADS groups. Where the wrapper gives its
+// descriptor (blocks >= 0: the fp32 entry), it must be this one, or the
+// launch is refused with cudaErrorInvalidConfiguration.
+template <typename T, int NC>
 int launch_dx(const void* ct, const void* w, void* dx, int B, int Cf, long long V,
-              cudaStream_t stream) {
+              long long blocks, int threads, cudaStream_t stream) {
   const long long groups = B * ((V + VOX - 1) / VOX);
+  const long long nblk = (groups + THREADS - 1) / THREADS;
+  if (blocks >= 0 && (blocks != nblk || threads != THREADS))
+    return int(cudaErrorInvalidConfiguration);
   const bool vec = V % VOX == 0 && aligned16(ct) && aligned16(dx);
-  head1x1_dx_kernel<NC><<<unsigned((groups + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-      static_cast<const float*>(ct), static_cast<const float*>(w), static_cast<bf16*>(dx), Cf,
-      V, groups, vec);
+  head1x1_dx_kernel<T, NC><<<unsigned(nblk), THREADS, 0, stream>>>(
+      static_cast<const float*>(ct), static_cast<const float*>(w), static_cast<T*>(dx), Cf, V,
+      groups, vec);
   return int(cudaGetLastError());
 }
 
-// Feature channels per slice of the weight gradient, by the number of
-// classes: slice * NC dk partials, NC db partials, the group's NC * 8
-// cotangent values and the slice's x loads in flight fit 255 registers
-// without spilling.
-__host__ __device__ constexpr int dw_slice(int nc) { return nc <= 4 ? 16 : nc <= 6 ? 8 : 4; }
+template <typename T>
+int dx_by_classes(const void* ct, const void* w, void* dx, int B, int NC, int Cf, long long V,
+                  long long blocks, int threads, cudaStream_t s) {
+  switch (NC) {
+    case 1: return launch_dx<T, 1>(ct, w, dx, B, Cf, V, blocks, threads, s);
+    case 2: return launch_dx<T, 2>(ct, w, dx, B, Cf, V, blocks, threads, s);
+    case 3: return launch_dx<T, 3>(ct, w, dx, B, Cf, V, blocks, threads, s);
+    case 4: return launch_dx<T, 4>(ct, w, dx, B, Cf, V, blocks, threads, s);
+    case 5: return launch_dx<T, 5>(ct, w, dx, B, Cf, V, blocks, threads, s);
+    case 6: return launch_dx<T, 6>(ct, w, dx, B, Cf, V, blocks, threads, s);
+    case 7: return launch_dx<T, 7>(ct, w, dx, B, Cf, V, blocks, threads, s);
+    case 8: return launch_dx<T, 8>(ct, w, dx, B, Cf, V, blocks, threads, s);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// Feature channels per slice of the weight gradient on bf16 features, by
+// the number of classes: slice * NC dk partials, NC db partials, the
+// group's NC * 8 cotangent values and the slice's x loads in flight fit
+// 255 registers without spilling.
+__host__ __device__ constexpr int dw_slice_bf16(int nc) { return nc <= 4 ? 16 : nc <= 6 ? 8 : 4; }
+// fp32 features take twice the registers a load, so half the slice (at 16
+// channels the guarded instance spilled).
+template <typename T>
+__host__ __device__ constexpr int dw_slice(int nc) {
+  return dw_slice_bf16(nc) / int(sizeof(T) / 2);
+}
 
 constexpr int WARPS = THREADS / 32;
 // One block a SM: ptxas then keeps a group's 2 * NC + slice 16-byte loads in
@@ -372,9 +416,9 @@ constexpr int DW_BLOCKS_PER_SM = 1;
 // One group's terms of a thread's weight-gradient partials: acc[f * NC + c]
 // += x[f0 + f] . ct[c] over the group's 8 voxels for the FS channels of the
 // slice, acc[FS * NC + c] += the sum of ct[c].
-template <int NC, int FS, bool VEC>
+template <typename T, int NC, int FS, bool VEC>
 __device__ __forceinline__ void dw_group(float (&acc)[FS * NC + NC], const float* cp,
-                                         const bf16* xp, int f0, int Cf, long long V, int n) {
+                                         const T* xp, int f0, int Cf, long long V, int n) {
   float cv[NC][VOX];
 #pragma unroll
   for (int c = 0; c < NC; ++c) load8_f32<VEC>(cp + size_t(c) * V, n, cv[c]);
@@ -382,11 +426,13 @@ __device__ __forceinline__ void dw_group(float (&acc)[FS * NC + NC], const float
   for (int c = 0; c < NC; ++c)
 #pragma unroll
     for (int j = 0; j < VOX; ++j) acc[FS * NC + c] += cv[c][j];
-  const bf16* p = xp + size_t(f0) * V;
+  const T* p = xp + size_t(f0) * V;
 #pragma unroll
   for (int f = 0; f < FS; ++f) {
+    Vox8<T> q;
+    q.template load<VEC>(p, n);
     float xv[VOX];
-    unpack8_bf16(load8_bf16<VEC>(p, n), xv);
+    q.unpack(xv);
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
@@ -398,13 +444,14 @@ __device__ __forceinline__ void dw_group(float (&acc)[FS * NC + NC], const float
 
 // Block (k, s): the slice s of feature channels, the groups k, k + nblk, ...
 // (in units of THREADS groups); its row k of part holds, after all slices
-// ran, dk (f-major, Cf * NC) then db (NC). VEC (V % 8 == 0, x and ct
-// 16-byte aligned) and the guarded loads are separate instances.
-template <int NC, bool VEC>
+// ran, dk (f-major, Cf * NC) then db (NC). T the features' type; VEC (V % 8
+// == 0, x and ct 16-byte aligned) and the guarded loads are separate
+// instances.
+template <typename T, int NC, bool VEC>
 __global__ void __launch_bounds__(THREADS, DW_BLOCKS_PER_SM)
-head1x1_dw_kernel(const bf16* __restrict__ x, const float* __restrict__ ct,
+head1x1_dw_kernel(const T* __restrict__ x, const float* __restrict__ ct,
                   float* __restrict__ part, int Cf, long long V, long long groups) {
-  constexpr int FS = dw_slice(NC);
+  constexpr int FS = dw_slice<T>(NC);
   constexpr int NP = FS * NC + NC;  // a thread's partials: dk over the slice, then db
   __shared__ float red[WARPS][NP];
   const int f0 = blockIdx.y * FS;
@@ -416,8 +463,8 @@ head1x1_dw_kernel(const bf16* __restrict__ x, const float* __restrict__ ct,
   for (long long gi = (long long)blockIdx.x * THREADS + threadIdx.x; gi < groups; gi += stride) {
     const Group g = group_of(gi, V);
     const float* cp = ct + size_t(g.b) * NC * V + g.v0;
-    const bf16* xp = x + size_t(g.b) * Cf * V + g.v0;
-    dw_group<NC, FS, VEC>(acc, cp, xp, f0, Cf, V, g.n);
+    const T* xp = x + size_t(g.b) * Cf * V + g.v0;
+    dw_group<T, NC, FS, VEC>(acc, cp, xp, f0, Cf, V, g.n);
   }
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -454,25 +501,47 @@ head1x1_dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dk,
     db[e - CfNC] = s;
 }
 
-template <int NC>
+// The weight gradient's launch. Where the wrapper gives its descriptor
+// (slices >= 0: the fp32 entry), its slices of feature channels and
+// threads must be this kernel's, or the launch is refused with
+// cudaErrorInvalidConfiguration.
+template <typename T, int NC>
 int launch_dw(const void* x, const void* ct, void* part, void* dk, void* db, int B, int Cf,
-              long long V, int nblk, cudaStream_t stream) {
-  constexpr int FS = dw_slice(NC);
+              long long V, int nblk, int slices, int threads, cudaStream_t stream) {
+  constexpr int FS = dw_slice<T>(NC);
+  if (slices >= 0 && (slices != (Cf + FS - 1) / FS || threads != THREADS))
+    return int(cudaErrorInvalidConfiguration);
   const long long groups = B * ((V + VOX - 1) / VOX);
   const bool vec = V % VOX == 0 && aligned16(x) && aligned16(ct);
   const dim3 grid(unsigned(nblk), unsigned((Cf + FS - 1) / FS));
-  const bf16* xb = static_cast<const bf16*>(x);
+  const T* xt = static_cast<const T*>(x);
   const float* cf = static_cast<const float*>(ct);
   float* pf = static_cast<float*>(part);
   if (vec)
-    head1x1_dw_kernel<NC, true><<<grid, THREADS, 0, stream>>>(xb, cf, pf, Cf, V, groups);
+    head1x1_dw_kernel<T, NC, true><<<grid, THREADS, 0, stream>>>(xt, cf, pf, Cf, V, groups);
   else
-    head1x1_dw_kernel<NC, false><<<grid, THREADS, 0, stream>>>(xb, cf, pf, Cf, V, groups);
+    head1x1_dw_kernel<T, NC, false><<<grid, THREADS, 0, stream>>>(xt, cf, pf, Cf, V, groups);
   const int E = Cf * NC + NC;
   head1x1_dw_reduce_kernel<<<(E + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
       static_cast<const float*>(part), static_cast<float*>(dk), static_cast<float*>(db), Cf * NC,
       E, nblk);
   return int(cudaGetLastError());
+}
+
+template <typename T>
+int dw_by_classes(const void* x, const void* ct, void* part, void* dk, void* db, int B, int Cf,
+                  int NC, long long V, int nblk, int slices, int threads, cudaStream_t s) {
+  switch (NC) {
+    case 1: return launch_dw<T, 1>(x, ct, part, dk, db, B, Cf, V, nblk, slices, threads, s);
+    case 2: return launch_dw<T, 2>(x, ct, part, dk, db, B, Cf, V, nblk, slices, threads, s);
+    case 3: return launch_dw<T, 3>(x, ct, part, dk, db, B, Cf, V, nblk, slices, threads, s);
+    case 4: return launch_dw<T, 4>(x, ct, part, dk, db, B, Cf, V, nblk, slices, threads, s);
+    case 5: return launch_dw<T, 5>(x, ct, part, dk, db, B, Cf, V, nblk, slices, threads, s);
+    case 6: return launch_dw<T, 6>(x, ct, part, dk, db, B, Cf, V, nblk, slices, threads, s);
+    case 7: return launch_dw<T, 7>(x, ct, part, dk, db, B, Cf, V, nblk, slices, threads, s);
+    case 8: return launch_dw<T, 8>(x, ct, part, dk, db, B, Cf, V, nblk, slices, threads, s);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -504,18 +573,18 @@ MMSEG_API int mmseg_head1x1_dx(const void* ct, const void* w, void* dx, int B, i
                                long long V, void* stream) {
   if (Cf < 1 || Cf > DX_MAX_CF) return int(cudaErrorInvalidValue);
   if (V == 0 || B == 0) return int(cudaSuccess);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (NC) {
-    case 1: return launch_dx<1>(ct, w, dx, B, Cf, V, s);
-    case 2: return launch_dx<2>(ct, w, dx, B, Cf, V, s);
-    case 3: return launch_dx<3>(ct, w, dx, B, Cf, V, s);
-    case 4: return launch_dx<4>(ct, w, dx, B, Cf, V, s);
-    case 5: return launch_dx<5>(ct, w, dx, B, Cf, V, s);
-    case 6: return launch_dx<6>(ct, w, dx, B, Cf, V, s);
-    case 7: return launch_dx<7>(ct, w, dx, B, Cf, V, s);
-    case 8: return launch_dx<8>(ct, w, dx, B, Cf, V, s);
-    default: return int(cudaErrorInvalidValue);
-  }
+  return dx_by_classes<bf16>(ct, w, dx, B, NC, Cf, V, -1, 0, static_cast<cudaStream_t>(stream));
+}
+
+// The same with dx (B, Cf, V) in fp32 (fp32 features); blocks and threads as
+// ops/head.py:dx_f32_launch_dims computes them.
+MMSEG_API int mmseg_head1x1_dx_f32(const void* ct, const void* w, void* dx, int B, int NC,
+                                   int Cf, long long V, long long blocks, int threads,
+                                   void* stream) {
+  if (Cf < 1 || Cf > DX_MAX_CF || blocks < 0) return int(cudaErrorInvalidValue);
+  if (V == 0 || B == 0) return int(cudaSuccess);
+  return dx_by_classes<float>(ct, w, dx, B, NC, Cf, V, blocks, threads,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // dk (Cf, NC) and db (NC,) fp32 from x (B, Cf, V) bf16 and ct (B, NC, V)
@@ -524,16 +593,17 @@ MMSEG_API int mmseg_head1x1_dx(const void* ct, const void* w, void* dx, int B, i
 MMSEG_API int mmseg_head1x1_dw(const void* x, const void* ct, void* part, void* dk, void* db,
                                int B, int Cf, int NC, long long V, int nblk, void* stream) {
   if (Cf < 1 || Cf > DX_MAX_CF || nblk < 1) return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (NC) {
-    case 1: return launch_dw<1>(x, ct, part, dk, db, B, Cf, V, nblk, s);
-    case 2: return launch_dw<2>(x, ct, part, dk, db, B, Cf, V, nblk, s);
-    case 3: return launch_dw<3>(x, ct, part, dk, db, B, Cf, V, nblk, s);
-    case 4: return launch_dw<4>(x, ct, part, dk, db, B, Cf, V, nblk, s);
-    case 5: return launch_dw<5>(x, ct, part, dk, db, B, Cf, V, nblk, s);
-    case 6: return launch_dw<6>(x, ct, part, dk, db, B, Cf, V, nblk, s);
-    case 7: return launch_dw<7>(x, ct, part, dk, db, B, Cf, V, nblk, s);
-    case 8: return launch_dw<8>(x, ct, part, dk, db, B, Cf, V, nblk, s);
-    default: return int(cudaErrorInvalidValue);
-  }
+  return dw_by_classes<bf16>(x, ct, part, dk, db, B, Cf, NC, V, nblk, -1, 0,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The same from fp32 features x (B, Cf, V); nblk, the slices of feature
+// channels (the grid's y) and threads as ops/head.py:dw_f32_launch_dims
+// computes them.
+MMSEG_API int mmseg_head1x1_dw_f32(const void* x, const void* ct, void* part, void* dk,
+                                   void* db, int B, int Cf, int NC, long long V, int nblk,
+                                   int slices, int threads, void* stream) {
+  if (Cf < 1 || Cf > DX_MAX_CF || nblk < 1 || slices < 0) return int(cudaErrorInvalidValue);
+  return dw_by_classes<float>(x, ct, part, dk, db, B, Cf, NC, V, nblk, slices, threads,
+                              static_cast<cudaStream_t>(stream));
 }

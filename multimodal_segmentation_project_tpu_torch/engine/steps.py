@@ -16,12 +16,19 @@ applied), the accumulator and its counter (nothing is folded in), and the
 BatchNorm running statistics (the forward's update is undone). That is
 what the JAX package's rollback leaves. The check reads one flag on the
 host per step. The step's losses then read 0 and ``nonfinite`` 1.
+
+Each step's backward runs inside ``library_precision(model.dtype)``, the
+scope the model's forward runs its library calls in: in an fp32 step
+cuDNN's backward of the deep region's convs and of the fp32 transpose
+convs runs with TF32 off, as the forward does, and the flag reads as
+before once the backward returns. A bf16 step leaves it alone.
 """
 
 from __future__ import annotations
 
 import torch
 
+from multimodal_segmentation_project_tpu_torch.models.unet3d import library_precision
 from multimodal_segmentation_project_tpu_torch.ops.augment import augment_batch
 from multimodal_segmentation_project_tpu_torch.ops.grl import grad_reverse
 from multimodal_segmentation_project_tpu_torch.ops.losses import cross_entropy_loss
@@ -37,6 +44,13 @@ def _zero_grads(*models: torch.nn.Module) -> None:
     for model in models:
         for p in model.parameters():
             p.grad = None
+
+
+def _backward(loss: torch.Tensor, model: torch.nn.Module) -> None:
+    """loss.backward() in the model's library-precision scope: cuDNN's TF32
+    off in an fp32 model's backward."""
+    with library_precision(model.dtype):
+        loss.backward()
 
 
 def _guard(metrics: dict, models: tuple, saved: list, loss_keys: tuple) -> bool:
@@ -68,7 +82,7 @@ def _supervised_step(state, images, labels, generator, nan_guard: bool, loss_fn)
     _zero_grads(model)
     logits = model(images, generator=generator)
     loss = loss_fn(logits, labels)
-    loss.backward()
+    _backward(loss, model)
     metrics = segmentation_metrics(logits.detach(), labels)
     metrics["loss"] = loss.detach()
     if nan_guard and not _guard(metrics, (model,), saved, ("loss",)):
@@ -174,7 +188,7 @@ def make_dann_step(loss_fn, lambda_domain: float, nan_guard: bool = False):
         ])
         domain_loss = cross_entropy_loss(domain_logits, domain_labels)
         total = task_loss + lambda_domain * domain_loss
-        total.backward()
+        _backward(total, model)  # the discriminator's matmuls are full fp32 already
         metrics = segmentation_metrics(src_logits.detach(), src_labels)
         metrics.update(task_loss=task_loss.detach(), domain_loss=domain_loss.detach(),
                        loss=total.detach())

@@ -11,9 +11,10 @@ upconv by its dtype too, as the JAX package routes them:
 
 * a 3x3x3 conv with Cin, Cout <= 64 -> ``ops.conv3`` (eval:
   ``conv3x3x3_cf_relu``, BN folded, in bf16 or fp32 (``conv3.eval_route``);
-  train: ``conv3x3x3_cf``, whose backward runs the dx and dW kernels), and
-  in train mode a DoubleConv whose two convs both are -> ``ops.conv3_fused``
-  (the fused block);
+  train: ``conv3x3x3_cf``, whose backward runs the dx and dW kernels, in
+  bf16 or fp32), and in train mode a DoubleConv whose two convs both are ->
+  ``ops.conv3_fused`` (the fused block), except in fp32 on the card
+  (``conv3.fuses``), whose fused instances are not written yet;
 * every pool, at every width -> ``ops.pool.max_pool2x_cf`` (forward and
   backward kernels; the forward in bf16 or fp32);
 * an upconv with Cout <= 64 -> ``ops.upconv.upconv2x_cf`` in bf16
@@ -21,12 +22,13 @@ upconv by its dtype too, as the JAX package routes them:
   transpose conv, as the JAX package sends every non-bf16 upconv to an XLA
   einsum (on the CPU the op's plain version is that einsum);
 * the 1x1x1 head -> ``ops.head.head1x1_cf`` (bf16 or fp32 features; its
-  backward runs the dx kernel);
+  backward runs the dx and weight-gradient kernels);
 * everything wider is the deep region (enc3, the bottleneck, dec0 and
   dec1's 128->64 conv at the default widths), which runs as the library's
   conv and transpose conv in the working dtype, as the JAX package runs it
   as XLA. In an fp32 forward the library runs in full fp32
-  (:func:`library_precision`: cuDNN's TF32 is off).
+  (:func:`library_precision`: cuDNN's TF32 is off), and the train steps'
+  backward too (``engine.steps``).
 
 Eval forward (``model.eval()``): each BatchNorm is folded per channel into
 its conv's weights and bias, in fp32, as the JAX package folds at
@@ -57,11 +59,15 @@ passed to :meth:`UNet3D.forward`, in the same order on both paths. A 192^3
 train step at default widths launches 5 conv+stats, 5 boundary conv+stats,
 1 conv forward (dec1's conv1), 5 dx, 5 dx-epilogue, 6 dW, 5 prologue dW, 4
 pool forward, 4 pool backward, 3 upconv, 1 head, 1 head-dx and 1
-head-weight-gradient kernel on a GPU.
+head-weight-gradient kernel on a GPU. In fp32 on a GPU every block runs
+the per-conv chain (the JAX package runs that configuration only under a
+data mesh; its fused block's fp32 instances are the port's next work): 11
+conv, 10 dx and 11 dW launches of the fp32 bodies, 4 pool forward and 4
+pool backward, 1 head, 1 head-dx and 1 head-weight-gradient, and the
+library's 7 convs and 4 transpose convs forward.
 
 On the CPU the same ops run their plain versions. ``dtype`` is the compute
-dtype (bf16, or fp32: on the GPU in eval only so far, since the fp32
-instances of the training kernels are not ported yet); parameters stay fp32.
+dtype (bf16 or fp32); parameters stay fp32.
 """
 
 from __future__ import annotations
@@ -200,16 +206,18 @@ class DoubleConv(nn.Module):
                 x = torch.relu(F.conv3d(x, wt, b.to(dtype), padding=1))
         return x
 
-    def fused(self) -> bool:
-        """Whether the train-mode forward takes the fused path: both convs
-        on the kernels."""
+    def fused(self, dtype: torch.dtype = torch.bfloat16, device_type: str = "cuda") -> bool:
+        """Whether the train-mode forward in ``dtype`` on a ``device_type``
+        device takes the fused path: both convs on the kernels, and a
+        (dtype, device) whose fused instances exist (``conv3.fuses``)."""
         c0, c1 = self.double_conv[0], self.double_conv[4]
-        return (conv3.supported(c0.in_channels, c0.out_channels)
+        return (conv3.fuses(dtype, device_type)
+                and conv3.supported(c0.in_channels, c0.out_channels)
                 and conv3.supported(c1.in_channels, c1.out_channels))
 
     def forward_train(self, x: torch.Tensor, dtype: torch.dtype,
                       generator: torch.Generator | None = None) -> torch.Tensor:
-        if self.fused():
+        if self.fused(dtype, x.device.type):
             return self.forward_train_fused(x, dtype, generator)
         return self.forward_train_per_conv(x, dtype, generator)
 

@@ -14,16 +14,21 @@ Port of ``multimodal_segmentation_project_tpu/ops/pallas_conv.py``:
   ``_conv_bwd_rule``: dx is the same conv on the cotangent with the weights
   flipped spatially and Cin/Cout swapped (:func:`conv3x3x3_cf_dx`, skipped
   when x needs no gradient: the image at the first conv), dW the fp32
-  weight gradient (:func:`conv3x3x3_cf_dw`), db a plain fp32 sum.
+  weight gradient (:func:`conv3x3x3_cf_dw`), db a plain fp32 sum (XLA in
+  the JAX package). In bf16 or in fp32.
 
 On CUDA tensors each launches its hand-written kernel: ``csrc/conv3.cu``
 (one implicit-GEMM body on bf16; the eval conv's bias+ReLU epilogue and the
 training conv's cast-then-bias epilogue, also used for dx),
-``csrc/conv3_f32.cu`` (the fp32 body: the eval conv on an fp32 x, counted
-on :func:`conv3x3x3_cf_relu_f32`) and ``csrc/conv3_dw.cu``. The fused
-DoubleConv's convs, on the same kernels, are in ``ops.conv3_fused``. On CPU
-tensors each runs its ``*_reference``, the plain version of the same
-arithmetic. Each wrapper counts its launches.
+``csrc/conv3_f32.cu`` (the fp32 body: the eval conv, the training conv and
+its dx on an fp32 x, counted on :func:`conv3x3x3_cf_relu_f32`,
+:func:`conv3x3x3_cf_f32` and :func:`conv3x3x3_cf_dx_f32`),
+``csrc/conv3_dw.cu`` (the bf16 dW) and ``csrc/conv3_dw_f32.cu`` (the fp32
+dW, counted on :func:`conv3x3x3_cf_dw_f32`). The fused DoubleConv's convs,
+on the same kernels, are in ``ops.conv3_fused``; in fp32 on the card a
+DoubleConv runs the per-conv chain (:func:`fuses`). On CPU tensors each
+runs its ``*_reference``, the plain version of the same arithmetic. Each
+wrapper counts its launches.
 """
 
 from __future__ import annotations
@@ -48,6 +53,17 @@ def eval_route(dtype: torch.dtype, cin: int, cout: int) -> str | None:
     if not supported(cin, cout):
         return None
     return "mmseg_conv3_f32_bias_relu" if dtype == torch.float32 else "mmseg_conv3_bias_relu"
+
+
+def fuses(dtype: torch.dtype, device_type: str) -> bool:
+    """Whether a train-mode DoubleConv whose two convs both take the kernels
+    runs as the fused block (``ops.conv3_fused``) in ``dtype`` on a
+    ``device_type`` device: everywhere but fp32 off the CPU, where the fused
+    block's fp32 instances (kernels 3, 4, 5, 6 and 12) are not written yet,
+    so the block runs the per-conv chain (:func:`conv3x3x3_cf` and its
+    backward, on the fp32 instances). On the CPU both paths are plain torch
+    and fp32 keeps the fused one."""
+    return dtype != torch.float32 or device_type == "cpu"
 
 
 # ---- plain versions ---------------------------------------------------
@@ -215,15 +231,32 @@ def f32_launch_dims(shape: tuple, cout: int) -> tuple:
     return -(-w // tw) * -(-h // th), -(-d // td), bsz, F32_THREADS, stages * stage * 4
 
 
+def _f32_call(name: str, entry: str, x: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor | None) -> Launch:
+    wk, bk, out = conv_operands(name, x, w, b, torch.float32)
+    cout = out.shape[1]
+    args = (x.data_ptr(), wk.data_ptr(), None if bk is None else bk.data_ptr(), out.data_ptr(),
+            x.shape[0], x.shape[1], cout, *x.shape[2:], *f32_launch_dims(tuple(x.shape), cout))
+    return Launch(entry, args, out, (x, wk, bk, out))
+
+
 def relu_f32_call(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> Launch:
     """Kernel 7's fp32 call on CUDA tensors: relu(conv3d(x, w) + b) of an
     fp32 x (B, Cin, D, H, W), w (3, 3, 3, Cin, Cout), b (Cout,) -> fp32
     (B, Cout, D, H, W). The weights are packed in fp32 once per call."""
-    wk, bk, out = conv_operands("conv3x3x3_cf_relu_f32", x, w, b, torch.float32)
-    cout = out.shape[1]
-    args = (x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-            cout, *x.shape[2:], *f32_launch_dims(tuple(x.shape), cout))
-    return Launch("mmseg_conv3_f32_bias_relu", args, out, (x, wk, bk, out))
+    return _f32_call("conv3x3x3_cf_relu_f32", "mmseg_conv3_f32_bias_relu", x, w, b)
+
+
+def conv_f32_call(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> Launch:
+    """Kernel 1's fp32 call on CUDA tensors: conv3d(x, w) + b of an fp32 x,
+    in fp32 (the training forward)."""
+    return _f32_call("conv3x3x3_cf_f32", "mmseg_conv3_f32", x, w, b)
+
+
+def dx_f32_call(g: torch.Tensor, w: torch.Tensor) -> Launch:
+    """Kernel 1's fp32 call as the dx of the conv with weights w: the same
+    body on the fp32 cotangent g with flip_transpose(w), no bias."""
+    return _f32_call("conv3x3x3_cf_dx_f32", "mmseg_conv3_f32", g, flip_transpose(w), None)
 
 
 def conv3x3x3_cf_relu_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -237,21 +270,47 @@ def conv3x3x3_cf_relu_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> 
 
 
 def _conv_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The training forward without autograd; its launches count on conv3x3x3_cf."""
+    """The training forward without autograd; its bf16 launches count on
+    conv3x3x3_cf, its fp32 ones on conv3x3x3_cf_f32."""
     if x.device.type == "cpu":
         return conv3x3x3_cf_reference(x, w, b)
+    if x.dtype == torch.float32:
+        return conv3x3x3_cf_f32(x, w, b)
     out = run("conv3x3x3_cf", conv_call(x, w, b), x)
     conv3x3x3_cf.launches += 1
     return out
 
 
+def conv3x3x3_cf_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Kernel 1's fp32 instance, without autograd: conv3d(x, w) + b of an
+    fp32 x, in fp32; the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return conv3x3x3_cf_reference(x, w, b)
+    out = run("conv3x3x3_cf_f32", conv_f32_call(x, w, b), x)
+    conv3x3x3_cf_f32.launches += 1
+    return out
+
+
 def conv3x3x3_cf_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """dx of the conv: g (B, Cout, D, H, W), w (3, 3, 3, Cin, Cout) ->
-    (B, Cin, D, H, W) in g's dtype; bf16 only on CUDA."""
+    (B, Cin, D, H, W) in g's dtype; bf16 here on CUDA, fp32 through
+    :func:`conv3x3x3_cf_dx_f32`."""
     if g.device.type == "cpu":
         return conv3x3x3_cf_dx_reference(g, w)
+    if g.dtype == torch.float32:
+        return conv3x3x3_cf_dx_f32(g, w)
     out = run("conv3x3x3_cf_dx", dx_call(g, w), g)
     conv3x3x3_cf_dx.launches += 1
+    return out
+
+
+def conv3x3x3_cf_dx_f32(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Kernel 1-dx's fp32 instance: the dx of the conv with weights w from
+    an fp32 cotangent g, in fp32; the plain version on the CPU."""
+    if g.device.type == "cpu":
+        return conv3x3x3_cf_dx_reference(g, w)
+    out = run("conv3x3x3_cf_dx_f32", dx_f32_call(g, w), g)
+    conv3x3x3_cf_dx_f32.launches += 1
     return out
 
 
@@ -267,19 +326,25 @@ def dw_partial_blocks(device: torch.device, cin: int) -> int:
     return max(1, DW_WAVES * sms // -(-cin // 16))
 
 
-def dw_operands(name: str, x: torch.Tensor, g: torch.Tensor):
-    """Checks for a dW kernel on input x and cotangent g; its fp32 scratch
-    (one (27, 16, Cout16) partial per block and chunk), its fp32 output
-    (3, 3, 3, Cin, Cout) and its integer arguments."""
-    _build.require(name, x, torch.bfloat16, 5)
-    _build.require(name, g, torch.bfloat16, 5)
-    bsz, cin, d, h, wd = x.shape
-    cout = g.shape[1]
-    if g.shape[0] != bsz or g.shape[2:] != x.shape[2:]:
+def _check_dw(name: str, x: torch.Tensor, g: torch.Tensor, dtype: torch.dtype) -> None:
+    """Raise unless a dW kernel takes input x and cotangent g, both of ``dtype``."""
+    _build.require(name, x, dtype, 5)
+    _build.require(name, g, dtype, 5)
+    cin, cout = x.shape[1], g.shape[1]
+    if g.shape[0] != x.shape[0] or g.shape[2:] != x.shape[2:]:
         raise ValueError(
             f"{name}: cotangent {tuple(g.shape)} does not match input {tuple(x.shape)}")
     if not supported(cin, cout):
         raise ValueError(f"{name}: the kernel takes Cin, Cout <= {MAX_CHANNELS}, got {cin}, {cout}")
+
+
+def dw_operands(name: str, x: torch.Tensor, g: torch.Tensor):
+    """Checks for a dW kernel on input x and cotangent g; its fp32 scratch
+    (one (27, 16, Cout16) partial per block and chunk), its fp32 output
+    (3, 3, 3, Cin, Cout) and its integer arguments."""
+    _check_dw(name, x, g, torch.bfloat16)
+    bsz, cin, d, h, wd = x.shape
+    cout = g.shape[1]
     nblk = dw_partial_blocks(x.device, cin)
     partial = torch.empty(nblk * -(-cin // 16) * 27 * 16 * (-(-cout // 16) * 16),
                           dtype=torch.float32, device=x.device)
@@ -296,18 +361,77 @@ def dw_call(x: torch.Tensor, g: torch.Tensor) -> Launch:
 
 def conv3x3x3_cf_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """fp32 dW (3, 3, 3, Cin, Cout) of the conv from its input x (B, Cin, D,
-    H, W) and cotangent g (B, Cout, D, H, W); bf16 inputs only on CUDA."""
+    H, W) and cotangent g (B, Cout, D, H, W); on CUDA bf16 inputs here, fp32
+    ones through :func:`conv3x3x3_cf_dw_f32`."""
     if x.device.type == "cpu":
         return conv3x3x3_cf_dw_reference(x, g)
+    if x.dtype == torch.float32:
+        return conv3x3x3_cf_dw_f32(x, g)
     dw = run("conv3x3x3_cf_dw", dw_call(x, g), x)
     conv3x3x3_cf_dw.launches += 1
     return dw
 
 
+# ---- the fp32 dW body (csrc/conv3_dw_f32.cu) ------------------------------
+
+DW_F32_CI = 4           # input channels per block (the grid's y)
+DW_F32_CO = 8           # output channels per block (the grid's z)
+DW_F32_THREADS = 256
+DW_F32_WAVES = 2        # blocks per SM over all channel blocks: one is resident a SM
+
+
+def dw_f32_launch_dims(device: torch.device, shape: tuple, cout: int) -> tuple:
+    """(grid x, grid y, grid z, threads, dynamic shared memory in bytes) of
+    the fp32 dW on x of ``shape`` (B, Cin, D, H, W): grid x is nblk,
+    DW_F32_WAVES waves of one block per SM over the (Cin, Cout) channel
+    blocks, each walking every nblk-th output tile; its two ring stages each
+    hold DW_F32_CI haloed input channels ((TD + 2) (TH + 2) staged rows of
+    F32_PITCH floats) and DW_F32_CO cotangent channels (TD TH rows). The
+    split depends on the SM count and the channels only, so the sum order
+    and the result do not change from run to run on one card."""
+    cin = shape[1]
+    td, th, _ = F32_TILE
+    blocks = -(-cin // DW_F32_CI) * -(-cout // DW_F32_CO)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    nblk = max(1, DW_F32_WAVES * sms // blocks)
+    stage = (DW_F32_CI * (td + 2) * (th + 2) + DW_F32_CO * td * th) * F32_PITCH
+    return nblk, -(-cin // DW_F32_CI), -(-cout // DW_F32_CO), DW_F32_THREADS, 2 * stage * 4
+
+
+def dw_f32_call(x: torch.Tensor, g: torch.Tensor) -> Launch:
+    """Kernel 2's fp32 call on CUDA tensors: fp32 dW (3, 3, 3, Cin, Cout)
+    from an fp32 input x (B, Cin, D, H, W) and cotangent g (B, Cout, D, H,
+    W), through an fp32 scratch of one (27, Cin, Cout) partial per block
+    row (grid x)."""
+    name = "conv3x3x3_cf_dw_f32"
+    _check_dw(name, x, g, torch.float32)
+    bsz, cin, d, h, wd = x.shape
+    cout = g.shape[1]
+    dims = dw_f32_launch_dims(x.device, tuple(x.shape), cout)
+    partial = torch.empty(dims[0] * 27 * cin * cout, dtype=torch.float32, device=x.device)
+    dw = torch.empty((3, 3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    return Launch("mmseg_conv3_dw_f32", (x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                                         dw.data_ptr(), bsz, cin, cout, d, h, wd, *dims),
+                  dw, (x, g, partial, dw))
+
+
+def conv3x3x3_cf_dw_f32(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Kernel 2's fp32 instance: dW of the conv from an fp32 input and
+    cotangent, in fp32; the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return conv3x3x3_cf_dw_reference(x, g)
+    dw = run("conv3x3x3_cf_dw_f32", dw_f32_call(x, g), x)
+    conv3x3x3_cf_dw_f32.launches += 1
+    return dw
+
+
 conv3x3x3_cf_relu.launches = 0
 conv3x3x3_cf_relu_f32.launches = 0
+conv3x3x3_cf_f32.launches = 0
 conv3x3x3_cf_dx.launches = 0
+conv3x3x3_cf_dx_f32.launches = 0
 conv3x3x3_cf_dw.launches = 0
+conv3x3x3_cf_dw_f32.launches = 0
 
 
 class _Conv3(torch.autograd.Function):
@@ -329,7 +453,8 @@ class _Conv3(torch.autograd.Function):
 
 def conv3x3x3_cf(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """SAME 3x3x3 conv + bias, differentiable: x (B, Cin, D, H, W) in the
-    working dtype, w (3, 3, 3, Cin, Cout) and b (Cout,) fp32 -> x's dtype."""
+    working dtype (bf16 or fp32), w (3, 3, 3, Cin, Cout) and b (Cout,) fp32
+    -> x's dtype."""
     return _Conv3.apply(x, w, b)
 
 

@@ -10,17 +10,17 @@ over batch and volume (:func:`head1x1_cf_dw`), plain XLA in the JAX
 package and a kernel of the port's own here.
 
 On CUDA tensors the forward launches ``csrc/head1x1.cu:mmseg_head1x1``
-(bf16 features in, fp32 logits out) or, for fp32 features,
-``mmseg_head1x1_f32`` (counted on :func:`head1x1_cf_f32`), dx ``mmseg_head1x1_dx`` (fp32
+(bf16 features in, fp32 logits out), dx ``mmseg_head1x1_dx`` (fp32
 cotangent in, bf16 out, no bias) and the weight gradient
 ``mmseg_head1x1_dw`` (bf16 features and fp32 cotangent in, fp32 dkernel
-and dbias out); on CPU tensors they run :func:`head1x1_cf_reference`,
-:func:`head1x1_cf_dx_reference` and :func:`head1x1_cf_dw_reference`.
-:func:`head_call`, :func:`head_f32_call`, :func:`dx_call` and
-:func:`dw_call` build each launch with its operands and outputs ready, for
-the wrappers and for a bare timing. The backward's kernels take bf16
-features, so off the CPU an fp32 head that needs a gradient is refused:
-their fp32 instances are not ported yet.
+and dbias out); for fp32 features their fp32 instances
+``mmseg_head1x1_f32``, ``mmseg_head1x1_dx_f32`` (fp32 out) and
+``mmseg_head1x1_dw_f32``, counted on :func:`head1x1_cf_f32`,
+:func:`head1x1_cf_dx_f32` and :func:`head1x1_cf_dw_f32`. On CPU tensors
+they run :func:`head1x1_cf_reference`, :func:`head1x1_cf_dx_reference` and
+:func:`head1x1_cf_dw_reference`. The ``*_call`` functions build each
+launch with its operands and outputs ready, for the wrappers and for a
+bare timing.
 """
 
 from __future__ import annotations
@@ -107,12 +107,9 @@ def head_f32_call(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> 
     return Launch("mmseg_head1x1_f32", args, out, (x, wk, bk, out))
 
 
-def dx_call(ct: torch.Tensor, kernel: torch.Tensor) -> Launch:
-    """Kernel 11-dx's call on CUDA tensors: bf16 dx (B, Cf, D, H, W) from
-    the fp32 cotangent ct (B, Co, D, H, W) and kernel (Cf, Co). The kernel
-    reads the weights as (Co, Cf) fp32, kernel.t(): in the model a view of
-    the (classes, Cf) parameter, so neither a copy nor a bias is made."""
-    name = "head1x1_cf_dx"
+def _dx_operands(name: str, ct: torch.Tensor, kernel: torch.Tensor, dtype: torch.dtype):
+    """Checks for a dx kernel on the fp32 cotangent ct and kernel (Cf, Co);
+    the weights as (Co, Cf) fp32 and dx (B, Cf, D, H, W) in ``dtype``."""
     _build.require(name, ct, torch.float32, 5)
     b, co, d, h, w = ct.shape
     if kernel.dim() != 2 or kernel.shape[1] != co:
@@ -123,9 +120,35 @@ def dx_call(ct: torch.Tensor, kernel: torch.Tensor) -> Launch:
     if not 1 <= cf <= MAX_DX_CHANNELS:
         raise ValueError(f"{name}: the kernel takes 1..{MAX_DX_CHANNELS} channels, got {cf}")
     wk = kernel.t().to(ct.device, torch.float32).contiguous()
-    dx = torch.empty((b, cf, d, h, w), dtype=torch.bfloat16, device=ct.device)
-    return Launch("mmseg_head1x1_dx", (ct.data_ptr(), wk.data_ptr(), dx.data_ptr(), b, co, cf,
-                                       d * h * w), dx, (ct, wk, dx))
+    return wk, torch.empty((b, cf, d, h, w), dtype=dtype, device=ct.device)
+
+
+def dx_call(ct: torch.Tensor, kernel: torch.Tensor) -> Launch:
+    """Kernel 11-dx's call on CUDA tensors: bf16 dx (B, Cf, D, H, W) from
+    the fp32 cotangent ct (B, Co, D, H, W) and kernel (Cf, Co). The kernel
+    reads the weights as (Co, Cf) fp32, kernel.t(): in the model a view of
+    the (classes, Cf) parameter, so neither a copy nor a bias is made."""
+    wk, dx = _dx_operands("head1x1_cf_dx", ct, kernel, torch.bfloat16)
+    b, co, d, h, w = ct.shape
+    return Launch("mmseg_head1x1_dx", (ct.data_ptr(), wk.data_ptr(), dx.data_ptr(), b, co,
+                                       dx.shape[1], d * h * w), dx, (ct, wk, dx))
+
+
+def dx_f32_launch_dims(shape: tuple) -> tuple:
+    """(blocks, threads) of the dx kernel on a cotangent of ``shape`` (B,
+    Co, D, H, W): a thread per 8 voxels of one batch element."""
+    b, _, d, h, w = shape
+    return -(-(b * -(-(d * h * w) // 8)) // HEAD_THREADS), HEAD_THREADS
+
+
+def dx_f32_call(ct: torch.Tensor, kernel: torch.Tensor) -> Launch:
+    """Kernel 11-dx's fp32 call on CUDA tensors: fp32 dx (B, Cf, D, H, W)
+    (fp32 features) from the fp32 cotangent ct and kernel (Cf, Co)."""
+    wk, dx = _dx_operands("head1x1_cf_dx_f32", ct, kernel, torch.float32)
+    b, co, d, h, w = ct.shape
+    return Launch("mmseg_head1x1_dx_f32",
+                  (ct.data_ptr(), wk.data_ptr(), dx.data_ptr(), b, co, dx.shape[1], d * h * w,
+                   *dx_f32_launch_dims(tuple(ct.shape))), dx, (ct, wk, dx))
 
 
 def dw_blocks(device: torch.device, groups: int) -> int:
@@ -137,13 +160,18 @@ def dw_blocks(device: torch.device, groups: int) -> int:
     return max(1, min(HEAD_DW_BLOCKS_PER_SM * sms, -(-groups // HEAD_THREADS)))
 
 
-def dw_call(x: torch.Tensor, ct: torch.Tensor) -> Launch:
-    """Kernel 11-dw's call on CUDA tensors: fp32 dkernel (Cf, Co) and dbias
-    (Co,) from the bf16 features x (B, Cf, D, H, W) and the fp32 cotangent
-    ct (B, Co, D, H, W), through an fp32 scratch of one row of Cf * Co + Co
-    partials per block."""
-    name = "head1x1_cf_dw"
-    _build.require(name, x, torch.bfloat16, 5)
+def dw_slice(co: int, dtype: torch.dtype) -> int:
+    """Feature channels per block row of the weight gradient on features of
+    ``dtype`` (csrc/head1x1.cu dw_slice): its grid's y is ceil(Cf /
+    dw_slice(Co, dtype))."""
+    return (16 if co <= 4 else 8 if co <= 6 else 4) // (2 if dtype == torch.float32 else 1)
+
+
+def _dw_operands(name: str, x: torch.Tensor, ct: torch.Tensor, dtype: torch.dtype):
+    """Checks for a weight-gradient kernel on features x of ``dtype`` and
+    the fp32 cotangent ct; its C arguments before the stream (less the
+    fp32 entry's descriptor), and its outputs and tensors."""
+    _build.require(name, x, dtype, 5)
     _build.require(name, ct, torch.float32, 5)
     b, cf, d, h, w = x.shape
     co = ct.shape[1]
@@ -158,9 +186,27 @@ def dw_call(x: torch.Tensor, ct: torch.Tensor) -> Launch:
     part = torch.empty(nblk * (cf * co + co), dtype=torch.float32, device=x.device)
     dk = torch.empty((cf, co), dtype=torch.float32, device=x.device)
     db = torch.empty((co,), dtype=torch.float32, device=x.device)
-    return Launch("mmseg_head1x1_dw", (x.data_ptr(), ct.data_ptr(), part.data_ptr(), dk.data_ptr(),
-                                       db.data_ptr(), b, cf, co, v, nblk), (dk, db),
-                  (x, ct, part, dk, db))
+    args = (x.data_ptr(), ct.data_ptr(), part.data_ptr(), dk.data_ptr(), db.data_ptr(), b, cf, co,
+            v, nblk)
+    return args, (dk, db), (x, ct, part, dk, db)
+
+
+def dw_call(x: torch.Tensor, ct: torch.Tensor) -> Launch:
+    """Kernel 11-dw's call on CUDA tensors: fp32 dkernel (Cf, Co) and dbias
+    (Co,) from the bf16 features x (B, Cf, D, H, W) and the fp32 cotangent
+    ct (B, Co, D, H, W), through an fp32 scratch of one row of Cf * Co + Co
+    partials per block."""
+    return Launch("mmseg_head1x1_dw", *_dw_operands("head1x1_cf_dw", x, ct, torch.bfloat16))
+
+
+def dw_f32_call(x: torch.Tensor, ct: torch.Tensor) -> Launch:
+    """Kernel 11-dw's fp32 call on CUDA tensors: the same from fp32
+    features, with the descriptor's slices of feature channels (the grid's
+    y) and threads."""
+    args, out, tensors = _dw_operands("head1x1_cf_dw_f32", x, ct, torch.float32)
+    cf, co = x.shape[1], ct.shape[1]
+    slices = -(-cf // dw_slice(co, torch.float32))
+    return Launch("mmseg_head1x1_dw_f32", (*args, slices, HEAD_THREADS), out, tensors)
 
 
 def _head_fwd(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -187,13 +233,27 @@ def head1x1_cf_f32(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) ->
 
 def head1x1_cf_dx(ct: torch.Tensor, kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """dx (B, Cin, D, H, W) in ``dtype`` from the logits' cotangent ct (B,
-    Co, D, H, W) and kernel (Cin, Co); fp32 ct and bf16 dx only on CUDA."""
+    Co, D, H, W) and kernel (Cin, Co); on CUDA an fp32 ct, and a bf16 dx
+    here, an fp32 one through :func:`head1x1_cf_dx_f32`."""
     if ct.device.type == "cpu":
         return head1x1_cf_dx_reference(ct, kernel, dtype)
+    if dtype == torch.float32:
+        return head1x1_cf_dx_f32(ct, kernel)
     if dtype != torch.bfloat16:
-        raise TypeError(f"head1x1_cf_dx: the CUDA kernel writes bfloat16, asked for {dtype}")
+        raise TypeError(f"head1x1_cf_dx: the CUDA kernels write bfloat16 or float32, asked for "
+                        f"{dtype}")
     out = run("head1x1_cf_dx", dx_call(ct, kernel), ct)
     head1x1_cf_dx.launches += 1
+    return out
+
+
+def head1x1_cf_dx_f32(ct: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Kernel 11-dx's fp32 instance: fp32 dx from the fp32 cotangent; the
+    plain version on the CPU."""
+    if ct.device.type == "cpu":
+        return head1x1_cf_dx_reference(ct, kernel, torch.float32)
+    out = run("head1x1_cf_dx_f32", dx_f32_call(ct, kernel), ct)
+    head1x1_cf_dx_f32.launches += 1
     return out
 
 
@@ -207,11 +267,24 @@ def head1x1_cf_dw_reference(x: torch.Tensor,
 def head1x1_cf_dw(x: torch.Tensor, ct: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """dkernel (Cin, Co) and dbias (Co,) in fp32 from the features x (B,
     Cin, D, H, W) and the logits' cotangent ct (B, Co, D, H, W): reductions
-    over batch and volume; bf16 x and fp32 ct only on CUDA."""
+    over batch and volume; on CUDA an fp32 ct, and bf16 x here, fp32 x
+    through :func:`head1x1_cf_dw_f32`."""
     if x.device.type == "cpu":
         return head1x1_cf_dw_reference(x, ct)
+    if x.dtype == torch.float32:
+        return head1x1_cf_dw_f32(x, ct)
     out = run("head1x1_cf_dw", dw_call(x, ct), x)
     head1x1_cf_dw.launches += 1
+    return out
+
+
+def head1x1_cf_dw_f32(x: torch.Tensor, ct: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 11-dw's fp32 instance: dkernel and dbias from fp32 features;
+    the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return head1x1_cf_dw_reference(x, ct)
+    out = run("head1x1_cf_dw_f32", dw_f32_call(x, ct), x)
+    head1x1_cf_dw_f32.launches += 1
     return out
 
 
@@ -232,16 +305,13 @@ class _Head(torch.autograd.Function):
 
 def head1x1_cf(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """x (B, Cin, D, H, W), kernel (Cin, Co), bias (Co,) -> fp32 (B, Co, D, H, W),
-    differentiable; on CUDA bf16 features, or fp32 ones without a gradient."""
-    if (x.device.type != "cpu" and x.dtype == torch.float32 and torch.is_grad_enabled()
-            and any(t.requires_grad for t in (x, kernel, bias))):
-        raise TypeError("head1x1_cf: an fp32 head that needs a gradient needs the fp32 "
-                        "instances of the head's dx and weight-gradient kernels, which are not "
-                        "ported yet")
+    differentiable; on CUDA bf16 or fp32 features."""
     return _Head.apply(x, kernel, bias)
 
 
 head1x1_cf.launches = 0  # forward kernel launches
 head1x1_cf_f32.launches = 0
 head1x1_cf_dx.launches = 0
+head1x1_cf_dx_f32.launches = 0
 head1x1_cf_dw.launches = 0
+head1x1_cf_dw_f32.launches = 0

@@ -12,11 +12,10 @@ use floor semantics; the dropped tail gets a zero gradient.
 
 On CUDA tensors the forward launches ``csrc/pool2x.cu:pool2x_kernel``, in
 bf16 or, for an fp32 x, its fp32 instance (counted on
-:func:`max_pool2x_cf_f32`), and the backward ``pool2x_bwd_kernel`` (bf16),
-at every channel count and shape; on CPU tensors they run
-:func:`max_pool2x_cf_reference` and :func:`max_pool2x_cf_bwd_reference`. An
-fp32 pool that needs a gradient is refused off the CPU: the fp32 instance
-of the backward kernel is not ported yet.
+:func:`max_pool2x_cf_f32`), and the backward ``pool2x_bwd_kernel``, in bf16
+or fp32 (counted on :func:`max_pool2x_cf_bwd_f32`), at every channel count
+and shape; on CPU tensors they run :func:`max_pool2x_cf_reference` and
+:func:`max_pool2x_cf_bwd_reference`.
 """
 
 from __future__ import annotations
@@ -84,20 +83,35 @@ def pool_f32_call(x: torch.Tensor) -> Launch:
                                        *f32_launch_dims(tuple(x.shape))), out, (x, out))
 
 
-def bwd_call(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> Launch:
-    """Kernel 9's call on CUDA tensors: dx (B, C, D, H, W) from the input
-    x, the pooled y and its cotangent g, all bf16."""
-    name = "max_pool2x_cf_bwd"
+def _bwd_operands(name: str, x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+                  dtype: torch.dtype):
+    """Checks for a backward kernel on x, y and g, all of ``dtype``; dx,
+    zero-filled where an extent is odd (the dropped tail gets no gradient),
+    and the C arguments before the descriptor."""
     for t in (x, y, g):
-        _build.require(name, t, torch.bfloat16, 5)
+        _build.require(name, t, dtype, 5)
     b, c, d, h, w = x.shape
     pooled = (b, c, d // 2, h // 2, w // 2)
     if tuple(y.shape) != pooled or tuple(g.shape) != pooled:
         raise ValueError(f"{name}: y {tuple(y.shape)} and g {tuple(g.shape)} must be {pooled}")
     odd = d % 2 or h % 2 or w % 2
     dx = (torch.zeros if odd else torch.empty)(x.shape, dtype=x.dtype, device=x.device)
-    args = (x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(), b, c, d, h, w)
+    return dx, (x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(), b, c, d, h, w)
+
+
+def bwd_call(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> Launch:
+    """Kernel 9's call on CUDA tensors: dx (B, C, D, H, W) from the input
+    x, the pooled y and its cotangent g, all bf16."""
+    dx, args = _bwd_operands("max_pool2x_cf_bwd", x, y, g, torch.bfloat16)
     return Launch("mmseg_pool2x_bwd", args, dx, (x, y, g, dx))
+
+
+def bwd_f32_call(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> Launch:
+    """Kernel 9's fp32 call on CUDA tensors: dx from x, y and g, all fp32;
+    one thread per pooled voxel (f32_launch_dims)."""
+    dx, args = _bwd_operands("max_pool2x_cf_bwd_f32", x, y, g, torch.float32)
+    return Launch("mmseg_pool2x_bwd_f32", (*args, *f32_launch_dims(tuple(x.shape))), dx,
+                  (x, y, g, dx))
 
 
 def _pool_fwd(x: torch.Tensor) -> torch.Tensor:
@@ -124,11 +138,24 @@ def max_pool2x_cf_f32(x: torch.Tensor) -> torch.Tensor:
 
 def max_pool2x_cf_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dx (B, C, D, H, W) in x's dtype from the input x, the pooled y and
-    its cotangent g; bf16 only on CUDA."""
+    its cotangent g; on CUDA bf16 here, fp32 through
+    :func:`max_pool2x_cf_bwd_f32`."""
     if x.device.type == "cpu":
         return max_pool2x_cf_bwd_reference(x, y, g)
+    if x.dtype == torch.float32:
+        return max_pool2x_cf_bwd_f32(x, y, g)
     dx = run("max_pool2x_cf_bwd", bwd_call(x, y, g), x)
     max_pool2x_cf_bwd.launches += 1
+    return dx
+
+
+def max_pool2x_cf_bwd_f32(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Kernel 9's fp32 instance: dx of an fp32 pool, equal shares to ties;
+    the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return max_pool2x_cf_bwd_reference(x, y, g)
+    dx = run("max_pool2x_cf_bwd_f32", bwd_f32_call(x, y, g), x)
+    max_pool2x_cf_bwd_f32.launches += 1
     return dx
 
 
@@ -147,14 +174,11 @@ class _MaxPool2x(torch.autograd.Function):
 
 def max_pool2x_cf(x: torch.Tensor) -> torch.Tensor:
     """Differentiable 2x2x2 stride-2 max pool, (B, C, D, H, W) -> (B, C,
-    D//2, H//2, W//2); on CUDA bf16, or fp32 without a gradient."""
-    if (x.device.type != "cpu" and x.dtype == torch.float32 and torch.is_grad_enabled()
-            and x.requires_grad):
-        raise TypeError("max_pool2x_cf: an fp32 pool that needs a gradient needs the fp32 "
-                        "instance of the pool-backward kernel, which is not ported yet")
+    D//2, H//2, W//2); on CUDA in bf16 or fp32."""
     return _MaxPool2x.apply(x)
 
 
 max_pool2x_cf.launches = 0  # forward kernel launches
 max_pool2x_cf_f32.launches = 0
 max_pool2x_cf_bwd.launches = 0
+max_pool2x_cf_bwd_f32.launches = 0

@@ -36,30 +36,17 @@ def resolve_precision(mixed_precision: str) -> str:
     return "fp32"
 
 
-FP32_TRAINING_KERNELS = (
-    "the conv forward and its dx, the conv weight gradient, the fused DoubleConv's conv+stats, "
-    "boundary conv+stats, dx-epilogue and prologue weight-gradient kernels, the pool backward, "
-    "and the head's dx and weight gradient"
-)
-
-
-def resolve_device(name: str, precision: str, *, eval_only: bool = False) -> torch.device:
-    """The requested device; never a silent fall back to the CPU. On the GPU
-    fp32 runs the eval forward only (``eval_only``: the eval CLI): the fp32
-    instances of the training kernels are not ported yet, so fp32 training
-    runs only with ``--device cpu``."""
+def resolve_device(name: str, precision: str) -> torch.device:
+    """The requested device; never a silent fall back to the CPU. Both
+    precisions run on the GPU: fp32 (``--mixed_precision no``, the JAX
+    CLIs' default) through the fp32 instances of the kernels, bf16 through
+    the bf16 ones, so ``precision`` does not change the device."""
     device = torch.device(name)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available on this machine. The port runs on a GPU; "
                 "pass --device cpu to run the plain PyTorch path on the CPU."
-            )
-        if precision != "bf16" and not eval_only:
-            raise ValueError(
-                f"fp32 training on the GPU needs the fp32 instances of the training kernels "
-                f"({FP32_TRAINING_KERNELS}), which are not ported yet: train with "
-                f"--mixed_precision bf16 on the GPU, or in fp32 with --device cpu"
             )
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {name!r}: use 'cuda' or 'cpu'")

@@ -16,7 +16,8 @@ writes it); the log is ``logs/distill_log.csv``.
         --teacher_model best_model.msgpack --data_root data --experiment_dir exp \\
         --batch_size 1 --mixed_precision bf16 --alpha 0.7 --temperature 2.0
 
-It runs on the GPU unless ``--device cpu`` is given (see ``train_unet``).
+It runs on the GPU unless ``--device cpu`` is given, in fp32 by default
+(``--mixed_precision no``) or bf16 (see ``train_unet``).
 """
 
 from __future__ import annotations

@@ -21,7 +21,8 @@ training as the JAX CLI does:
         --pretrained_model best_model.msgpack --data_root data --experiment_dir exp \\
         --batch_size 1 --mixed_precision bf16 --freeze_encoder
 
-It runs on the GPU unless ``--device cpu`` is given (see ``train_unet``).
+It runs on the GPU unless ``--device cpu`` is given, in fp32 by default
+(``--mixed_precision no``) or bf16 (see ``train_unet``).
 """
 
 from __future__ import annotations

@@ -13,7 +13,8 @@ and ``cyclegan`` are stubs that print, as in the reference.
         --data_root data --batch_size 1 --mixed_precision bf16 --modalities ct
 
 It runs on the GPU unless ``--device cpu`` is given; asking for the GPU
-where there is none raises.
+where there is none raises. Every training experiment runs in fp32 by
+default (``--mixed_precision no``) or in bf16.
 """
 
 from __future__ import annotations

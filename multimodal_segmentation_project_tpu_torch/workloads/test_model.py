@@ -289,7 +289,7 @@ def test_model(model, device, test_dataset, args, results_dir) -> dict:
 
 
 def main(args) -> dict:
-    device = resolve_device(args.device, args.precision, eval_only=True)
+    device = resolve_device(args.device, args.precision)
     model = UNet3D(
         in_channels=1, out_channels=NUM_CLASSES, features=parse_features(args.features),
         dropout_rate=0.0, dtype=DTYPES[args.precision],

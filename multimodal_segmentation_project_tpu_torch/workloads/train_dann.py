@@ -27,7 +27,8 @@ params and optimizer beside it (``disc_params``, ``disc_opt_state``).
         --experiment_dir exp --batch_size 1 --mixed_precision bf16 \\
         --lambda_domain 0.2 --loss ce_tversky
 
-It runs on the GPU unless ``--device cpu`` is given (see ``train_unet``).
+It runs on the GPU unless ``--device cpu`` is given, in fp32 by default
+(``--mixed_precision no``) or bf16 (see ``train_unet``).
 """
 
 from __future__ import annotations

@@ -15,9 +15,9 @@ such a ``.msgpack`` or a ``.pth`` train checkpoint of the port.
         --mixed_precision bf16 --loss ce_tversky --early_stopping --patience 10
 
 It runs on the GPU unless ``--device cpu`` is given; asking for the GPU
-where there is none raises. The fp32 instances of the training kernels are
-not ported yet, so on the GPU ``--mixed_precision`` must be bf16 (or fp16,
-which selects bf16 compute); ``no`` (fp32) trains with ``--device cpu``.
+where there is none raises. ``--mixed_precision no`` (the default, as in
+the JAX CLI) trains in fp32, on the fp32 instances of the kernels; bf16
+(or fp16, which selects bf16 compute) on the bf16 ones.
 The mesh flags take one device only (``--n_spatial 1``, ``--n_data`` 1 or
 unset, no ``--multihost``) until the port trains on several GPUs. ``--no_remat`` and ``--no_auto_spatial``
 are accepted and change nothing here.

@@ -340,25 +340,31 @@ def test_the_fp32_wrappers_refuse_what_their_kernels_do_not_take(faked_launches)
                                                  "mmseg_conv3_f32_bias_relu"]
 
 
-def test_an_fp32_head_or_pool_that_needs_a_gradient_is_refused_off_the_cpu(faked_launches,
-                                                                           monkeypatch):
-    """Their fp32 backward kernels are not ported: with a gradient asked for,
-    the fp32 head and pool raise before they launch; the head never runs
-    the plain einsum. Without one (an eval forward) they launch."""
+def test_an_fp32_head_or_pool_that_needs_a_gradient_launches_its_fp32_backward_kernels(
+        faked_launches, monkeypatch):
+    """With a gradient asked for, the fp32 head and pool launch their fp32
+    forward kernels and, in the backward, their fp32 backward kernels
+    (the head's dx and weight gradient, the pool's backward), and never a
+    plain version on a device tensor. Without one (an eval forward) they
+    launch the forward kernels alone; bf16 features keep their bf16
+    kernels."""
     def refuse(*a, **k):
         raise AssertionError("a plain version ran on a device tensor")
 
-    monkeypatch.setattr(head, "head1x1_cf_reference", refuse)
-    monkeypatch.setattr(pool, "max_pool2x_cf_reference", refuse)
-    monkeypatch.setattr(torch, "einsum", refuse)
+    for module, name in ((head, "head1x1_cf_reference"), (head, "head1x1_cf_dx_reference"),
+                         (head, "head1x1_cf_dw_reference"), (pool, "max_pool2x_cf_reference"),
+                         (pool, "max_pool2x_cf_bwd_reference"), (torch, "einsum")):
+        monkeypatch.setattr(module, name, refuse)
     param = torch.empty(4, 16, 1, 1, 1, device="meta", requires_grad=True)
     bias = torch.empty(4, device="meta", requires_grad=True)
-    x = torch.empty(1, 16, 2, 4, 8, device="meta")
-    with pytest.raises(TypeError, match="fp32 head that needs a gradient"):
-        head.head1x1_cf(x, param[:, :, 0, 0, 0].t(), bias)
-    with pytest.raises(TypeError, match="fp32 pool that needs a gradient"):
-        pool.max_pool2x_cf(x.requires_grad_())
-    assert faked_launches == []
+    x = torch.empty(1, 16, 2, 4, 8, device="meta", requires_grad=True)
+    head.head1x1_cf(x, param[:, :, 0, 0, 0].t(), bias).sum().backward()
+    pool.max_pool2x_cf(x).sum().backward()
+    assert [c.entry for c in faked_launches] == [
+        "mmseg_head1x1_f32", "mmseg_head1x1_dx_f32", "mmseg_head1x1_dw_f32", "mmseg_pool2x_f32",
+        "mmseg_pool2x_bwd_f32"]
+    assert x.grad.dtype == torch.float32 and param.grad.shape == param.shape
+    faked_launches.clear()
     with torch.inference_mode():
         head.head1x1_cf(x.detach(), param[:, :, 0, 0, 0].t(), bias)
     with torch.no_grad():
@@ -366,41 +372,44 @@ def test_an_fp32_head_or_pool_that_needs_a_gradient_is_refused_off_the_cpu(faked
     assert [c.entry for c in faked_launches] == ["mmseg_head1x1_f32", "mmseg_pool2x_f32"]
     # bf16 features keep their backward kernels
     xb = torch.empty(1, 16, 2, 4, 8, dtype=torch.bfloat16, device="meta", requires_grad=True)
-    head.head1x1_cf(xb, param[:, :, 0, 0, 0].t(), bias)
-    assert faked_launches[-1].entry == "mmseg_head1x1"
+    head.head1x1_cf(xb, param[:, :, 0, 0, 0].t(), bias).sum().backward()
+    assert [c.entry for c in faked_launches[2:]] == ["mmseg_head1x1", "mmseg_head1x1_dx",
+                                                     "mmseg_head1x1_dw"]
 
 
 # ---- the CLIs' device policy -------------------------------------------------------
 
 
-def test_resolve_device_takes_fp32_on_the_gpu_for_eval_only(monkeypatch):
+def test_resolve_device_takes_fp32_on_the_gpu_for_eval_and_training(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     for precision in ("fp32", "bf16"):
-        assert common.resolve_device("cuda", precision, eval_only=True) == torch.device("cuda")
-    assert common.resolve_device("cuda", "bf16") == torch.device("cuda")
-    with pytest.raises(ValueError, match="fp32 instances of the training kernels"):
-        common.resolve_device("cuda", "fp32")
-    assert common.resolve_device("cpu", "fp32") == torch.device("cpu")
+        assert common.resolve_device("cuda", precision) == torch.device("cuda")
+        assert common.resolve_device("cpu", precision) == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for eval_only in (True, False):  # never the CPU for 'cuda'
+    for precision in ("fp32", "bf16"):  # never the CPU for 'cuda'
         with pytest.raises(RuntimeError, match="--device cpu"):
-            common.resolve_device("cuda", "fp32", eval_only=eval_only)
+            common.resolve_device("cuda", precision)
 
 
-def test_the_eval_cli_asks_for_the_eval_policy(monkeypatch, tmp_path):
-    seen = []
-
-    def spy(name, precision, **kwargs):
-        seen.append((name, precision, kwargs))
+def _resolving_spy(seen):
+    """A resolve_device that records its call and the device it resolves,
+    then stops the CLI."""
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs, common.resolve_device(*args, **kwargs)))
         raise RuntimeError("stop")
+    return spy
 
-    monkeypatch.setattr(test_model, "resolve_device", spy)
+
+def test_the_eval_cli_resolves_the_gpu_in_fp32(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    seen = []
+    monkeypatch.setattr(test_model, "resolve_device", _resolving_spy(seen))
     args = test_model.build_parser().parse_args([
         "--model_path", "m.msgpack", "--data_root", str(tmp_path), "--experiment_dir",
         str(tmp_path), "--model_name", "x", "--precision", "fp32"])
     with pytest.raises(RuntimeError, match="stop"):
         test_model.main(args)
-    assert seen == [("cuda", "fp32", {"eval_only": True})]
+    assert seen == [(("cuda", "fp32"), {}, torch.device("cuda"))]
 
 
 TRAIN_CLIS = [
@@ -412,30 +421,31 @@ TRAIN_CLIS = [
 
 @pytest.mark.parametrize("cli,extra", TRAIN_CLIS,
                          ids=[c.__name__.rsplit(".", 1)[1] for c, _ in TRAIN_CLIS])
-def test_each_training_cli_refuses_fp32_on_the_gpu(cli, extra, monkeypatch, tmp_path):
+def test_each_training_cli_takes_fp32_on_the_gpu(cli, extra, monkeypatch, tmp_path):
     """With a GPU present, --mixed_precision no (the JAX CLIs' default, fp32)
-    on the card is refused before any data is read, naming the training
-    kernels whose fp32 instances are missing; bf16 passes the same check."""
+    resolves to the card and the CLI goes on (a spy stops it there, before
+    any data is read), as bf16 does."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     argv = ["--data_root", str(tmp_path / "none"), "--experiment_dir", str(tmp_path), *extra]
-    with pytest.raises(ValueError, match="fp32 instances of the training kernels .*not ported"):
-        cli.main(cli.build_parser().parse_args([*argv, "--mixed_precision", "no"]))
     seen = []
-    monkeypatch.setattr(cli, "resolve_device",
-                        lambda *a, **k: seen.append((a, k)) or (_ for _ in ()).throw(
-                            RuntimeError("stop")))
-    with pytest.raises(RuntimeError, match="stop"):
-        cli.main(cli.build_parser().parse_args([*argv, "--mixed_precision", "bf16"]))
-    assert seen == [(("cuda", "bf16"), {})]
+    monkeypatch.setattr(cli, "resolve_device", _resolving_spy(seen))
+    for flag in ("no", "bf16"):
+        with pytest.raises(RuntimeError, match="stop"):
+            cli.main(cli.build_parser().parse_args([*argv, "--mixed_precision", flag]))
+    assert seen == [(("cuda", p), {}, torch.device("cuda")) for p in ("fp32", "bf16")]
 
 
 @pytest.mark.parametrize("experiment,extra", [
     ("train", []), ("finetune", ["--pretrained_model", "p.msgpack"]),
     ("distill", ["--teacher_model", "t.msgpack"]), ("dann", []),
 ])
-def test_the_orchestrator_refuses_fp32_training_on_the_gpu(experiment, extra, monkeypatch,
-                                                           tmp_path):
+def test_the_orchestrator_takes_fp32_training_on_the_gpu(experiment, extra, monkeypatch,
+                                                         tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match="fp32 instances of the training kernels"):
+    seen = []
+    for cli, _ in TRAIN_CLIS:
+        monkeypatch.setattr(cli, "resolve_device", _resolving_spy(seen))
+    with pytest.raises(RuntimeError, match="stop"):
         main.main(["--experiment", experiment, "--data_root", str(tmp_path / "none"),
                    "--experiment_dir", str(tmp_path), "--mixed_precision", "no", *extra])
+    assert seen == [(("cuda", "fp32"), {}, torch.device("cuda"))]

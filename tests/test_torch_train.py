@@ -182,6 +182,13 @@ def _port_model(params, stats) -> UNet3D:
 
 
 def test_two_train_steps_match_jax():
+    check_two_train_steps_against_jax()
+
+
+def check_two_train_steps_against_jax():
+    """Two steps of the port's make_train_step against the JAX one, at the
+    bounds of the module docstring (tests/test_torch_fp32_train.py runs it
+    with the card's fp32 routing forced onto the plain path)."""
     model, params, stats = _jax_setup()
     jloss = jax_loss_fn("ce_tversky")
     tx = make_optimizer(weight_decay=0.01)
