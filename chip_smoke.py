@@ -10,16 +10,18 @@ Phases, each printing one line per check; any failure exits non-zero:
 2. build: compiles every kernel of ``multimodal_segmentation_project_tpu_torch/csrc``
    with nvcc (one process per source, in parallel), from this checkout;
    prints ptxas's registers and spills of each of the 24 instances of the
-   conv body (``csrc/conv3.cu``), of the 8 of the fp32 conv body
+   conv body (``csrc/conv3.cu``), of the 24 of the fp32 conv body
    (``csrc/conv3_f32.cu``), of the 8 of the dW body (``csrc/conv3_dw.cu``),
-   of the fp32 dW body's one (``csrc/conv3_dw_f32.cu``) and of the head's and
+   of the fp32 dW body's 2 (``csrc/conv3_dw_f32.cu``) and of the head's and
    the upconv's 66 (``csrc/head1x1.cu``, ``csrc/upconv_d2s.cu``; none of the
-   last 83 may spill), and their dynamic shared memory per block;
+   last 100 may spill), and their dynamic shared memory per block;
 3. kernels: each kernel against its plain PyTorch version at every shape
    the 192^3 eval forward and train step give it, in bf16, the fp32
    instances of 7, 8 and 11 at every shape of the fp32 eval forward, and
-   those of 1, 1-dx, 2, 9, 11-dx and 11-dw at every shape of the fp32 train
-   step, on seeded inputs; prints the error against the stated tolerance, the median
+   those of 1, 1-dx, 2, 3, 4, 5, 6, 9, 11-dx and 11-dw at every shape of
+   the fp32 train step (12, which nothing calls, at conv1's; 1, 1-dx and 2
+   also at every shape of the per-conv chain, correctness only), on seeded
+   inputs; prints the error against the stated tolerance, the median
    time of the kernel as called, of its plain version and of one library
    call over distinct inputs (CUDA events; cuDNN's TF32 off), and its bound:
    the larger of its bytes over 3.35 TB/s and its FLOPs over 989 TFLOP/s
@@ -29,9 +31,12 @@ Phases, each printing one line per check; any failure exits non-zero:
    also the bare launch (operands packed before the timed window,
    BARE_REPS runs over the distinct inputs between two CUDA events, over
    the count) and the kernel/library ratios per shape, and the conv and
-   dW bodies' sums per train step; ragged edge inputs; the same bits
-   twice where blocks' partials are summed (the head's weight gradient
-   too), and for the upconv and the head's dx;
+   dW bodies' sums per train step (bf16 and fp32); ragged edge inputs
+   (the fused block's fp32 instances at W = 7, 9, 20, 37, Cin = 1 and 40,
+   Cout = 20 and 48, batch 2 and an unaligned view, t > 0 on some
+   channels); the same bits twice where blocks' partials are summed (the
+   head's weight gradient and the fused block's fp32 sums too), and for
+   the upconv and the head's dx;
 4. slice: writes two synthetic 192^3 CT cases and a seeded default-width
    UNet3D ``.pth``, runs the port's eval CLI (``workloads.test_model``) on
    the GPU, checks its artifacts and that every forward launched exactly
@@ -57,8 +62,9 @@ Phases, each printing one line per check; any failure exits non-zero:
    reports the peak allocated memory, and breaks a few steps' device time
    down from a ``torch.profiler`` trace;
 6b. fp32 train: the train CLI on phase 6's data and recipe with no
-   ``--mixed_precision`` flag (fp32, the JAX CLIs' default): every block on
-   the per-conv chain, exact launches of the fp32 kernels per step and per
+   ``--mixed_precision`` flag (fp32, the JAX CLIs' default): the fused
+   block where bf16 takes it, on its fp32 instances, exact launches of the
+   fp32 kernels per step (43, bf16's table without the upconv) and per
    validation forward and the library's convs and transpose convs, fp32
    parameters in its ``.msgpack``; then the fp32 step alone (time, peak,
    profile);
@@ -67,8 +73,9 @@ Phases, each printing one line per check; any failure exits non-zero:
    loss and every parameter's gradient, and controls that the check
    refuses a zeroed or halved deep gradient and a fused block's bn0
    scale gradient;
-7b. fp32 train parity: one fp32 step at 64^3 and full width, GPU against
-   the CPU's plain fp32 step from the same weights: the loss and every
+7b. fp32 train parity: one fp32 step at 64^3 and full width, GPU (the
+   fused block's fp32 kernels) against the CPU's plain fp32 step from the
+   same weights: the loss and every
    gradient; and a control that the same GPU step with the backward's TF32
    scope removed moves the gradients off the scoped step's;
 8. workloads (run after phase 6, before phase 7): the port's orchestrator
@@ -86,7 +93,8 @@ Phases, each printing one line per check; any failure exits non-zero:
    task and domain losses and every discriminator gradient, with a control
    that a zeroed fc0 gradient is refused;
 8b. fp32 workloads: ``finetune``, ``distill`` and ``dann`` again in fp32 on
-   phase 8's data, exact launches (the teacher's eval forward in fp32), and
+   phase 8's data, through the fused block, exact launches (a distillation
+   step 59 with the teacher's eval forward in fp32, a DANN step 74), and
    the fp32 DANN step alone (time, peak);
 9. checkpoints and preprocessing (run last): writes phase 6's trained state
    (its optimizer and its ``optax.MultiSteps`` accumulator included) as the
@@ -164,10 +172,10 @@ UPCONV_SHAPES = [(128, 64, 24), (64, 32, 48), (32, 16, 96)]  # (Cin, Cout, S in)
 HEAD_SHAPES = [(16, 4, 192)]                                 # (Cin, classes, S)
 HEAD_DX_SHAPES = [(4, 16, 192)]                              # (classes, Cin, S)
 HEAD_DW_SHAPES = [(16, 4, 192)]                              # (Cin, classes, S)
-# the fp32 train step's: every DoubleConv on the per-conv chain, so the
-# eleven convs of CONV_SHAPES run kernel 1's fp32 instance and its dW, and
-# all but the image's its dx
-F32_DX_SHAPES = [(cout, cin, s) for cin, cout, s in CONV_SHAPES if cin > 1]
+# the per-conv chain's dx convs: all eleven convs but the image's, Cin/Cout
+# swapped (with CONV_SHAPES, where phase 3 also holds the fp32 training
+# conv, its dx and its dW: every conv of a step on the per-conv chain)
+PER_CONV_DX_SHAPES = [(cout, cin, s) for cin, cout, s in CONV_SHAPES if cin > 1]
 
 # launches per eval forward and per train step (default widths, 192^3)
 PER_FORWARD = {"conv3x3x3_cf_relu": 11, "max_pool2x_cf": 4, "upconv2x_cf": 3, "head1x1_cf": 1}
@@ -177,20 +185,28 @@ PER_FORWARD = {"conv3x3x3_cf_relu": 11, "max_pool2x_cf": 4, "upconv2x_cf": 3, "h
 PER_FP32_FORWARD = {"conv3x3x3_cf_relu_f32": 11, "max_pool2x_cf_f32": 4, "head1x1_cf_f32": 1}
 LIBRARY_PER_FP32_FORWARD = {"conv3d": 7, "conv_transpose3d": 4}
 F32_KERNELS = tuple(PER_FP32_FORWARD)
-# per fp32 train step (every block on the per-conv chain), derived from the
-# shapes above, and the library's convs (the deep region) and transpose
-# convs (every upconv) of its forward; the backward's cuDNN calls run under
-# autograd and are not counted
-PER_FP32_STEP = {"conv3x3x3_cf_f32": len(CONV_SHAPES), "conv3x3x3_cf_dx_f32": len(F32_DX_SHAPES),
-                 "conv3x3x3_cf_dw_f32": len(CONV_SHAPES), "max_pool2x_cf_f32": len(POOL_SHAPES),
-                 "max_pool2x_cf_bwd_f32": len(POOL_SHAPES), "head1x1_cf_f32": 1,
-                 "head1x1_cf_dx_f32": 1, "head1x1_cf_dw_f32": 1}
-F32_TRAIN_KERNELS = ("conv3x3x3_cf_f32", "conv3x3x3_cf_dx_f32", "conv3x3x3_cf_dw_f32",
-                     "max_pool2x_cf_bwd_f32", "head1x1_cf_dx_f32", "head1x1_cf_dw_f32")
 PER_STEP = {"conv3x3x3_cf_stats": 5, "conv3x3x3_cf_boundary_stats": 5, "conv3x3x3_cf": 1,
             "conv3x3x3_cf_dx": 5, "conv3x3x3_cf_dx_epilogue": 5, "conv3x3x3_cf_dw": 6,
             "conv3x3x3_cf_dw_prologue": 5, "max_pool2x_cf": 4, "max_pool2x_cf_bwd": 4,
             "upconv2x_cf": 3, "head1x1_cf": 1, "head1x1_cf_dx": 1, "head1x1_cf_dw": 1}
+
+
+def _f32_counts(counts: dict) -> dict:
+    """A bf16 table of launches in fp32: the same kernels' fp32 instances,
+    and no upconv kernel (every fp32 upconv is the library's)."""
+    return {f"{k}_f32": n for k, n in counts.items() if k != "upconv2x_cf"}
+
+
+# per fp32 train step: the bf16 step's table on the fp32 instances (43),
+# and the library's convs (the deep region) and transpose convs (every
+# upconv) of its forward; the backward's cuDNN calls run under autograd and
+# are not counted
+PER_FP32_STEP = _f32_counts(PER_STEP)
+F32_TRAIN_KERNELS = ("conv3x3x3_cf_f32", "conv3x3x3_cf_dx_f32", "conv3x3x3_cf_dw_f32",
+                     "max_pool2x_cf_bwd_f32", "head1x1_cf_dx_f32", "head1x1_cf_dw_f32",
+                     "conv3x3x3_cf_stats_f32", "conv3x3x3_cf_boundary_stats_f32",
+                     "conv3x3x3_cf_dx_epilogue_f32", "conv3x3x3_cf_dw_prologue_f32",
+                     "conv3x3x3_cf_boundary_f32")
 CONV3 = "multimodal_segmentation_project_tpu_torch/csrc/conv3.cu"
 CONV3_F32 = "multimodal_segmentation_project_tpu_torch/csrc/conv3_f32.cu"
 CONV3_DW = "multimodal_segmentation_project_tpu_torch/csrc/conv3_dw.cu"
@@ -236,6 +252,12 @@ KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
                           "multimodal_segmentation_project_tpu/ops/head.py:39"),
     "head1x1_cf_dw_f32": ("multimodal_segmentation_project_tpu_torch/csrc/head1x1.cu",
                           "multimodal_segmentation_project_tpu/ops/head.py:108"),
+    # the fused DoubleConv's fp32 instances
+    "conv3x3x3_cf_stats_f32": (CONV3_F32, f"{PALLAS_CONV}:341"),
+    "conv3x3x3_cf_boundary_stats_f32": (CONV3_F32, f"{PALLAS_CONV}:1039"),
+    "conv3x3x3_cf_dx_epilogue_f32": (CONV3_F32, f"{PALLAS_CONV}:886"),
+    "conv3x3x3_cf_dw_prologue_f32": (CONV3_DW_F32, f"{PALLAS_CONV}:799"),
+    "conv3x3x3_cf_boundary_f32": (CONV3_F32, f"{PALLAS_CONV}:732"),
 }
 # conv/upconv/head-dx: the kernel and the plain version round to bf16 once,
 # at the same point, from fp32 sums taken in different orders, so an output
@@ -278,13 +300,23 @@ STATS_TOL = 1e-5
 # (at most 5e-8 of the sums of |terms| on the H100 at the train step's
 # shapes). A block's partials lost would move a 96^3 entry by 1/3456 of it.
 DADT_TOL = 1e-5
-# the fp32 instances (7, 1, 1-dx, 2, 11, 11-dx): the same fp32 products as
-# the plain version, summed in another order, scaled by max|plain| (the
-# port's fp32 ops' tolerance since its first slice); a TF32 pass (10
-# mantissa bits a product) errs far above it, which the TF32 controls show
-# on the card (the dW's sums run over up to 7.1M voxels: their order moves
-# an entry by about 1e-6 of max|dW|, a TF32 pass by about 1e-4)
+# the fp32 instances (7, 1, 1-dx, 2, 11, 11-dx, and the fused block's y, dy
+# and dW of 3, 4, 5, 6, 12): the same fp32 products as the plain version,
+# summed in another order, scaled by max|plain| (the port's fp32 ops'
+# tolerance since its first slice); a TF32 pass (10 mantissa bits a
+# product) errs far above it, which the TF32 controls show on the card (the
+# dW's sums run over up to 7.1M voxels: their order moves an entry by about
+# 1e-6 of max|dW|, a TF32 pass by about 1e-4)
 F32_TOL = 2e-5
+# the fused block's fp32 sums: s1, s2 per channel within sum |y - y_plain|
+# (of y^2 for s2) plus STATS_TOL of sum |y| (sum y^2), as in bf16, with y
+# within F32_TOL; da, dt per (batch, channel) within DADT_TOL of sum |du x|
+# and sum |du|, as in bf16 (both sides mask the same fp32 u = x a + t, each
+# product rounded before it is added), with dy within F32_TOL
+F32_STATS = "y: F32_TOL scaled; s1, s2: sum |dy| + STATS_TOL sum |y|"
+F32_DX_EPILOGUE = "dy: F32_TOL scaled; da, dt: DADT_TOL sum |du x|, sum |du|"
+SUM_TOLS = {STATS: BF16_ONE_ULP, DX_EPILOGUE: BF16_ONE_ULP, F32_STATS: F32_TOL,
+            F32_DX_EPILOGUE: F32_TOL}  # -> the first output's tolerance
 
 
 class SmokeFailure(RuntimeError):
@@ -345,9 +377,10 @@ def conv_body_resources(log: str) -> list:
         lambda cout, epi, pro: f"conv3_kernel<COUT={cout}, {EPILOGUES[epi]}, prologue={pro}>")
 
 
-# conv3_f32.cu: COUT 16, 32, 48, 64, each with the bias+ReLU epilogue (7)
-# and the cast-then-bias one (1, 1-dx)
-F32_BODY_INSTANCES = 8
+# conv3_f32.cu: COUT 16, 32, 48, 64, each with the bias+ReLU epilogue (7),
+# the cast-then-bias one without and with the prologue (1, 1-dx; 12), the
+# stats one without and with it (3; 4) and the dx mask (5), as conv3.cu
+F32_BODY_INSTANCES = 24
 
 
 def f32_body_resources(log: str) -> list:
@@ -368,7 +401,7 @@ def dw_body_resources(log: str) -> list:
         lambda cout, pro: f"conv3_dw_partial_kernel<COUT={cout}, prologue={pro}>")
 
 
-DW_F32_INSTANCES = 1  # conv3_dw_f32.cu: the plain input (the prologue's is not written)
+DW_F32_INSTANCES = 2  # conv3_dw_f32.cu: without and with the prologue (2; 6)
 
 
 def dw_f32_body_resources(log: str) -> list:
@@ -545,14 +578,14 @@ def _elementwise_ok(tol, got, want, args) -> bool:
 
 def _sums_ratio(tol, got, want, args) -> float:
     """The largest error of the fp32 sums (the outputs after the first) of
-    a fused kernel over its bound under ``tol`` (STATS or DX_EPILOGUE),
-    entry by entry; within tolerance when <= 1."""
+    a fused kernel over its bound under ``tol`` (a key of SUM_TOLS), entry
+    by entry; within tolerance when <= 1."""
     import torch
 
     from multimodal_segmentation_project_tpu_torch.ops import conv3
 
     f64 = torch.float64
-    if tol == STATS:  # per channel, over (B, D, H, W)
+    if tol in (STATS, F32_STATS):  # per channel, over (B, D, H, W)
         dims = (0, 2, 3, 4)
         yk, yp = got[0].to(f64), want[0].to(f64)
         terms = [(yk, yp), (yk * yk, yp * yp)]
@@ -589,15 +622,17 @@ def _errors(label: str, kern, plain, inputs, tol):
     """(max abs error, max error scaled by max|plain|, within tolerance,
     worst sum error over its bound or None) of the kernel against its plain
     version over ``inputs``. ``tol`` is a key of ELEMENTWISE (each element
-    within its bf16 allowance), STATS or DX_EPILOGUE (a bf16 output within
-    one ulp per element and fp32 sums within their bounds), HEAD_DW (every
-    output a sum within its bound), 0 (exact) or a bound on the scaled
-    error; the errors are those of the first output (for HEAD_DW, of all)."""
+    within its bf16 allowance), of SUM_TOLS (the first output within its
+    tolerance there, a bf16 one per element or an fp32 one scaled, and fp32
+    sums within their bounds), HEAD_DW (every output a sum within its
+    bound), 0 (exact) or a bound on the scaled error; the errors are those
+    of the first output (for HEAD_DW, of all)."""
     import torch
 
     err = rel = 0.0
     sums = None
     ok = True
+    scaled_tol = SUM_TOLS.get(tol, tol)
     for args in inputs:
         got, want = kern(*args), plain(*args)
         torch.cuda.synchronize()
@@ -607,11 +642,11 @@ def _errors(label: str, kern, plain, inputs, tol):
             sums = max(sums or 0.0, ratio)
             ok = ok and ratio <= 1.0
             got, want = (torch.cat([t.flatten() for t in out]) for out in (got, want))
-        elif tol in (STATS, DX_EPILOGUE):
+        elif tol in SUM_TOLS:
             ratio = _sums_ratio(tol, got, want, args)
             sums = max(sums or 0.0, ratio)
             ok = ok and ratio <= 1.0
-            got, want, elem_tol = got[0], want[0], BF16_ONE_ULP
+            got, want, elem_tol = got[0], want[0], SUM_TOLS[tol]
         fail_unless(got.shape == want.shape and got.dtype == want.dtype,
                     f"{label}: {tuple(got.shape)}/{got.dtype} vs "
                     f"{tuple(want.shape)}/{want.dtype}")
@@ -623,8 +658,8 @@ def _errors(label: str, kern, plain, inputs, tol):
             ok = ok and _elementwise_ok(elem_tol, got, want, args)
     if tol == 0.0:
         ok = err == 0.0
-    elif not isinstance(tol, str):
-        ok = rel <= tol
+    elif not isinstance(scaled_tol, str):
+        ok = ok and rel <= scaled_tol
     return err, rel, ok, sums
 
 
@@ -768,6 +803,19 @@ def _kernel_plan():
         return [(randn(1, cin, s, s, s, dtype=f32), randn(1, co, s, s, s, scale=1e-3, dtype=f32))
                 for _ in range(N_TIMED)]
 
+    def boundary_f32_inputs(cin, cout, s):
+        w, b = conv_w(cin, cout), randn(cout, scale=0.1, dtype=f32)
+        return [(randn(1, cin, s, s, s, dtype=f32), w, b, *affine(cin)) for _ in range(N_TIMED)]
+
+    def dx_epilogue_f32_inputs(cin, cout, s):  # the boundary conv's channels
+        w = conv_w(cin, cout)
+        return [(randn(1, cout, s, s, s, scale=1e-2, dtype=f32), w,
+                 randn(1, cin, s, s, s, dtype=f32), *affine(cin)) for _ in range(N_TIMED)]
+
+    def dw_prologue_f32_inputs(cin, cout, s):
+        return [(randn(1, cin, s, s, s, dtype=f32), randn(1, cout, s, s, s, scale=1e-2, dtype=f32),
+                 *affine(cin)) for _ in range(N_TIMED)]
+
     # library calls: one PyTorch call computing the same function, bf16
     def lib_conv(x, w, b):
         return F.conv3d(x, w.permute(4, 3, 0, 1, 2).to(x.dtype), b.to(x.dtype), padding=1)
@@ -814,6 +862,16 @@ def _kernel_plan():
 
     def lib_head_dx_f32(ct, k):
         return torch.einsum("bodhw,io->bidhw", ct, k)
+
+    # the fused fp32 kernels' library yardstick: the conv (cuDNN, TF32 off)
+    # and the torch sums the kernel replaces; no prologue, no mask
+    def lib_stats_f32(x, w, b, *affine_args):
+        y = lib_conv(x, w, b)
+        return y, y.sum(dim=(0, 2, 3, 4)), y.square().sum(dim=(0, 2, 3, 4))
+
+    def lib_dx_epilogue_f32(g, w, x, a, t):
+        dr = lib_dx_input(g, w)
+        return dr, (dr * x).sum(dim=(2, 3, 4)), dr.sum(dim=(2, 3, 4))
 
     no_grad = torch.no_grad()
 
@@ -887,6 +945,24 @@ def _kernel_plan():
     def head_dw_f32_work(cin, co, s):  # fp32 x and ct in; dk's FMAs and db's adds
         return 4 * v(s) * (cin + co), (2 * cin + 1) * co * v(s), FP32_FLOPS
 
+    # the fused fp32 kernels: the conv's FFMA and the fp32 work of the
+    # prologue and the epilogues, as in bf16
+    def stats_f32_work(cin, cout, s):
+        return (*conv_f32_work(cin, cout, s), 4 * cout * v(s))
+
+    def boundary_stats_f32_work(cin, cout, s):
+        return (*conv_f32_work(cin, cout, s), (3 * cin + 4 * cout) * v(s))
+
+    def boundary_f32_work(cin, cout, s):
+        return (*conv_f32_work(cin, cout, s), (3 * cin + 1 * cout) * v(s))
+
+    def dx_epilogue_f32_work(cin, cout, s):  # g and x read, dy written, fp32
+        nbytes = 4 * v(s) * (cout + 2 * cin) + 27 * cin * cout * 4
+        return nbytes, 2 * 27 * cin * cout * v(s), FP32_FLOPS, 8 * cin * v(s)
+
+    def dw_prologue_f32_work(cin, cout, s):
+        return (*conv_f32_work(cin, cout, s), 3 * cin * v(s))
+
     return {
         "conv3x3x3_cf_relu": (conv3.conv3x3x3_cf_relu, conv3.conv3x3x3_cf_relu_reference,
                               lib_conv, conv_inputs, CONV_SHAPES, BF16_ONE_ULP, conv_work,
@@ -952,15 +1028,15 @@ def _kernel_plan():
         "head1x1_cf_f32": (head.head1x1_cf_f32, head.head1x1_cf_reference, lib_head,
                            head_f32_inputs, HEAD_SHAPES, F32_TOL, head_f32_work,
                            "1x1x1 F.conv3d fp32, TF32 off"),
-        # the fp32 train step's instances (every block on the per-conv chain)
+        # the fp32 train step's instances, at the bf16 step's shapes
         "conv3x3x3_cf_f32": (conv3.conv3x3x3_cf_f32, conv3.conv3x3x3_cf_reference, lib_conv,
-                             conv_f32_inputs, CONV_SHAPES, F32_TOL, conv_f32_work,
+                             conv_f32_inputs, TRAIN_CONV_SHAPES, F32_TOL, conv_f32_work,
                              "F.conv3d fp32, TF32 off"),
         "conv3x3x3_cf_dx_f32": (conv3.conv3x3x3_cf_dx_f32, conv3.conv3x3x3_cf_dx_reference,
-                                lib_dx_input, dx_f32_inputs, F32_DX_SHAPES, F32_TOL,
+                                lib_dx_input, dx_f32_inputs, DX_SHAPES, F32_TOL,
                                 conv_f32_work, "torch.nn.grad.conv3d_input fp32, TF32 off"),
         "conv3x3x3_cf_dw_f32": (conv3.conv3x3x3_cf_dw_f32, conv3.conv3x3x3_cf_dw_reference,
-                                lib_dw, dw_f32_inputs, CONV_SHAPES, F32_TOL, conv_f32_work,
+                                lib_dw, dw_f32_inputs, DW_SHAPES, F32_TOL, conv_f32_work,
                                 "torch.nn.grad.conv3d_weight fp32, TF32 off"),
         "max_pool2x_cf_bwd_f32": (pool.max_pool2x_cf_bwd_f32, pool.max_pool2x_cf_bwd_reference,
                                   lib_pool_bwd, pool_bwd_f32_inputs, POOL_SHAPES, 0.0,
@@ -973,6 +1049,33 @@ def _kernel_plan():
         "head1x1_cf_dw_f32": (head.head1x1_cf_dw_f32, head.head1x1_cf_dw_reference, lib_head_dw,
                               head_dw_f32_inputs, HEAD_DW_SHAPES, HEAD_DW, head_dw_f32_work,
                               "torch.einsum fp32 plus sum"),
+        # the fused DoubleConv's fp32 instances
+        "conv3x3x3_cf_stats_f32": (ng(conv3_fused.conv3x3x3_cf_stats),
+                                   conv3_fused.conv3x3x3_cf_stats_reference, lib_stats_f32,
+                                   conv_f32_inputs, CONV0_SHAPES, F32_STATS, stats_f32_work,
+                                   "F.conv3d fp32, TF32 off, + torch sums"),
+        "conv3x3x3_cf_boundary_stats_f32": (ng(conv3_fused.conv3x3x3_cf_boundary_stats),
+                                            conv3_fused.conv3x3x3_cf_boundary_stats_reference,
+                                            lib_stats_f32, boundary_f32_inputs, CONV1_SHAPES,
+                                            F32_STATS, boundary_stats_f32_work,
+                                            "F.conv3d fp32, TF32 off, + torch sums; no prologue"),
+        "conv3x3x3_cf_dx_epilogue_f32": (conv3_fused.conv3x3x3_cf_dx_epilogue,
+                                         conv3_fused.conv3x3x3_cf_dx_epilogue_reference,
+                                         lib_dx_epilogue_f32, dx_epilogue_f32_inputs,
+                                         CONV1_SHAPES, F32_DX_EPILOGUE, dx_epilogue_f32_work,
+                                         "torch.nn.grad.conv3d_input fp32, TF32 off, + torch "
+                                         "sums; no mask"),
+        "conv3x3x3_cf_dw_prologue_f32": (conv3_fused.conv3x3x3_cf_dw_prologue,
+                                         conv3_fused.conv3x3x3_cf_dw_prologue_reference,
+                                         lib_dw_prologue, dw_prologue_f32_inputs, CONV1_SHAPES,
+                                         F32_TOL,
+                                         dw_prologue_f32_work,
+                                         "torch.nn.grad.conv3d_weight fp32, TF32 off; no "
+                                         "prologue"),
+        "conv3x3x3_cf_boundary_f32": (ng(conv3_fused.conv3x3x3_cf_boundary),
+                                      conv3_fused.conv3x3x3_cf_boundary_reference,
+                                      lib_boundary, boundary_f32_inputs, CONV1_SHAPES, F32_TOL,
+                                      boundary_f32_work, "F.conv3d fp32, TF32 off; no prologue"),
     }, randn
 
 
@@ -997,7 +1100,13 @@ def bare_calls() -> dict:
             "head1x1_cf_f32": head.head_f32_call, "conv3x3x3_cf_f32": conv3.conv_f32_call,
             "conv3x3x3_cf_dx_f32": conv3.dx_f32_call, "conv3x3x3_cf_dw_f32": conv3.dw_f32_call,
             "max_pool2x_cf_bwd_f32": pool.bwd_f32_call, "head1x1_cf_dx_f32": head.dx_f32_call,
-            "head1x1_cf_dw_f32": head.dw_f32_call}
+            "head1x1_cf_dw_f32": head.dw_f32_call,
+            # the fused ops' builders take the fp32 body for fp32 tensors
+            "conv3x3x3_cf_stats_f32": conv3_fused.stats_call,
+            "conv3x3x3_cf_boundary_stats_f32": conv3_fused.boundary_stats_call,
+            "conv3x3x3_cf_dx_epilogue_f32": conv3_fused.dx_epilogue_call,
+            "conv3x3x3_cf_dw_prologue_f32": conv3_fused.dw_prologue_call,
+            "conv3x3x3_cf_boundary_f32": conv3_fused.boundary_call}
 
 
 # the conv-body instances of the train step (12 has no caller, 7 is eval's)
@@ -1005,8 +1114,10 @@ TRAIN_BODY = ("conv3x3x3_cf", "conv3x3x3_cf_dx", "conv3x3x3_cf_stats",
               "conv3x3x3_cf_boundary_stats", "conv3x3x3_cf_dx_epilogue")
 # the dW body's instances: 2 over DW_SHAPES, 6 over CONV1_SHAPES
 TRAIN_DW = ("conv3x3x3_cf_dw", "conv3x3x3_cf_dw_prologue")
-# the fp32 conv body's instances of the fp32 train step, and its dW body
-F32_TRAIN_BODY = ("conv3x3x3_cf_f32", "conv3x3x3_cf_dx_f32")
+# the fp32 conv body's instances of the fp32 train step, and its dW body's
+F32_TRAIN_BODY = ("conv3x3x3_cf_f32", "conv3x3x3_cf_dx_f32", "conv3x3x3_cf_stats_f32",
+                  "conv3x3x3_cf_boundary_stats_f32", "conv3x3x3_cf_dx_epilogue_f32")
+F32_TRAIN_DW = ("conv3x3x3_cf_dw_f32", "conv3x3x3_cf_dw_prologue_f32")
 
 
 def _pool_nan_checks(make) -> None:
@@ -1126,6 +1237,19 @@ def phase_kernels() -> dict:
               f"kernel 12 over the train step's conv1 shapes): "
               + ", ".join(f"{k} {v:.4f}" for k, v in tot.items())
               + f", bare_ms {bare_tot:.4f}", flush=True)
+    # the fp32 training conv, its dx and its dW at the per-conv chain's other
+    # shapes (every conv of a step with no fused block, the JAX package's
+    # data-mesh configuration); correctness only
+    for name, shapes in (("conv3x3x3_cf_f32", CONV_SHAPES),
+                         ("conv3x3x3_cf_dx_f32", PER_CONV_DX_SHAPES),
+                         ("conv3x3x3_cf_dw_f32", CONV_SHAPES)):
+        kern, plain, _, make, step_shapes, tol, *_ = plan[name]
+        for shape in sorted(set(shapes) - set(step_shapes)):
+            err, rel, ok, _ = _errors(f"{name} {shape}", kern, plain, make(*shape), tol)
+            print(f"[kernel] {name} {shape} (per-conv chain): max_abs_err {err:.4g} scaled "
+                  f"{rel:.4g}, {_tol_label(tol)}: {'ok' if ok else 'FAIL'}", flush=True)
+            fail_unless(ok, f"{name} {shape}: error {err} (scaled {rel}) over tolerance")
+            torch.cuda.empty_cache()
     step = {k: sum(results[n][k] for n in TRAIN_BODY) for k in ("ms", "bare_ms", "library_ms")}
     print(f"[kernel] conv body per train step ({', '.join(TRAIN_BODY)}): kernel as called "
           f"{step['ms']:.4f} ms, bare launches {step['bare_ms']:.4f} ms, library "
@@ -1134,8 +1258,7 @@ def phase_kernels() -> dict:
     print(f"[kernel] dW body per train step ({', '.join(TRAIN_DW)}): as called / bare / "
           f"library {step['ms']:.4f} / {step['bare_ms']:.4f} / {step['library_ms']:.4f} ms",
           flush=True)
-    for label, names in (("fp32 conv body", F32_TRAIN_BODY), ("fp32 dW body",
-                                                              ("conv3x3x3_cf_dw_f32",))):
+    for label, names in (("fp32 conv body", F32_TRAIN_BODY), ("fp32 dW body", F32_TRAIN_DW)):
         step = {k: sum(results[n][k] for n in names)
                 for k in ("ms", "bare_ms", "bound_ms", "library_ms")}
         print(f"[kernel] {label} per fp32 train step ({', '.join(names)}): as called / bare / "
@@ -1257,10 +1380,30 @@ def phase_kernels() -> dict:
                   (randn(2, 16, 67, 67, 67, dtype=f32), 4)):
         edges.append(("head1x1_cf_dw_f32",
                       (x, randn(x.shape[0], co, *x.shape[2:], scale=1e-3, dtype=f32))))
+    # the fused block's fp32 instances (3-, 4-, 5-, 6- and 12-fp32): W = 7,
+    # 9, 20 and 37 (4-byte staging and stores), Cin = 1 and 40 (five chunks,
+    # the last partial), Cout = 20 and 48 (partial channel groups), batch 2,
+    # an unaligned view; a, t as the fused block makes them (t > 0 on some
+    # channels, where a leaking halo would show)
+    for x, cout in ((randn(2, 40, 3, 9, 20, dtype=f32), 20), (randn(1, 16, 5, 9, 7, dtype=f32), 48),
+                    (randn(2, 1, 3, 9, 9, dtype=f32), 48), (randn(2, 40, 3, 9, 37, dtype=f32), 20),
+                    (unaligned(2, 16, 4, 8, 16, dtype=f32), 20)):
+        cin = x.shape[1]
+        w = randn(3, 3, 3, cin, cout, scale=(2 / (27 * cin)) ** 0.5, dtype=f32)
+        b = randn(cout, scale=0.1, dtype=f32)
+        a, t = (randn(x.shape[0], cin, scale=s_, dtype=f32) for s_ in (1.0, 0.5))
+        a = a.abs() + 0.5
+        g = (unaligned if x.data_ptr() % 16 else randn)(x.shape[0], cout, *x.shape[2:],
+                                                        dtype=f32).mul_(1e-2)
+        edges += [("conv3x3x3_cf_stats_f32", (x, w, b)),
+                  ("conv3x3x3_cf_boundary_stats_f32", (x, w, b, a, t)),
+                  ("conv3x3x3_cf_boundary_f32", (x, w, b, a, t)),
+                  ("conv3x3x3_cf_dx_epilogue_f32", (g, w, x, a, t)),
+                  ("conv3x3x3_cf_dw_prologue_f32", (x, g, a, t))]
     for name, args in edges:
         kern, plain, *_, tol, _, _ = plan[name]
         label = f"{name} edge input {tuple(args[0].shape)}"
-        if name in (*TRAIN_DW, "conv3x3x3_cf_dw_f32"):
+        if name in (*TRAIN_DW, *F32_TRAIN_DW):
             label += f", Cout {args[1].shape[1]}"
         elif name == "upconv2x_cf":
             label += f", Cout {args[1].shape[4]}"
@@ -1268,8 +1411,11 @@ def phase_kernels() -> dict:
             label += f", Cf {args[1].shape[0]}"
         elif name in ("head1x1_cf", "head1x1_cf_dw", "head1x1_cf_f32", "head1x1_cf_dw_f32"):
             label += f", classes {args[1].shape[1]}"
-        elif name in ("conv3x3x3_cf_relu_f32", "conv3x3x3_cf_f32"):
+        elif name in ("conv3x3x3_cf_relu_f32", "conv3x3x3_cf_f32", "conv3x3x3_cf_stats_f32",
+                      "conv3x3x3_cf_boundary_stats_f32", "conv3x3x3_cf_boundary_f32"):
             label += f", Cout {args[1].shape[4]}"
+        elif name == "conv3x3x3_cf_dx_epilogue_f32":
+            label += f", boundary conv Cin {args[1].shape[3]}"
         elif name == "conv3x3x3_cf_dx_f32":
             label += f", dx channels {args[1].shape[3]}"
         if any(a.data_ptr() % 16 for a in args[:2]):
@@ -1303,6 +1449,13 @@ def phase_kernels() -> dict:
         ("head1x1_cf_dw", (16, 4, 192), (x16, randn(1, 4, 192, 192, 192, scale=1e-3,
                                                      dtype=f32))),
         ("conv3x3x3_cf_dw_f32", (32, 16, 192), (x32.float(), g16.float())),
+        ("conv3x3x3_cf_stats_f32", (32, 16, 192),
+         (x32.float(), randn(3, 3, 3, 32, 16, scale=0.05, dtype=f32), b16)),
+        ("conv3x3x3_cf_boundary_stats_f32", (16, 16, 192),
+         (x16.float(), w16, b16, a16, t16)),
+        ("conv3x3x3_cf_dx_epilogue_f32", (16, 16, 192),
+         (g16.float(), w16, x16.float(), a16, t16)),
+        ("conv3x3x3_cf_dw_prologue_f32", (16, 16, 192), (x16.float(), g16.float(), a16, t16)),
         ("head1x1_cf_dw_f32", (16, 4, 192), (x16.float(), randn(1, 4, 192, 192, 192, scale=1e-3,
                                                                  dtype=f32))),
     ]
@@ -1629,10 +1782,12 @@ OTHER_CATEGORY = "elementwise and other torch kernels"
 
 def _kernel_category(name: str) -> str:
     """Device-time category of a kernel in the profiler trace."""
-    for key, cat in (("conv3_dw", "conv3_dw (dW kernels, plain and prologue, and the fp32 dW: "
+    for key, cat in (("conv3_dw", "conv3_dw (dW kernels, plain and prologue, bf16 and fp32: "
                                   "partial sums + reduce)"),
-                     ("conv3_f32", "conv3_f32 (the fp32 conv body: forward and dx, eval conv)"),
-                     ("conv3_stats_reduce", "conv3_stats_reduce (the fused convs' channel sums)"),
+                     ("stats_reduce", "conv3_stats_reduce (the fused convs' channel sums, bf16 "
+                                      "and fp32)"),
+                     ("conv3_f32", "conv3_f32 (the fp32 conv body: forward, fused stats/boundary "
+                                   "and dx kernels, eval conv)"),
                      ("conv3_kernel", "conv3 (forward, fused stats/boundary and dx kernels)"),
                      ("pool2x_bwd", "pool2x_bwd kernel"), ("pool2x", "pool2x kernel"),
                      ("upconv_d2s", "upconv_d2s kernel"), ("head1x1", "head1x1 kernels"),
@@ -1805,8 +1960,8 @@ def _leaf_dtypes(tree) -> set:
 
 def phase_fp32_train(size: int = 192) -> dict:
     """Phase 6b: the train CLI on phase 6's data and recipe with no
-    --mixed_precision flag (fp32, the JAX CLIs' default): every block on
-    the per-conv chain, exact launches and library calls, fp32 parameters
+    --mixed_precision flag (fp32, the JAX CLIs' default): the fused block
+    where bf16 takes it, exact launches and library calls, fp32 parameters
     in the .msgpack it writes; then the fp32 step alone."""
     import csv
 
@@ -1903,15 +2058,9 @@ def _add_counts(*counts: dict) -> dict:
 
 PER_DISTILL_STEP = _add_counts(PER_STEP, PER_FORWARD)
 PER_DANN_STEP = _add_counts(PER_STEP, STEP_FORWARD, ENCODER_BACKWARD)
-# in fp32 every block is on the per-conv chain: the target's backward runs
-# the dW of enc0-enc2's six convs (CONV_SHAPES[:6]) and the dx of all but
-# the image's, and the four pools' backward
-FP32_ENCODER_BACKWARD = {"conv3x3x3_cf_dx_f32": sum(c[0] > 1 for c in CONV_SHAPES[:6]),
-                         "conv3x3x3_cf_dw_f32": 6, "max_pool2x_cf_bwd_f32": len(POOL_SHAPES)}
-PER_FP32_DISTILL_STEP = _add_counts(PER_FP32_STEP, PER_FP32_FORWARD)
-PER_FP32_DANN_STEP = _add_counts(PER_FP32_STEP, {"conv3x3x3_cf_f32": len(CONV_SHAPES),
-                                                 "max_pool2x_cf_f32": len(POOL_SHAPES),
-                                                 "head1x1_cf_f32": 1}, FP32_ENCODER_BACKWARD)
+# in fp32 the same kernels' fp32 instances, without the upconv: 59 and 74
+PER_FP32_DISTILL_STEP = _f32_counts(PER_DISTILL_STEP)
+PER_FP32_DANN_STEP = _f32_counts(PER_DANN_STEP)
 # the recipes' shared flags (run_finetune_ct.sh, run_distillation.sh,
 # run_dann.sh), with one epoch and gradient accumulation 2, not 8, as phase 6
 RECIPE = ["--batch_size", "1", "--epochs", "1", "--weight_decay", "1e-4",
@@ -2350,8 +2499,9 @@ def phase_train_parity() -> None:
 
 # fp32 train parity: one fp32 step at 64^3, full width, dropout 0,
 # augmentation off, through make_train_step, from the same weights: the GPU
-# (every block on the per-conv chain, the fp32 kernels, cuDNN with TF32 off
-# in the forward and the backward) against the CPU's plain fp32 step. Both
+# (the fused block where bf16 takes it, the fp32 kernels, cuDNN with TF32
+# off in the forward and the backward) against the CPU's plain fp32 step
+# (which takes the fused block's plain versions). Both
 # compute in fp32 and differ by the sums' order, and this network at 64^3
 # amplifies that in its deep gradients (the loss barely moves): the phase
 # prints that floor, the CPU step's gradients moved by one ulp of noise on

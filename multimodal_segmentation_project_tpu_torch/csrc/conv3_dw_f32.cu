@@ -9,10 +9,12 @@
 //   * _dw_kernel_shared (the dW of conv3x3x3_cf's backward, _conv_dw_shared)
 //     on fp32 x and cotangent, as the JAX package runs it under its fp32
 //     policy (it stages in x's dtype): conv3_dw_f32_partial_kernel<false>,
-//     mmseg_conv3_dw_f32.
-// The PRO template parameter is the input prologue of _dw_kernel_prologue
-// (kernel 6: the input staged as relu(x * a + t), the halo kept 0), whose
-// fp32 instance is not written yet; the kernel refuses it at compile time.
+//     mmseg_conv3_dw_f32;
+//   * _dw_kernel_prologue (the dW of the fused DoubleConv's boundary convs,
+//     _conv_dw_prologue) on fp32 x, a, t and cotangent: the input staged as
+//     relu(x * a + t) with a, t (B, Cin) fp32 per (batch, channel), the
+//     SAME halo kept 0: conv3_dw_f32_partial_kernel<true>,
+//     mmseg_conv3_dw_f32_prologue.
 //
 // Why a body of its own, and no MMA: conv3_dw.cu runs mma.sync on bf16
 // operands, and a TF32 MMA keeps 10 mantissa bits (about 5e-4 relative
@@ -35,11 +37,14 @@
 //      batch) through a two-stage cp.async ring: while the FMAs of tile t
 //      read one stage, tile t + nblk lands in the other. A stage holds the
 //      tile's haloed input of the CI channels as conv3_f32.cu stages it
-//      (W-minor rows of PITCH = 20 floats: voxels [w0, w0 + 16) at 0..15,
-//      w0 - 1 at 16, w0 + 16 at 17, zero outside the volume and past Cin)
-//      and the tile's cotangent of the CO channels, rows of 16 voxels at
-//      the same pitch (zero outside the volume and past Cout); 16-byte
-//      pieces where W % 4 == 0 and the tensor is aligned, else 4-byte ones.
+//      (conv3_f32_tile.cuh: W-minor rows of PITCH = 20 floats, zero
+//      outside the volume and past Cin) and the tile's cotangent of the CO
+//      channels, rows of 16 voxels at the same pitch (zero outside the
+//      volume and past Cout); 16-byte pieces where W % 4 == 0 and the
+//      tensor is aligned, else 4-byte ones. With the prologue, once a tile
+//      has landed one pass rewrites its staged input in place as relu(x *
+//      a + t) of the tile's batch element (conv3_f32_tile.cuh), and a
+//      barrier then hands the stage to the FMAs.
 //      Warp w takes input channel w % CI and output channels CO / 2 * (w /
 //      CI) + [0, RN); lane l the tile's output row (l / 8, l % 8), all 16
 //      voxels of it, in two halves of 8: it holds 27 taps x RN = 4 output
@@ -69,23 +74,15 @@
 // thread leave room for one block of 8 warps an SM. Cin = 1 (the first
 // conv) leaves three of the four input-channel warps idle: 6 of the 679
 // GFLOP.
-#include "common.cuh"
+#include "conv3_f32_tile.cuh"
+
+using namespace conv3f32;
 
 namespace {
 
-constexpr int TD = 4;            // output depth planes per tile
-constexpr int TH = 8;            // output rows per plane
-constexpr int TW = 16;           // output columns per row
-constexpr int DR = TD + 2;       // haloed tile planes
-constexpr int HR = TH + 2;       // haloed tile rows
-constexpr int ROWS = DR * HR;    // staged input rows per channel
-constexpr int PITCH = 20;        // floats per staged row
-constexpr int LEFT = 16;         // the staged input row's voxel w0 - 1
-constexpr int RIGHT = 17;        // and w0 + 16
 constexpr int CI = 4;            // input channels per block (a warp each)
 constexpr int CO = 8;            // output channels per block
 constexpr int RN = 4;            // output channels per warp
-constexpr int THREADS = 256;
 constexpr int RTHREADS = 256;    // threads of the reduce
 constexpr int X_FLOATS = CI * ROWS * PITCH;      // one stage's input tile
 constexpr int G_FLOATS = CO * TD * TH * PITCH;   // one stage's cotangent tile
@@ -93,7 +90,6 @@ constexpr int STAGE_FLOATS = X_FLOATS + G_FLOATS;
 constexpr int SMEM_BYTES = 2 * STAGE_FLOATS * 4;
 static_assert(CI * (CO / RN) * 32 == THREADS, "one warp per (input channel, output group)");
 static_assert(TD * TH == 32, "one lane per output row of the tile");
-static_assert(PITCH % 4 == 0 && (PITCH / 4) % 2 == 1, "16-byte rows on distinct bank groups");
 
 struct DwArgs {
   const float* x;      // (B, Cin, D, H, W)
@@ -105,66 +101,27 @@ struct DwArgs {
   int tiles_w, tiles_h, tiles_d, ntiles;
 };
 
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
+// The origin of output tile `tile`: its batch element and first voxel.
+struct TileAt {
+  int b, d0, h0, w0;
+};
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool fill) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(fill ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool fill) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(fill ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Issue output tile `tile` into the stage at shared address `st`: the
-// haloed input of channels [c0, c0 + CI) and the cotangent of channels
-// [o0, o0 + CO). vx, vg: W % 4 == 0 and x (g) is 16-byte aligned, so each
-// 16-byte piece lies wholly inside or outside the volume.
-__device__ __forceinline__ void issue_tile(uint32_t st, const DwArgs& p, int tile, int c0,
-                                           int o0, bool vx, bool vg) {
+__device__ __forceinline__ TileAt tile_at(const DwArgs& p, int tile) {
   const int tw = tile % p.tiles_w;
   int r = tile / p.tiles_w;
   const int h0 = (r % p.tiles_h) * TH;
   r /= p.tiles_h;
-  const int d0 = (r % p.tiles_d) * TD;
-  const int b = r / p.tiles_d;
-  const int w0 = tw * TW;
-  // input, per staged row: pieces 0..3 the voxels w0 + 4 k .. w0 + 4 k + 3,
-  // 4 the voxel w0 - 1, 5 the voxel w0 + 16
-  for (int i = threadIdx.x; i < CI * ROWS * 6; i += THREADS) {
-    const int piece = i % 6, cr = i / 6;  // cr = channel * ROWS + row
-    const int c = c0 + cr / ROWS, row = cr % ROWS;
-    const int gd = d0 - 1 + row / HR, gh = h0 - 1 + row % HR;
-    const bool ok = c < p.Cin && gd >= 0 && gd < p.D && gh >= 0 && gh < p.H;
-    const float* src =
-        ok ? p.x + ((size_t(b) * p.Cin + c) * p.D + gd) * size_t(p.H) * p.W + size_t(gh) * p.W
-           : p.x;
-    const uint32_t dst = st + uint32_t(cr * PITCH) * 4u;
-    if (piece < 4) {
-      const int w = w0 + 4 * piece;
-      if (vx) {
-        const bool in = ok && w < p.W;
-        cp_async16(dst + 16u * piece, in ? src + w : p.x, in);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool in = ok && w + e < p.W;
-          cp_async4(dst + 4u * (4 * piece + e), in ? src + w + e : p.x, in);
-        }
-      }
-    } else {
-      const int w = piece == 4 ? w0 - 1 : w0 + TW;
-      const bool in = ok && w >= 0 && w < p.W;
-      cp_async4(dst + 4u * (piece == 4 ? LEFT : RIGHT), in ? src + w : p.x, in);
-    }
-  }
+  return {r / p.tiles_d, (r % p.tiles_d) * TD, h0, tw * TW};
+}
+
+// Issue output tile `tile` into the stage at shared address `st`: the
+// haloed input of channels [c0, c0 + CI) and the cotangent of channels
+// [o0, o0 + CO). vx, vg: W % 4 == 0 and x (g) is 16-byte aligned.
+__device__ __forceinline__ void issue_tile(uint32_t st, const DwArgs& p, int tile, int c0,
+                                           int o0, bool vx, bool vg) {
+  const TileAt at = tile_at(p, tile);
+  const int b = at.b, d0 = at.d0, h0 = at.h0, w0 = at.w0;
+  issue_input<CI>(st, p.x, p.Cin, p.D, p.H, p.W, b, c0, d0, h0, w0, vx);
   // cotangent, per (channel, output row): 4 pieces of 4 voxels
   const uint32_t gst = st + uint32_t(X_FLOATS) * 4u;
   for (int i = threadIdx.x; i < CO * TD * TH * 4; i += THREADS) {
@@ -193,7 +150,6 @@ __device__ __forceinline__ void issue_tile(uint32_t st, const DwArgs& p, int til
 
 template <bool PRO>
 __global__ void __launch_bounds__(THREADS, 1) conv3_dw_f32_partial_kernel(const DwArgs p) {
-  static_assert(!PRO, "the fp32 dW body's prologue instance (kernel 6) is not written yet");
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -224,6 +180,12 @@ __global__ void __launch_bounds__(THREADS, 1) conv3_dw_f32_partial_kernel(const 
       cp_async_wait<0>();
     }
     __syncthreads();  // tile has landed in stage s
+    if (PRO) {
+      const TileAt at = tile_at(p, tile);
+      prologue_input<CI>(smem + s * STAGE_FLOATS, p.a, p.t, p.Cin, p.D, p.H, p.W, at.b, c0,
+                         at.d0, at.h0, at.w0);
+      __syncthreads();  // the activated input is in place
+    }
     if (active) {
       const float* xs = smem + s * STAGE_FLOATS + ci_l * ROWS * PITCH;
       const float* gs = smem + s * STAGE_FLOATS + X_FLOATS + (n0 * TD * TH + lane) * PITCH;
@@ -303,6 +265,40 @@ conv3_dw_f32_reduce_kernel(const float* __restrict__ partial, float* __restrict_
   dw[i] = s;
 }
 
+// Check the descriptor against the kernel's own, then the two passes.
+template <bool PRO>
+int launch(const void* x, const void* g, const void* a, const void* t, void* partial, void* dw,
+           int B, int Cin, int Cout, int D, int H, int W, int grid_x, int grid_y, int grid_z,
+           int threads, int smem, void* stream) {
+  if (x == nullptr || g == nullptr || partial == nullptr || dw == nullptr || Cin < 1 ||
+      Cout < 1 || grid_x < 1 || (PRO && (a == nullptr || t == nullptr)))
+    return int(cudaErrorInvalidValue);
+  if (threads != THREADS || smem != SMEM_BYTES || grid_y != (Cin + CI - 1) / CI ||
+      grid_z != (Cout + CO - 1) / CO)
+    return int(cudaErrorInvalidConfiguration);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DwArgs args{};
+  args.x = static_cast<const float*>(x);
+  args.g = static_cast<const float*>(g);
+  args.a = static_cast<const float*>(a);
+  args.t = static_cast<const float*>(t);
+  args.partial = static_cast<float*>(partial);
+  args.Cin = Cin, args.Cout = Cout, args.D = D, args.H = H, args.W = W;
+  args.tiles_w = (W + TW - 1) / TW, args.tiles_h = (H + TH - 1) / TH;
+  args.tiles_d = (D + TD - 1) / TD;
+  args.ntiles = B * args.tiles_d * args.tiles_h * args.tiles_w;
+  cudaError_t err = cudaFuncSetAttribute(conv3_dw_f32_partial_kernel<PRO>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return int(err);
+  conv3_dw_f32_partial_kernel<PRO><<<dim3(grid_x, grid_y, grid_z), THREADS, smem, s>>>(args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  const int n_out = 27 * Cin * Cout;
+  conv3_dw_f32_reduce_kernel<<<(n_out + RTHREADS - 1) / RTHREADS, RTHREADS, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dw), grid_x, n_out);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // Dynamic shared memory of a conv3_dw_f32_partial_kernel block: two stages
@@ -318,28 +314,17 @@ MMSEG_API int mmseg_conv3_dw_f32_smem_bytes() { return SMEM_BYTES; }
 MMSEG_API int mmseg_conv3_dw_f32(const void* x, const void* g, void* partial, void* dw, int B,
                                  int Cin, int Cout, int D, int H, int W, int grid_x, int grid_y,
                                  int grid_z, int threads, int smem, void* stream) {
-  if (x == nullptr || g == nullptr || partial == nullptr || dw == nullptr || Cin < 1 ||
-      Cout < 1 || grid_x < 1)
-    return int(cudaErrorInvalidValue);
-  if (threads != THREADS || smem != SMEM_BYTES || grid_y != (Cin + CI - 1) / CI ||
-      grid_z != (Cout + CO - 1) / CO)
-    return int(cudaErrorInvalidConfiguration);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DwArgs a{};
-  a.x = static_cast<const float*>(x);
-  a.g = static_cast<const float*>(g);
-  a.partial = static_cast<float*>(partial);
-  a.Cin = Cin, a.Cout = Cout, a.D = D, a.H = H, a.W = W;
-  a.tiles_w = (W + TW - 1) / TW, a.tiles_h = (H + TH - 1) / TH, a.tiles_d = (D + TD - 1) / TD;
-  a.ntiles = B * a.tiles_d * a.tiles_h * a.tiles_w;
-  cudaError_t err = cudaFuncSetAttribute(conv3_dw_f32_partial_kernel<false>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return int(err);
-  conv3_dw_f32_partial_kernel<false><<<dim3(grid_x, grid_y, grid_z), THREADS, smem, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-  const int n_out = 27 * Cin * Cout;
-  conv3_dw_f32_reduce_kernel<<<(n_out + RTHREADS - 1) / RTHREADS, RTHREADS, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dw), grid_x, n_out);
-  return int(cudaGetLastError());
+  return launch<false>(x, g, nullptr, nullptr, partial, dw, B, Cin, Cout, D, H, W, grid_x,
+                       grid_y, grid_z, threads, smem, stream);
+}
+
+// Kernel 6 in fp32: the dW of the conv of relu(x * a + t), a, t (B, Cin);
+// the scratch and the descriptor as for mmseg_conv3_dw_f32.
+MMSEG_API int mmseg_conv3_dw_f32_prologue(const void* x, const void* g, const void* a,
+                                          const void* t, void* partial, void* dw, int B,
+                                          int Cin, int Cout, int D, int H, int W, int grid_x,
+                                          int grid_y, int grid_z, int threads, int smem,
+                                          void* stream) {
+  return launch<true>(x, g, a, t, partial, dw, B, Cin, Cout, D, H, W, grid_x, grid_y, grid_z,
+                      threads, smem, stream);
 }

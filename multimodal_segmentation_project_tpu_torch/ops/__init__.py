@@ -6,7 +6,7 @@ the head) count their forward launches on themselves and their backward
 kernels on the wrappers named here; the eval conv, the pool and the head
 count their fp32 instances on the ``*_f32`` wrappers (the training conv's
 forward, dx and dW, the pool's backward and the head's dx and weight
-gradient too)."""
+gradient too), the fused DoubleConv's five kernels on ``*_f32`` counters."""
 
 from multimodal_segmentation_project_tpu_torch.ops.conv3 import (
     conv3x3x3_cf,
@@ -20,10 +20,15 @@ from multimodal_segmentation_project_tpu_torch.ops.conv3 import (
 )
 from multimodal_segmentation_project_tpu_torch.ops.conv3_fused import (
     conv3x3x3_cf_boundary,
+    conv3x3x3_cf_boundary_f32,
     conv3x3x3_cf_boundary_stats,
+    conv3x3x3_cf_boundary_stats_f32,
     conv3x3x3_cf_dw_prologue,
+    conv3x3x3_cf_dw_prologue_f32,
     conv3x3x3_cf_dx_epilogue,
+    conv3x3x3_cf_dx_epilogue_f32,
     conv3x3x3_cf_stats,
+    conv3x3x3_cf_stats_f32,
 )
 from multimodal_segmentation_project_tpu_torch.ops.head import (
     head1x1_cf,
@@ -61,14 +66,20 @@ KERNEL_OPS = {
     "conv3x3x3_cf_relu_f32": conv3x3x3_cf_relu_f32,
     "max_pool2x_cf_f32": max_pool2x_cf_f32,
     "head1x1_cf_f32": head1x1_cf_f32,
-    # the fp32 instances of the train step's per-conv chain: 1, 1-dx, 2, 9,
-    # 11-dx and 11-dw (the fp32 policy's training on the card)
+    # the fp32 instances of the train step's 1, 1-dx, 2, 9, 11-dx and 11-dw
+    # (the fp32 policy's training on the card)
     "conv3x3x3_cf_f32": conv3x3x3_cf_f32,
     "conv3x3x3_cf_dx_f32": conv3x3x3_cf_dx_f32,
     "conv3x3x3_cf_dw_f32": conv3x3x3_cf_dw_f32,
     "max_pool2x_cf_bwd_f32": max_pool2x_cf_bwd_f32,
     "head1x1_cf_dx_f32": head1x1_cf_dx_f32,
     "head1x1_cf_dw_f32": head1x1_cf_dw_f32,
+    # the fp32 instances of the fused DoubleConv: 3, 4, 12, 5 and 6
+    "conv3x3x3_cf_stats_f32": conv3x3x3_cf_stats_f32,
+    "conv3x3x3_cf_boundary_stats_f32": conv3x3x3_cf_boundary_stats_f32,
+    "conv3x3x3_cf_boundary_f32": conv3x3x3_cf_boundary_f32,
+    "conv3x3x3_cf_dx_epilogue_f32": conv3x3x3_cf_dx_epilogue_f32,
+    "conv3x3x3_cf_dw_prologue_f32": conv3x3x3_cf_dw_prologue_f32,
 }
 
 

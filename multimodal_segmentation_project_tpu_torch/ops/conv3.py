@@ -25,9 +25,8 @@ its dx on an fp32 x, counted on :func:`conv3x3x3_cf_relu_f32`,
 :func:`conv3x3x3_cf_f32` and :func:`conv3x3x3_cf_dx_f32`),
 ``csrc/conv3_dw.cu`` (the bf16 dW) and ``csrc/conv3_dw_f32.cu`` (the fp32
 dW, counted on :func:`conv3x3x3_cf_dw_f32`). The fused DoubleConv's convs,
-on the same kernels, are in ``ops.conv3_fused``; in fp32 on the card a
-DoubleConv runs the per-conv chain (:func:`fuses`). On CPU tensors each
-runs its ``*_reference``, the plain version of the same arithmetic. Each
+on the same bodies, are in ``ops.conv3_fused``. On CPU tensors each runs
+its ``*_reference``, the plain version of the same arithmetic. Each
 wrapper counts its launches.
 """
 
@@ -53,17 +52,6 @@ def eval_route(dtype: torch.dtype, cin: int, cout: int) -> str | None:
     if not supported(cin, cout):
         return None
     return "mmseg_conv3_f32_bias_relu" if dtype == torch.float32 else "mmseg_conv3_bias_relu"
-
-
-def fuses(dtype: torch.dtype, device_type: str) -> bool:
-    """Whether a train-mode DoubleConv whose two convs both take the kernels
-    runs as the fused block (``ops.conv3_fused``) in ``dtype`` on a
-    ``device_type`` device: everywhere but fp32 off the CPU, where the fused
-    block's fp32 instances (kernels 3, 4, 5, 6 and 12) are not written yet,
-    so the block runs the per-conv chain (:func:`conv3x3x3_cf` and its
-    backward, on the fp32 instances). On the CPU both paths are plain torch
-    and fp32 keeps the fused one."""
-    return dtype != torch.float32 or device_type == "cpu"
 
 
 # ---- plain versions ---------------------------------------------------
@@ -398,21 +386,27 @@ def dw_f32_launch_dims(device: torch.device, shape: tuple, cout: int) -> tuple:
     return nblk, -(-cin // DW_F32_CI), -(-cout // DW_F32_CO), DW_F32_THREADS, 2 * stage * 4
 
 
-def dw_f32_call(x: torch.Tensor, g: torch.Tensor) -> Launch:
-    """Kernel 2's fp32 call on CUDA tensors: fp32 dW (3, 3, 3, Cin, Cout)
-    from an fp32 input x (B, Cin, D, H, W) and cotangent g (B, Cout, D, H,
-    W), through an fp32 scratch of one (27, Cin, Cout) partial per block
-    row (grid x)."""
-    name = "conv3x3x3_cf_dw_f32"
+def dw_f32_operands(name: str, x: torch.Tensor, g: torch.Tensor):
+    """Checks for an fp32 dW kernel on input x and cotangent g; its fp32
+    scratch (one (27, Cin, Cout) partial per block row, grid x), its fp32
+    output (3, 3, 3, Cin, Cout) and its integer arguments, the descriptor
+    last."""
     _check_dw(name, x, g, torch.float32)
     bsz, cin, d, h, wd = x.shape
     cout = g.shape[1]
     dims = dw_f32_launch_dims(x.device, tuple(x.shape), cout)
     partial = torch.empty(dims[0] * 27 * cin * cout, dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    return partial, dw, (bsz, cin, cout, d, h, wd, *dims)
+
+
+def dw_f32_call(x: torch.Tensor, g: torch.Tensor) -> Launch:
+    """Kernel 2's fp32 call on CUDA tensors: fp32 dW (3, 3, 3, Cin, Cout)
+    from an fp32 input x (B, Cin, D, H, W) and cotangent g (B, Cout, D, H,
+    W)."""
+    partial, dw, args = dw_f32_operands("conv3x3x3_cf_dw_f32", x, g)
     return Launch("mmseg_conv3_dw_f32", (x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                                         dw.data_ptr(), bsz, cin, cout, d, h, wd, *dims),
-                  dw, (x, g, partial, dw))
+                                         dw.data_ptr(), *args), dw, (x, g, partial, dw))
 
 
 def conv3x3x3_cf_dw_f32(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -21,17 +21,25 @@ Port of ``multimodal_segmentation_project_tpu/ops/pallas_conv.py``:
   z, cast, then the bias added in the working dtype; no statistics.
   Backward: the same two kernels on g itself, ``db = sum g``.
 
-On CUDA tensors each forward and backward launches its hand-written kernel
-(``csrc/conv3.cu``: the implicit-GEMM body with the prologue and the stats
-and dx-mask epilogues; ``csrc/conv3_dw.cu``: dW with the prologue), bf16
-only. On CPU tensors each runs its ``*_reference``, the plain version of
-the same arithmetic, rounded at the same points. Each counts its launches:
-the three forwards on themselves, the backward kernels on
-:func:`conv3x3x3_cf_dx_epilogue` and :func:`conv3x3x3_cf_dw_prologue` (and,
-for :func:`conv3x3x3_cf_stats`, on ``ops.conv3``'s dx and dW).
+On CUDA tensors each forward and backward launches its hand-written kernel:
+in bf16 ``csrc/conv3.cu`` (the implicit-GEMM body with the prologue and the
+stats and dx-mask epilogues) and ``csrc/conv3_dw.cu`` (dW with the
+prologue); in fp32 the same instances of the fp32 bodies,
+``csrc/conv3_f32.cu`` and ``csrc/conv3_dw_f32.cu``; any other dtype raises.
+On CPU tensors each runs its ``*_reference``, the plain version of the same
+arithmetic, rounded at the same points. One call builder per kernel picks
+the body, the entry and the launch descriptor from the tensor's dtype. Each
+counts its launches: in bf16 the three forwards on themselves, the backward
+kernels on :func:`conv3x3x3_cf_dx_epilogue` and
+:func:`conv3x3x3_cf_dw_prologue` (and, for :func:`conv3x3x3_cf_stats`, on
+``ops.conv3``'s dx and dW); in fp32 on the counters of the same names with
+``_f32`` (``conv3x3x3_cf_stats_f32``, ..., ``conv3x3x3_cf_dw_prologue_f32``;
+``ops.conv3``'s fp32 dx and dW).
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import torch
 
@@ -107,21 +115,32 @@ def _affine(name: str, x: torch.Tensor, a: torch.Tensor, t: torch.Tensor, c: int
     return out
 
 
+def _f32(t: torch.Tensor) -> bool:
+    """Whether t goes to the fp32 bodies; any other dtype goes to the bf16
+    ones, which refuse all but bf16."""
+    return t.dtype == torch.float32
+
+
 def _stats_call(name: str, x, w, b, a=None, t=None) -> conv3.Launch:
-    """Kernel 3's (no a, t) or 4's call on CUDA tensors; its result is (y, s1, s2)."""
-    wk, bk, y = conv3.conv_operands(name, x, w, b)
+    """Kernel 3's (no a, t) or 4's call on CUDA tensors, on the body of x's
+    dtype (the fp32 one with its launch descriptor); its result is
+    (y, s1, s2)."""
+    f32 = _f32(x)
+    wk, bk, y = conv3.conv_operands(name, x, w, b, torch.float32 if f32 else torch.bfloat16)
     bsz, cin, d, h, wd = x.shape
     cout = y.shape[1]
     partial = torch.empty(2 * cout * bsz * conv_blocks(d, h, wd), dtype=torch.float32,
                           device=x.device)
     stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
+    dims = conv3.f32_launch_dims(tuple(x.shape), cout) if f32 else ()
+    body = "mmseg_conv3_f32" if f32 else "mmseg_conv3"
     head = (x.data_ptr(), wk.data_ptr(), bk.data_ptr())
-    tail = (y.data_ptr(), partial.data_ptr(), stats.data_ptr(), bsz, cin, cout, d, h, wd)
+    tail = (y.data_ptr(), partial.data_ptr(), stats.data_ptr(), bsz, cin, cout, d, h, wd, *dims)
     tensors = (x, wk, bk, y, partial, stats)
     if a is None:
-        return conv3.Launch("mmseg_conv3_stats", head + tail, (y, stats[0], stats[1]), tensors)
+        return conv3.Launch(f"{body}_stats", head + tail, (y, stats[0], stats[1]), tensors)
     ak, tk = _affine(name, x, a, t, cin)
-    return conv3.Launch("mmseg_conv3_prologue_stats", head + (ak.data_ptr(), tk.data_ptr()) + tail,
+    return conv3.Launch(f"{body}_prologue_stats", head + (ak.data_ptr(), tk.data_ptr()) + tail,
                         (y, stats[0], stats[1]), tensors + (ak, tk))
 
 
@@ -136,98 +155,123 @@ def boundary_stats_call(x, w, b, a, t) -> conv3.Launch:
 
 
 def boundary_call(x, w, b, a, t) -> conv3.Launch:
-    """Kernel 12's call (conv3x3x3_cf_boundary's forward)."""
-    name = "conv3x3x3_cf_boundary"
-    wk, bk, y = conv3.conv_operands(name, x, w, b)
+    """Kernel 12's call (conv3x3x3_cf_boundary's forward) on CUDA tensors,
+    on the body of x's dtype."""
+    name, f32 = "conv3x3x3_cf_boundary", _f32(x)
+    wk, bk, y = conv3.conv_operands(name, x, w, b, torch.float32 if f32 else torch.bfloat16)
     bsz, cin, d, h, wd = x.shape
     ak, tk = _affine(name, x, a, t, cin)
+    dims = conv3.f32_launch_dims(tuple(x.shape), y.shape[1]) if f32 else ()
     args = (x.data_ptr(), wk.data_ptr(), bk.data_ptr(), ak.data_ptr(), tk.data_ptr(),
-            y.data_ptr(), bsz, cin, y.shape[1], d, h, wd)
-    return conv3.Launch("mmseg_conv3_prologue", args, y, (x, wk, bk, ak, tk, y))
+            y.data_ptr(), bsz, cin, y.shape[1], d, h, wd, *dims)
+    return conv3.Launch("mmseg_conv3_f32_prologue" if f32 else "mmseg_conv3_prologue", args, y,
+                        (x, wk, bk, ak, tk, y))
 
 
 def dx_epilogue_call(g, w, x, a, t) -> conv3.Launch:
-    """Kernel 5's call (conv3x3x3_cf_dx_epilogue); its result is (dy, da, dt)."""
-    name = "conv3x3x3_cf_dx_epilogue"
-    cx = conv3._check_conv(name, g, conv3.flip_transpose(w))
-    _build.require(name, x, torch.bfloat16, 5)
+    """Kernel 5's call (conv3x3x3_cf_dx_epilogue) on CUDA tensors, on the
+    body of g's dtype; its result is (dy, da, dt)."""
+    name, f32 = "conv3x3x3_cf_dx_epilogue", _f32(g)
+    dtype = torch.float32 if f32 else torch.bfloat16
+    wt = conv3.flip_transpose(w)
+    cx = conv3._check_conv(name, g, wt, dtype)
+    _build.require(name, x, dtype, 5)
     bsz, cg, d, h, wd = g.shape
     if tuple(x.shape) != (bsz, cx, d, h, wd):
         raise ValueError(f"{name}: input {tuple(x.shape)} does not match the cotangent "
                          f"{tuple(g.shape)} and weights {tuple(w.shape)}")
     ak, tk = _affine(name, x, a, t, cx)
-    wk = conv3.pack_weights(conv3.flip_transpose(w).to(g.device))
+    wk = (conv3.pack_weights_f32 if f32 else conv3.pack_weights)(wt.to(g.device))
     dy = torch.empty_like(x)
     partial = torch.empty(2 * bsz * cx * conv_blocks(d, h, wd), dtype=torch.float32,
                           device=g.device)
     dadt = torch.empty((2, bsz, cx), dtype=torch.float32, device=g.device)
+    dims = conv3.f32_launch_dims(tuple(g.shape), cx) if f32 else ()
     args = (g.data_ptr(), wk.data_ptr(), x.data_ptr(), ak.data_ptr(), tk.data_ptr(),
-            dy.data_ptr(), partial.data_ptr(), dadt.data_ptr(), bsz, cg, cx, d, h, wd)
-    return conv3.Launch("mmseg_conv3_dx_epilogue", args, (dy, dadt[0], dadt[1]),
-                        (g, wk, x, ak, tk, dy, partial, dadt))
+            dy.data_ptr(), partial.data_ptr(), dadt.data_ptr(), bsz, cg, cx, d, h, wd, *dims)
+    return conv3.Launch("mmseg_conv3_f32_dx_epilogue" if f32 else "mmseg_conv3_dx_epilogue",
+                        args, (dy, dadt[0], dadt[1]), (g, wk, x, ak, tk, dy, partial, dadt))
+
+
+def dw_prologue_call(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
+                     t: torch.Tensor) -> conv3.Launch:
+    """Kernel 6's call (the boundary convs' dW) on CUDA tensors, on the dW
+    body of x's dtype."""
+    name, f32 = "conv3x3x3_cf_dw_prologue", _f32(x)
+    partial, dw, args = (conv3.dw_f32_operands if f32 else conv3.dw_operands)(name, x, g)
+    ak, tk = _affine(name, x, a, t, x.shape[1])
+    args = (x.data_ptr(), g.data_ptr(), ak.data_ptr(), tk.data_ptr(), partial.data_ptr(),
+            dw.data_ptr(), *args)
+    return conv3.Launch("mmseg_conv3_dw_f32_prologue" if f32 else "mmseg_conv3_dw_prologue",
+                        args, dw, (x, g, ak, tk, partial, dw))
+
+
+# the launches of the fp32 instances, counted apart from bf16's (ops.KERNEL_OPS)
+conv3x3x3_cf_stats_f32 = SimpleNamespace(launches=0)
+conv3x3x3_cf_boundary_stats_f32 = SimpleNamespace(launches=0)
+conv3x3x3_cf_boundary_f32 = SimpleNamespace(launches=0)
+conv3x3x3_cf_dx_epilogue_f32 = SimpleNamespace(launches=0)
+conv3x3x3_cf_dw_prologue_f32 = SimpleNamespace(launches=0)
+
+
+def _run(name: str, call: conv3.Launch, t: torch.Tensor, op, op_f32):
+    """Launch ``call`` on t's device; count it on op_f32 for an fp32 t,
+    else on op."""
+    out = conv3.run(name, call, t)
+    (op_f32 if _f32(t) else op).launches += 1
+    return out
 
 
 def _conv_stats(x, w, b):
-    """Kernel 3 without autograd; its launches count on conv3x3x3_cf_stats."""
+    """Kernel 3 without autograd; its launches count on conv3x3x3_cf_stats
+    (fp32: conv3x3x3_cf_stats_f32)."""
     if x.device.type == "cpu":
         return conv3x3x3_cf_stats_reference(x, w, b)
-    out = conv3.run("conv3x3x3_cf_stats", stats_call(x, w, b), x)
-    conv3x3x3_cf_stats.launches += 1
-    return out
+    return _run("conv3x3x3_cf_stats", stats_call(x, w, b), x, conv3x3x3_cf_stats,
+                conv3x3x3_cf_stats_f32)
 
 
 def _boundary_stats(x, w, b, a, t):
-    """Kernel 4 without autograd; its launches count on conv3x3x3_cf_boundary_stats."""
+    """Kernel 4 without autograd; its launches count on
+    conv3x3x3_cf_boundary_stats (fp32: conv3x3x3_cf_boundary_stats_f32)."""
     if x.device.type == "cpu":
         return conv3x3x3_cf_boundary_stats_reference(x, w, b, a, t)
-    out = conv3.run("conv3x3x3_cf_boundary_stats", boundary_stats_call(x, w, b, a, t), x)
-    conv3x3x3_cf_boundary_stats.launches += 1
-    return out
+    return _run("conv3x3x3_cf_boundary_stats", boundary_stats_call(x, w, b, a, t), x,
+                conv3x3x3_cf_boundary_stats, conv3x3x3_cf_boundary_stats_f32)
 
 
 def _boundary(x, w, b, a, t):
-    """Kernel 12 without autograd; its launches count on conv3x3x3_cf_boundary."""
+    """Kernel 12 without autograd; its launches count on
+    conv3x3x3_cf_boundary (fp32: conv3x3x3_cf_boundary_f32)."""
     if x.device.type == "cpu":
         return conv3x3x3_cf_boundary_reference(x, w, b, a, t)
-    y = conv3.run("conv3x3x3_cf_boundary", boundary_call(x, w, b, a, t), x)
-    conv3x3x3_cf_boundary.launches += 1
-    return y
+    return _run("conv3x3x3_cf_boundary", boundary_call(x, w, b, a, t), x, conv3x3x3_cf_boundary,
+                conv3x3x3_cf_boundary_f32)
 
 
 def conv3x3x3_cf_dx_epilogue(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
                              a: torch.Tensor, t: torch.Tensor):
     """(dy, da, dt) of a boundary conv from its output cotangent g (B, Cout,
     D, H, W), weights w (3, 3, 3, Cin, Cout), raw input x (B, Cin, D, H, W)
-    and affine a, t (B, Cin): dy in x's dtype, da and dt fp32 (B, Cin);
-    bf16 g and x only on CUDA."""
+    and affine a, t (B, Cin): dy in x's dtype, da and dt fp32 (B, Cin); on
+    CUDA bf16 or fp32 g and x (fp32 launches count on
+    conv3x3x3_cf_dx_epilogue_f32)."""
     if g.device.type == "cpu":
         return conv3x3x3_cf_dx_epilogue_reference(g, w, x, a, t)
-    out = conv3.run("conv3x3x3_cf_dx_epilogue", dx_epilogue_call(g, w, x, a, t), g)
-    conv3x3x3_cf_dx_epilogue.launches += 1
-    return out
-
-
-def dw_prologue_call(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
-                     t: torch.Tensor) -> conv3.Launch:
-    """Kernel 6's call on CUDA tensors (the boundary convs' dW)."""
-    name = "conv3x3x3_cf_dw_prologue"
-    partial, dw, args = conv3.dw_operands(name, x, g)
-    ak, tk = _affine(name, x, a, t, x.shape[1])
-    args = (x.data_ptr(), g.data_ptr(), ak.data_ptr(), tk.data_ptr(), partial.data_ptr(),
-            dw.data_ptr(), *args)
-    return conv3.Launch("mmseg_conv3_dw_prologue", args, dw, (x, g, ak, tk, partial, dw))
+    return _run("conv3x3x3_cf_dx_epilogue", dx_epilogue_call(g, w, x, a, t), g,
+                conv3x3x3_cf_dx_epilogue, conv3x3x3_cf_dx_epilogue_f32)
 
 
 def conv3x3x3_cf_dw_prologue(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
                              t: torch.Tensor) -> torch.Tensor:
     """fp32 dW (3, 3, 3, Cin, Cout) of a boundary conv from its raw input x
     (B, Cin, D, H, W), affine a, t (B, Cin) and cotangent g (B, Cout, D, H,
-    W); bf16 x and g only on CUDA."""
+    W); on CUDA bf16 or fp32 x and g (fp32 launches count on
+    conv3x3x3_cf_dw_prologue_f32)."""
     if x.device.type == "cpu":
         return conv3x3x3_cf_dw_prologue_reference(x, g, a, t)
-    dw = conv3.run("conv3x3x3_cf_dw_prologue", dw_prologue_call(x, g, a, t), x)
-    conv3x3x3_cf_dw_prologue.launches += 1
-    return dw
+    return _run("conv3x3x3_cf_dw_prologue", dw_prologue_call(x, g, a, t), x,
+                conv3x3x3_cf_dw_prologue, conv3x3x3_cf_dw_prologue_f32)
 
 
 conv3x3x3_cf_dx_epilogue.launches = 0

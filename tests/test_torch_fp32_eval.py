@@ -56,8 +56,14 @@ ENTRY_OP = {"mmseg_conv3_f32_bias_relu": "conv3x3x3_cf_relu_f32",
             "mmseg_head1x1_f32": "head1x1_cf_f32", "mmseg_head1x1": "head1x1_cf"}
 
 
-def _constants(name: str) -> dict:
+def _source(name: str) -> str:
+    """A source with the headers it includes from csrc appended."""
     text = (CSRC / name).read_text()
+    return text + "".join(_source(h) for h in re.findall(r'#include "(\w+\.cuh)"', text))
+
+
+def _constants(name: str) -> dict:
+    text = _source(name)
     return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
 
 
@@ -226,7 +232,7 @@ def test_the_fp32_conv_launch_is_the_sources(cin, cout, s, faked_launches):
     assert (k["TD"], k["TH"], k["TW"]) == conv3.F32_TILE
     assert (k["CK"], k["PITCH"], k["THREADS"]) == (conv3.F32_CK, conv3.F32_PITCH,
                                                    conv3.F32_THREADS)
-    source = (CSRC / "conv3_f32.cu").read_text()
+    source = _source("conv3_f32.cu")
     assert all(f"constexpr int {line};" in source
                for line in ("DR = TD + 2", "HR = TH + 2", "ROWS = DR * HR"))
     rows = (k["TD"] + 2) * (k["TH"] + 2)

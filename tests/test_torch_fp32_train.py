@@ -1,10 +1,11 @@
 """The fp32 training path of the port, on the CPU: how an fp32 train step
-routes every op on the card (every DoubleConv on the per-conv chain, the
-fp32 instances of kernels 1, 1-dx, 2, 8, 9, 11, 11-dx and 11-dw, the
-library for the deep region and every upconv), the new launches'
+routes every op on the card (the fused DoubleConv where bf16 takes it, the
+fp32 instances of kernels 1, 1-dx, 2, 3, 4, 5, 6, 8, 9, 11, 11-dx and
+11-dw, the library for the deep region and every upconv), the launches'
 descriptors against their sources' constants, the fp32 dW body's order of
-sums, the plain fp32 step with the card's routing against the JAX package's,
-cuDNN's TF32 off in the steps' backward, and the wrappers' refusals.
+sums, the plain fp32 step with the card's routing (and with every block on
+the per-conv chain) against the JAX package's, cuDNN's TF32 off in the
+steps' backward, and the wrappers' refusals.
 
 The kernels run only on the card (chip_smoke.py holds them against their
 plain versions there). Here the model runs on 'meta' tensors with the
@@ -28,9 +29,9 @@ from multimodal_segmentation_project_tpu_torch import ops
 from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
 from multimodal_segmentation_project_tpu_torch.engine.steps import make_dann_step, make_train_step
 from multimodal_segmentation_project_tpu_torch.models import DomainDiscriminator, UNet3D, unet3d
-from multimodal_segmentation_project_tpu_torch.ops import conv3, head, pool, upconv
+from multimodal_segmentation_project_tpu_torch.ops import conv3, conv3_fused, head, pool, upconv
 from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
-from tests.test_torch_fp32_eval import _constants, _require_as_on_the_card
+from tests.test_torch_fp32_eval import _constants, _require_as_on_the_card, _source
 from tests.test_torch_train import check_two_train_steps_against_jax
 
 CSRC = Path(conv3.__file__).resolve().parent.parent / "csrc"
@@ -38,9 +39,12 @@ WIDTHS = (16, 32, 64, 128)  # the default widths, whose routing the card sees
 # per train step at the default widths: the kernels' launches, and the
 # library's convs and transpose convs in the forward
 STEP = {
-    torch.float32: ({"conv3x3x3_cf_f32": 11, "conv3x3x3_cf_dx_f32": 10, "conv3x3x3_cf_dw_f32": 11,
-                     "max_pool2x_cf_f32": 4, "max_pool2x_cf_bwd_f32": 4, "head1x1_cf_f32": 1,
-                     "head1x1_cf_dx_f32": 1, "head1x1_cf_dw_f32": 1},
+    torch.float32: ({"conv3x3x3_cf_stats_f32": 5, "conv3x3x3_cf_boundary_stats_f32": 5,
+                     "conv3x3x3_cf_f32": 1, "conv3x3x3_cf_dx_f32": 5,
+                     "conv3x3x3_cf_dx_epilogue_f32": 5, "conv3x3x3_cf_dw_f32": 6,
+                     "conv3x3x3_cf_dw_prologue_f32": 5, "max_pool2x_cf_f32": 4,
+                     "max_pool2x_cf_bwd_f32": 4, "head1x1_cf_f32": 1, "head1x1_cf_dx_f32": 1,
+                     "head1x1_cf_dw_f32": 1},
                     {"conv3d": 7, "conv_transpose3d": 4}),
     torch.bfloat16: ({"conv3x3x3_cf_stats": 5, "conv3x3x3_cf_boundary_stats": 5, "conv3x3x3_cf": 1,
                       "conv3x3x3_cf_dx": 5, "conv3x3x3_cf_dx_epilogue": 5, "conv3x3x3_cf_dw": 6,
@@ -49,7 +53,9 @@ STEP = {
                      {"conv3d": 7, "conv_transpose3d": 1}),
 }
 # the C entry points an fp32 step launches, and how often
-F32_ENTRIES = {"mmseg_conv3_f32": 21, "mmseg_conv3_dw_f32": 11, "mmseg_pool2x_f32": 4,
+F32_ENTRIES = {"mmseg_conv3_f32": 6, "mmseg_conv3_f32_stats": 5,
+               "mmseg_conv3_f32_prologue_stats": 5, "mmseg_conv3_f32_dx_epilogue": 5,
+               "mmseg_conv3_dw_f32": 6, "mmseg_conv3_dw_f32_prologue": 5, "mmseg_pool2x_f32": 4,
                "mmseg_pool2x_bwd_f32": 4, "mmseg_head1x1_f32": 1, "mmseg_head1x1_dx_f32": 1,
                "mmseg_head1x1_dw_f32": 1}
 SMS = 132  # the H100's SM count, which the faked device properties report
@@ -82,24 +88,23 @@ def faked_launches(monkeypatch):
 
 def _table(dtype: torch.dtype) -> tuple[Counter, Counter]:
     """The train step's kernel launches and library calls on the card, from
-    the routing functions (DoubleConv.fused on conv3.fuses, conv3.supported,
-    pool.route, upconv.route, head.route) and the model's widths."""
+    the routing functions (DoubleConv.fused, conv3.supported, pool.route,
+    upconv.route, head.route) and the model's widths."""
     model = UNet3D(features=WIDTHS)
     kernels, library = Counter(), Counter()
+    suffix = "_f32" if dtype == torch.float32 else ""
     first = True  # the image's conv, whose input needs no gradient
     for block in (*model.encoder, model.bottleneck, *model.decoder):
         c0, c1 = block.double_conv[0], block.double_conv[4]
-        if block.fused(dtype, "cuda"):
-            kernels.update({"conv3x3x3_cf_stats": 1, "conv3x3x3_cf_boundary_stats": 1,
-                            "conv3x3x3_cf_dx_epilogue": 1, "conv3x3x3_cf_dw_prologue": 1,
-                            "conv3x3x3_cf_dw": 1})
-            kernels["conv3x3x3_cf_dx"] += not first
+        if block.fused():
+            kernels.update({f"conv3x3x3_cf_{k}{suffix}": 1 for k in (
+                "stats", "boundary_stats", "dx_epilogue", "dw_prologue", "dw")})
+            kernels[f"conv3x3x3_cf_dx{suffix}"] += not first
         else:
             for conv in (c0, c1):
                 if not conv3.supported(conv.in_channels, conv.out_channels):
                     library["conv3d"] += 1
                     continue
-                suffix = "_f32" if dtype == torch.float32 else ""
                 kernels[f"conv3x3x3_cf{suffix}"] += 1
                 kernels[f"conv3x3x3_cf_dw{suffix}"] += 1
                 kernels[f"conv3x3x3_cf_dx{suffix}"] += not first
@@ -123,9 +128,10 @@ def _table(dtype: torch.dtype) -> tuple[Counter, Counter]:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_the_train_step_routes_every_op_as_the_table_says(dtype, faked_launches, monkeypatch):
     """A train-mode forward and backward at the default widths on the card
-    path: fp32 takes the per-conv chain in every block (43 launches of the
-    port's kernels, the library's 7 convs and 4 transpose convs, no kernel
-    10); bf16 keeps its fused blocks (46 launches). The table from the
+    path: both dtypes take the fused block in enc0-enc2, dec2 and dec3 and
+    the per-conv chain in dec1 and the deep region; bf16 launches 46 of the
+    port's kernels, fp32 the same table on the fp32 instances without kernel
+    10 (43; the library's 7 convs and 4 transpose convs). The table from the
     routing functions, the counters, the launched entry points and the
     library's calls all agree."""
     kernels, library = STEP[dtype]
@@ -156,20 +162,27 @@ def test_the_train_step_routes_every_op_as_the_table_says(dtype, faked_launches,
     assert logits.shape == (1, 4, 32, 32, 32) and logits.dtype == torch.float32
     logits.sum().backward()
     assert {k: n for k, n in ops.launch_counts().items() if n} == kernels
-    if dtype == torch.float32:  # the forward and the dx share the fp32 body's entry
+    if dtype == torch.float32:  # dec1's forward and the dx share the fp32 body's entry
         assert Counter(c.entry for c in faked_launches) == F32_ENTRIES
-        assert len(per_conv) == 9  # every block
-    else:
-        assert len(per_conv) == 4  # dec1 and the deep region
+    assert len(per_conv) == 4  # dec1 and the deep region
     assert dict(lib_calls) == library
     assert all(p.grad is not None for p in model.parameters())
 
 
-def test_fp32_keeps_the_fused_block_on_the_cpu_and_leaves_it_on_the_card():
-    block = unet3d.DoubleConv(16, 16)
-    assert block.fused(torch.float32, "cpu") and block.fused(torch.bfloat16, "cuda")
-    assert not block.fused(torch.float32, "cuda") and not block.fused(torch.float32, "meta")
-    assert not unet3d.DoubleConv(64, 128).fused(torch.bfloat16, "cuda")  # the deep region
+def test_the_fused_block_is_chosen_by_width_alone():
+    """The fused block is a matter of widths only: an fp32 block of two
+    convs <= 64 wide takes it on the CPU and on the card alike (its fp32
+    instances exist), a block with a wider conv never does."""
+    assert unet3d.DoubleConv(16, 16).fused() and unet3d.DoubleConv(64, 32).fused()
+    assert not unet3d.DoubleConv(64, 128).fused()  # the deep region
+    assert not unet3d.DoubleConv(128, 64).fused()  # dec1
+    for device in ("cpu", "meta"):
+        block = unet3d.DoubleConv(4, 8).to(device).train()
+        taken = []
+        block.forward_train_fused = lambda *a, **k: taken.append(device) or a[0]
+        block.forward_train_per_conv = lambda *a, **k: pytest.fail("per-conv chain taken")
+        block.forward_train(torch.empty(1, 4, 4, 8, 16, device=device), torch.float32)
+        assert taken == [device]
 
 
 # ---- the new launches against their sources ---------------------------------------
@@ -187,7 +200,7 @@ def test_the_fp32_training_conv_and_its_dx_launch_as_the_source_says(cin, cout, 
     descriptor (tests/test_torch_fp32_eval.py holds it against
     csrc/conv3_f32.cu's constants) for their own Cin and Cout."""
     source = (CSRC / "conv3_f32.cu").read_text()
-    assert "enum Epilogue { kBiasRelu = 0, kCastBias = 1 };" in source
+    assert "enum Epilogue { kBiasRelu = 0, kCastBias = 1, kBiasStats = 2, kDxMask = 3 };" in source
     assert "dispatch<kCastBias, false>" in source
     x = torch.empty(2, cin, s, s + 1, s, device="meta")
     g = torch.empty(2, cout, s, s + 1, s, device="meta")
@@ -214,7 +227,7 @@ def test_the_fp32_dw_launch_is_the_sources(cin, cout, s, faked_launches):
     assert (k["CI"], k["CO"], k["THREADS"]) == (conv3.DW_F32_CI, conv3.DW_F32_CO,
                                                 conv3.DW_F32_THREADS)
     assert (k["TD"], k["TH"], k["TW"]) == conv3.F32_TILE and k["PITCH"] == conv3.F32_PITCH
-    source = (CSRC / "conv3_dw_f32.cu").read_text()
+    source = _source("conv3_dw_f32.cu")
     for line in ("X_FLOATS = CI * ROWS * PITCH", "G_FLOATS = CO * TD * TH * PITCH",
                  "SMEM_BYTES = 2 * STAGE_FLOATS * 4", "ROWS = DR * HR"):
         assert f"constexpr int {line};" in source
@@ -321,20 +334,21 @@ def test_the_fp32_dw_partials_summed_in_block_order_reproduce_the_plain_dw(
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
-# ---- the plain fp32 step with the card's routing against JAX -------------------------
+# ---- the plain fp32 step on the per-conv chain against JAX ----------------------------
 
 
-def test_two_fp32_train_steps_with_the_cards_routing_match_jax(monkeypatch):
+def test_two_fp32_train_steps_on_the_per_conv_chain_match_jax(monkeypatch):
     """tests/test_torch_train.py's two steps against the JAX package's fp32
-    make_train_step, with every DoubleConv on the per-conv chain as on the
-    card (conv3.fuses false), at that test's bounds."""
-    monkeypatch.setattr(conv3, "fuses", lambda dtype, device_type: False)
+    make_train_step (which holds the fused block), with every DoubleConv on
+    the per-conv chain: the JAX package's data-mesh configuration, which the
+    port runs for dec1 and the deep region, at that test's bounds."""
+    monkeypatch.setattr(unet3d.DoubleConv, "fused", lambda self: False)
     per_conv = []
     real = unet3d.DoubleConv.forward_train_per_conv
     monkeypatch.setattr(unet3d.DoubleConv, "forward_train_per_conv",
                         lambda self, *a: per_conv.append(self) or real(self, *a))
     monkeypatch.setattr(unet3d.DoubleConv, "forward_train_fused", lambda *a: pytest.fail(
-        "a fused block ran with the card's fp32 routing"))
+        "a fused block ran on the per-conv chain's routing"))
     check_two_train_steps_against_jax()
     assert len(per_conv) == 2 * 5  # two steps, five DoubleConvs at two levels
 
@@ -428,15 +442,35 @@ def test_the_fp32_training_wrappers_refuse_what_their_kernels_do_not_take(faked_
 
 
 def test_an_fp32_conv_on_the_card_never_runs_a_plain_version(faked_launches, monkeypatch):
-    """The training conv's forward, dx and dW on an fp32 device tensor
-    launch the fp32 kernels (a bf16 one the bf16 kernels), never the plain
-    versions."""
+    """The training conv's forward, dx and dW, and the fused DoubleConv's
+    three ops forward and backward, on an fp32 device tensor launch the fp32
+    kernels (a bf16 one the bf16 kernels), never the plain versions."""
     def refuse(*a, **k):
         raise AssertionError("a plain version ran on a device tensor")
 
     for name in ("conv3x3x3_cf_reference", "conv3x3x3_cf_dx_reference",
                  "conv3x3x3_cf_dw_reference", "conv_fp32"):
         monkeypatch.setattr(conv3, name, refuse)
+    for name in ("prologue_reference", "conv3x3x3_cf_stats_reference",
+                 "conv3x3x3_cf_boundary_stats_reference", "conv3x3x3_cf_boundary_reference",
+                 "conv3x3x3_cf_dx_epilogue_reference", "conv3x3x3_cf_dw_prologue_reference"):
+        monkeypatch.setattr(conv3_fused, name, refuse)
+    for dtype, body, dw in ((torch.float32, "mmseg_conv3_f32", "mmseg_conv3_dw_f32"),
+                            (torch.bfloat16, "mmseg_conv3", "mmseg_conv3_dw")):
+        faked_launches.clear()
+        x = torch.empty(1, 16, 4, 8, 16, dtype=dtype, device="meta", requires_grad=True)
+        w = torch.empty(3, 3, 3, 16, 16, device="meta", requires_grad=True)
+        b = torch.empty(16, device="meta", requires_grad=True)
+        a = torch.empty(1, 16, device="meta", requires_grad=True)
+        t = torch.empty(1, 16, device="meta", requires_grad=True)
+        for op in (lambda: conv3_fused.conv3x3x3_cf_stats(x, w, b),
+                   lambda: conv3_fused.conv3x3x3_cf_boundary_stats(x, w, b, a, t),
+                   lambda: (conv3_fused.conv3x3x3_cf_boundary(x, w, b, a, t),)):
+            sum(o.float().sum() for o in op()).backward()
+        assert [c.entry for c in faked_launches] == [
+            f"{body}_stats", body, dw, f"{body}_prologue_stats", f"{body}_dx_epilogue",
+            f"{dw}_prologue", f"{body}_prologue", f"{body}_dx_epilogue", f"{dw}_prologue"]
+        assert x.grad.dtype == dtype and a.grad.shape == a.shape
     for dtype, want in ((torch.float32, ["mmseg_conv3_f32", "mmseg_conv3_f32",
                                          "mmseg_conv3_dw_f32"]),
                         (torch.bfloat16, ["mmseg_conv3", "mmseg_conv3", "mmseg_conv3_dw"])):

@@ -181,14 +181,25 @@ def _port_model(params, stats) -> UNet3D:
     return model
 
 
-def test_two_train_steps_match_jax():
+def test_two_train_steps_match_jax(monkeypatch):
+    """Two fp32 steps with the card's routing: every block of the test's
+    model takes the fused block (tests/test_torch_fp32_train.py holds the
+    per-conv chain)."""
+    fused, per_conv = [], []
+    real_fused = DoubleConv.forward_train_fused
+    real_chain = DoubleConv.forward_train_per_conv
+    monkeypatch.setattr(DoubleConv, "forward_train_fused",
+                        lambda self, *a: fused.append(self) or real_fused(self, *a))
+    monkeypatch.setattr(DoubleConv, "forward_train_per_conv",
+                        lambda self, *a: per_conv.append(self) or real_chain(self, *a))
     check_two_train_steps_against_jax()
+    assert len(fused) == 2 * 5 and not per_conv  # two steps, five DoubleConvs at two levels
 
 
 def check_two_train_steps_against_jax():
     """Two steps of the port's make_train_step against the JAX one, at the
     bounds of the module docstring (tests/test_torch_fp32_train.py runs it
-    with the card's fp32 routing forced onto the plain path)."""
+    with every block on the per-conv chain)."""
     model, params, stats = _jax_setup()
     jloss = jax_loss_fn("ce_tversky")
     tx = make_optimizer(weight_decay=0.01)
