@@ -12,9 +12,9 @@ Phases, each printing one line per check; any failure exits non-zero:
    prints ptxas's registers and spills of each of the 24 instances of the
    conv body (``csrc/conv3.cu``), of the 24 of the fp32 conv body
    (``csrc/conv3_f32.cu``), of the 8 of the dW body (``csrc/conv3_dw.cu``),
-   of the fp32 dW body's 2 (``csrc/conv3_dw_f32.cu``) and of the head's and
+   of the fp32 dW body's 4 (``csrc/conv3_dw_f32.cu``) and of the head's and
    the upconv's 66 (``csrc/head1x1.cu``, ``csrc/upconv_d2s.cu``; none of the
-   last 100 may spill), and their dynamic shared memory per block;
+   last 102 may spill), and their dynamic shared memory per block;
 3. kernels: each kernel against its plain PyTorch version at every shape
    the 192^3 eval forward and train step give it, in bf16, the fp32
    instances of 7, 8 and 11 at every shape of the fp32 eval forward, and
@@ -25,7 +25,10 @@ Phases, each printing one line per check; any failure exits non-zero:
    time of the kernel as called, of its plain version and of one library
    call over distinct inputs (CUDA events; cuDNN's TF32 off), and its bound:
    the larger of its bytes over 3.35 TB/s and its FLOPs over 989 TFLOP/s
-   (bf16) or 67 TFLOP/s (fp32). The fp32 pool also with NaNs planted, and
+   (bf16) or 67 TFLOP/s (fp32); for the fp32 dW body's two instances also
+   the 3xTF32 bound (three times its products' FLOPs over 494.7 TFLOP/s)
+   and the library call again with ``cudnn.benchmark`` on (its best
+   algorithm, not only its default). The fp32 pool also with NaNs planted, and
    two controls: the 16->16 192^3 conv and its weight gradient by cuDNN
    with TF32 allowed must miss the fp32 bound. For every kernel
    also the bare launch (operands packed before the timed window,
@@ -120,7 +123,10 @@ backend on the GPU, and nothing else. ``python3 chip_smoke.py
 --time-accum-step [ROOT]`` instead times and profiles the full-width train
 step with gradient accumulation 2, with the port imported from ROOT (this
 checkout by default): run it on a parent's checkout and on this one in one
-call to compare the two.
+call to compare the two. ``python3 chip_smoke.py --time-dw-f32 [ROOT]``
+does the same for the fp32 dW body's two instances (kernels 2 and 6 in
+fp32) at the fp32 train step's shapes: each checked against its plain
+version, timed as called and bare, summed per step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Scratch files go to
@@ -147,6 +153,7 @@ N_TIMED = 5  # distinct inputs per timed kernel / plain / library call
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, same source
 FP32_FLOPS = 67e12         # fp32 outside the tensor cores, same source
+TF32_FLOPS = 494.7e12      # dense TF32 tensor-core peak, same source
 
 # (Cin, Cout, S) of every 3x3x3 conv with Cin, Cout <= 64 at 192^3 input:
 # the eval forward's
@@ -401,13 +408,16 @@ def dw_body_resources(log: str) -> list:
         lambda cout, pro: f"conv3_dw_partial_kernel<COUT={cout}, prologue={pro}>")
 
 
-DW_F32_INSTANCES = 2  # conv3_dw_f32.cu: without and with the prologue (2; 6)
+# conv3_dw_f32.cu: MW = 1, 2 m16 tiles of a block's output channels (Cout
+# <= 16, or more), each without and with the prologue (2; 6)
+DW_F32_INSTANCES = 4
 
 
 def dw_f32_body_resources(log: str) -> list:
-    """conv3_dw_f32.cu's conv3_dw_f32_partial_kernel<PRO> instances."""
-    return ptxas_resources(log, r"conv3_dw_f32_partial_kernelILb(\d)E",
-                           lambda pro: f"conv3_dw_f32_partial_kernel<prologue={pro}>")
+    """conv3_dw_f32.cu's conv3_dw_f32_partial_kernel<MW, PRO> instances."""
+    return ptxas_resources(log, r"conv3_dw_f32_partial_kernelILi(\d)ELb(\d)E",
+                           lambda mw, pro: f"conv3_dw_f32_partial_kernel<MW={mw}, "
+                                           f"prologue={pro}>")
 
 
 # head1x1.cu: 16 forward (bf16 and fp32 features, CO = 1..8), 16 dx (bf16
@@ -481,8 +491,8 @@ def phase_build() -> None:
     for line in lines:
         print(f"[build] ptxas {line}", flush=True)
         fail_unless("0 bytes spill stores, 0 bytes spill loads" in line, f"fp32 dW spills: {line}")
-    print(f"[build] conv3_dw_f32_partial_kernel dynamic shared memory per block: "
-          f"{lib.mmseg_conv3_dw_f32_smem_bytes()} B", flush=True)
+    print("[build] conv3_dw_f32_partial_kernel dynamic shared memory per block: " + ", ".join(
+        f"Cout={c} {lib.mmseg_conv3_dw_f32_smem_bytes(c)} B" for c in (16, 32)), flush=True)
     lines = small_kernel_resources(log)
     fail_unless(len(lines) == SMALL_INSTANCES, f"ptxas reported {len(lines)} head and upconv "
                 f"kernel instances, not {SMALL_INSTANCES}")
@@ -1201,6 +1211,7 @@ def phase_kernels() -> dict:
     results = {}
     for name, (kern, plain, lib, make, shapes, tol, work, lib_label) in plan.items():
         tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms"), 0.0)
+        extra = dict.fromkeys(("tf32x3_bound_ms", "library_benchmark_ms"), 0.0)
         bare_tot = 0.0
         max_abs = bytes_ms = ops_ms = 0.0
         for shape, mult in _count(shapes):
@@ -1215,6 +1226,15 @@ def phase_kernels() -> dict:
             bytes_ms += mult * nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms += mult * op_s * 1e3
             sums_label = "" if sums is None else f", sums at {sums:.4g} of their bound"
+            if name in F32_TRAIN_DW:  # the 3xTF32 bound, the library at its best algorithm
+                tf32x3_ms = 3 * flops / TF32_FLOPS * 1e3
+                with torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                                deterministic=False, allow_tf32=False):
+                    lib_best_ms = _time_ms(lib, inputs)
+                extra["tf32x3_bound_ms"] += mult * tf32x3_ms
+                extra["library_benchmark_ms"] += mult * lib_best_ms
+                sums_label += (f", 3xTF32 bound {tf32x3_ms:.4f} ms, library with "
+                               f"cudnn.benchmark {lib_best_ms:.4f} ms")
             bare_ms = _time_bare_ms(name, bare[name], inputs)
             bare_tot += mult * bare_ms
             bare_label = (f", bare launch {bare_ms:.4f} ms | kernel/library "
@@ -1233,10 +1253,14 @@ def phase_kernels() -> dict:
             torch.cuda.empty_cache()
         results[name] = {"max_abs_err": max_abs, **tot, "bare_ms": bare_tot,
                          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        if name in F32_TRAIN_DW:
+            results[name].update(extra, bytes_bound_ms=bytes_ms)
         print(f"[kernel] {name}: summed over one pass (eval forward or train step; "
               f"kernel 12 over the train step's conv1 shapes): "
               + ", ".join(f"{k} {v:.4f}" for k, v in tot.items())
-              + f", bare_ms {bare_tot:.4f}", flush=True)
+              + f", bare_ms {bare_tot:.4f}"
+              + "".join(f", {k} {v:.4f}" for k, v in extra.items() if name in F32_TRAIN_DW),
+              flush=True)
     # the fp32 training conv, its dx and its dW at the per-conv chain's other
     # shapes (every conv of a step with no fused block, the JAX package's
     # data-mesh configuration); correctness only
@@ -1264,6 +1288,13 @@ def phase_kernels() -> dict:
         print(f"[kernel] {label} per fp32 train step ({', '.join(names)}): as called / bare / "
               f"bound / library {step['ms']:.4f} / {step['bare_ms']:.4f} / "
               f"{step['bound_ms']:.4f} / {step['library_ms']:.4f} ms", flush=True)
+    for name in F32_TRAIN_DW:
+        r = results[name]
+        print(f"[kernel] {name} per fp32 train step: as called {r['ms']:.4f} ms, bare "
+              f"{r['bare_ms']:.4f} ms; bounds: FFMA {r['bound_ms']:.4f} ms, 3xTF32 "
+              f"{r['tf32x3_bound_ms']:.4f} ms, bytes {r['bytes_bound_ms']:.4f} ms; library "
+              f"{r['library_ms']:.4f} ms, with cudnn.benchmark {r['library_benchmark_ms']:.4f} "
+              f"ms", flush=True)
     # ragged shapes the slice does not reach: batch 2, odd extents, partial
     # channel chunks and channel groups; correctness only
     f32 = torch.float32
@@ -2989,6 +3020,40 @@ def time_accum_step(root: Path, size: int = 192) -> None:
     _profile_steps(lambda *args: step(state, *args), [batch(300 + i) for i in range(4)])
 
 
+def time_dw_f32(root: Path) -> None:
+    """The fp32 dW body's two instances (2-fp32 over DW_SHAPES, 6-fp32 over
+    CONV1_SHAPES) as called and bare, per shape and summed per fp32 train
+    step, each checked against its plain version under F32_TOL. The port is
+    imported from ``root``, so that another checkout (a parent commit) is
+    timed by the same code in the same call."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    import multimodal_segmentation_project_tpu_torch as pkg
+
+    fail_unless(Path(pkg.__file__).resolve().is_relative_to(root),
+                f"port package imported from {pkg.__file__}, not from {root}")
+    print(f"[dw-f32] port from {Path(pkg.__file__).parent}", flush=True)
+    plan, _ = _kernel_plan()
+    bare = bare_calls()
+    for name in F32_TRAIN_DW:
+        kern, plain, _, make, shapes, tol, *_ = plan[name]
+        ms_tot = bare_tot = 0.0
+        for shape, mult in _count(shapes):
+            inputs = make(*shape)
+            err, rel, ok, _ = _errors(f"{name} {shape}", kern, plain, inputs, tol)
+            fail_unless(ok, f"{name} {shape}: error {err} (scaled {rel}) over tolerance")
+            ms, bare_ms = _time_ms(kern, inputs), _time_bare_ms(name, bare[name], inputs)
+            ms_tot += mult * ms
+            bare_tot += mult * bare_ms
+            print(f"[dw-f32] {name} {shape} x{mult}: scaled err {rel:.4g}, as called {ms:.4f} "
+                  f"ms, bare {bare_ms:.4f} ms", flush=True)
+            del inputs
+            torch.cuda.empty_cache()
+        print(f"[dw-f32] {name} per fp32 train step: as called {ms_tot:.4f} ms, bare "
+              f"{bare_tot:.4f} ms", flush=True)
+
+
 def phase_checkpoints(size: int = 192) -> None:
     """Phase 9: the JAX package's .msgpack checkpoints and the resampling
     stage, at 192^3 and full width, bf16."""
@@ -3008,6 +3073,15 @@ def main() -> int:
         try:
             phase_device()
             time_accum_step(Path(rest[0]).resolve() if rest else ROOT)
+        except Exception as e:
+            print(f"[FAIL] {type(e).__name__}: {e}", flush=True)
+            return 1
+        return 0
+    if "--time-dw-f32" in sys.argv[1:]:
+        rest = sys.argv[sys.argv.index("--time-dw-f32") + 1:]
+        try:
+            phase_device()
+            time_dw_f32(Path(rest[0]).resolve() if rest else ROOT)
         except Exception as e:
             print(f"[FAIL] {type(e).__name__}: {e}", flush=True)
             return 1

@@ -83,7 +83,7 @@ _SIGNATURES = {
 }
 # name -> argtypes of the C functions that launch nothing (restype int)
 _QUERIES = {"mmseg_conv3_smem_bytes": (_I, _I), "mmseg_conv3_f32_smem_bytes": (_I, _I),
-            "mmseg_conv3_dw_smem_bytes": (_I,), "mmseg_conv3_dw_f32_smem_bytes": (),
+            "mmseg_conv3_dw_smem_bytes": (_I,), "mmseg_conv3_dw_f32_smem_bytes": (_I,),
             "mmseg_upconv_smem_bytes": (_I,)}
 
 _lock = threading.Lock()

@@ -362,28 +362,41 @@ def conv3x3x3_cf_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 # ---- the fp32 dW body (csrc/conv3_dw_f32.cu) ------------------------------
 
-DW_F32_CI = 4           # input channels per block (the grid's y)
-DW_F32_CO = 8           # output channels per block (the grid's z)
-DW_F32_THREADS = 256
-DW_F32_WAVES = 2        # blocks per SM over all channel blocks: one is resident a SM
+DW_F32_TILE = (3, 3, 16)  # DTD, DTH, DTW: a block's output tile
+DW_F32_CI = 16          # input channels per block (the grid's y)
+DW_F32_CO = 32          # output channels per block (the grid's z)
+DW_F32_THREADS = 576    # 18 warps, one block an SM
+DW_F32_CP = 456         # plane floats per input channel ((DTD + 2) (DTH + 2) rows of DTW + 2)
+DW_F32_GP = 152         # plane floats per cotangent channel (DTD DTH rows of DTW)
+DW_F32_RAW_PITCH = 24   # floats per staged raw input row: voxels w0 - 4 .. w0 + 19
+
+
+def dw_f32_smem_bytes(cout: int) -> int:
+    """Dynamic shared memory of an fp32 dW block for ``cout`` output
+    channels (a block holds 16 of them where Cout <= 16, else DW_F32_CO):
+    the hi and lo planes of DW_F32_CI input channels and of its cotangent
+    channels, two raw stages (the input's (DTD + 2) (DTH + 2) staged rows of
+    DW_F32_RAW_PITCH floats, the cotangent's DTD DTH rows, the prologue's a
+    and t) and their two mbarriers."""
+    td, th, tw = DW_F32_TILE
+    cout16 = 16 if cout <= 16 else DW_F32_CO
+    planes = 2 * (DW_F32_CI * DW_F32_CP + cout16 * DW_F32_GP)
+    stage = (DW_F32_CI * (td + 2) * (th + 2) * DW_F32_RAW_PITCH + cout16 * td * th * tw
+             + 2 * DW_F32_CI)
+    return 4 * (planes + 2 * stage + 4)
 
 
 def dw_f32_launch_dims(device: torch.device, shape: tuple, cout: int) -> tuple:
     """(grid x, grid y, grid z, threads, dynamic shared memory in bytes) of
-    the fp32 dW on x of ``shape`` (B, Cin, D, H, W): grid x is nblk,
-    DW_F32_WAVES waves of one block per SM over the (Cin, Cout) channel
-    blocks, each walking every nblk-th output tile; its two ring stages each
-    hold DW_F32_CI haloed input channels ((TD + 2) (TH + 2) staged rows of
-    F32_PITCH floats) and DW_F32_CO cotangent channels (TD TH rows). The
-    split depends on the SM count and the channels only, so the sum order
-    and the result do not change from run to run on one card."""
-    cin = shape[1]
-    td, th, _ = F32_TILE
-    blocks = -(-cin // DW_F32_CI) * -(-cout // DW_F32_CO)
+    the fp32 dW on x of ``shape`` (B, Cin, D, H, W): grid x is nblk, one
+    wave of one block an SM over the ceil(Cin / DW_F32_CI) x ceil(Cout /
+    DW_F32_CO) channel blocks, each walking every nblk-th output tile. The split depends on the SM count and the channels only,
+    so the sum order and the result do not change from run to run on one
+    card."""
+    cb, cz = -(-shape[1] // DW_F32_CI), -(-cout // DW_F32_CO)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    nblk = max(1, DW_F32_WAVES * sms // blocks)
-    stage = (DW_F32_CI * (td + 2) * (th + 2) + DW_F32_CO * td * th) * F32_PITCH
-    return nblk, -(-cin // DW_F32_CI), -(-cout // DW_F32_CO), DW_F32_THREADS, 2 * stage * 4
+    nblk = max(1, sms // (cb * cz))
+    return nblk, cb, cz, DW_F32_THREADS, dw_f32_smem_bytes(cout)
 
 
 def dw_f32_operands(name: str, x: torch.Tensor, g: torch.Tensor):

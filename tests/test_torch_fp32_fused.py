@@ -8,7 +8,9 @@ fp32 bodies, csrc/conv3_f32.cu and csrc/conv3_dw_f32.cu), on the CPU:
 * the fp32 plain versions of 5 and 6 against the JAX package's
   ``_conv_dx_epilogue`` and ``_conv_dw_prologue`` in Pallas interpret mode
   in fp32, within 2e-5 of max |jax| (the same fp32 products summed in other
-  orders; 3, 4 and 12 are held in tests/test_torch_fused_ops.py);
+  orders; 3, 4 and 12 are held in tests/test_torch_fused_ops.py); 6's
+  3xTF32 arithmetic, emulated on the activated input, against its plain
+  version within 2e-6 of max |plain|;
 * the kernels' order of the channel sums, emulated (8 voxels a thread in
   order, a shuffle tree over the warp, the group's two warps in order, one
   partial per block, the reduce's strided sums and tree), reproduces the
@@ -36,7 +38,8 @@ import jax.numpy as jnp
 from multimodal_segmentation_project_tpu.ops import pallas_conv as jconv
 from multimodal_segmentation_project_tpu_torch import ops
 from multimodal_segmentation_project_tpu_torch.ops import _build, conv3, conv3_fused
-from tests.test_torch_fp32_eval import _require_as_on_the_card
+from tests.test_torch_fp32_eval import _constants, _require_as_on_the_card
+from tests.test_torch_fp32_train import DW_TOL_3XTF32, emulate_dw_f32
 
 CSRC = Path(conv3.__file__).resolve().parent.parent / "csrc"
 SMS = 132  # the H100's SM count, which the faked device properties report
@@ -141,7 +144,11 @@ def test_the_fp32_dx_epilogue_launches_as_the_source_says(cin, cout, s, faked_la
 @pytest.mark.parametrize("cin,cout,s", STEP_CASES + RAGGED_CASES)
 def test_the_fp32_dw_prologue_launches_as_the_source_says(cin, cout, s, faked_launches):
     """Kernel 6 in fp32: the fp32 dW body's prologue entry, with the fp32 dW's
-    scratch and descriptor (conv3.dw_f32_launch_dims) and a, t (B, Cin)."""
+    scratch and descriptor (conv3.dw_f32_launch_dims: grid (nblk, ceil(Cin
+    / CIB), ceil(Cout / COB)), DW_THREADS threads, the shared memory of
+    Cout's m16 tiling, from csrc/conv3_dw_f32.cu's constants) and a, t (B,
+    Cin)."""
+    k = _constants("conv3_dw_f32.cu")
     bsz = 2
     x, g = _meta(bsz, cin, s, s + 1, s), _meta(bsz, cout, s, s + 1, s)
     call = conv3_fused.dw_prologue_call(x, g, _meta(bsz, cin), _meta(bsz, cin))
@@ -150,7 +157,11 @@ def test_the_fp32_dw_prologue_launches_as_the_source_says(cin, cout, s, faked_la
     assert len(call.args) + 1 == len(_build._SIGNATURES[call.entry])
     assert call.args[6:] == plain.args[4:]  # the sizes and the descriptor
     dims = conv3.dw_f32_launch_dims(None, tuple(x.shape), cout)
+    cb, cz = -(-cin // k["CIB"]), -(-cout // k["COB"])
     assert call.args[-5:] == dims
+    assert dims[:4] == (max(1, SMS // (cb * cz)), cb, cz, k["DW_THREADS"])
+    assert dims[4] == conv3.dw_f32_smem_bytes(cout) <= 227 * 1024
+    assert "launch<true>(x, g, a, t, partial, dw," in (CSRC / "conv3_dw_f32.cu").read_text()
     assert call.tensors[4].shape == (dims[0] * 27 * cin * cout,)
     assert call.result.shape == (3, 3, 3, cin, cout) and call.result.dtype == torch.float32
 
@@ -247,6 +258,27 @@ def test_the_fp32_dw_prologue_plain_version_matches_jax(bsz, cin, cout, shape):
     want = jconv.unpack_weight_grads(packed, cin, cout)
     got = conv3_fused.conv3x3x3_cf_dw_prologue_reference(*map(torch.from_numpy, (x, g, a, t)))
     _close(got.numpy(), want, "dw")
+
+
+@pytest.mark.parametrize("bsz,cin,cout,shape,sms", [(2, 16, 16, (4, 7, 20), 5),
+                                                      (1, 5, 9, (3, 8, 17), 3),
+                                                      (2, 20, 48, (3, 4, 9), 132)])
+def test_the_fp32_dw_prologue_in_3xtf32_reproduces_the_plain_version(bsz, cin, cout, shape, sms,
+                                                                    monkeypatch):
+    """Kernel 6's fp32 instance stages relu(x a + t) (the plain version's
+    values: x a + t rounded after each operation, the halo 0, t > 0 on
+    some channels) and then runs the 3xTF32 body: the body's arithmetic
+    emulated on that input (tests/test_torch_fp32_train.py's
+    emulate_dw_f32) reproduces conv3x3x3_cf_dw_prologue_reference, held
+    against JAX above, within DW_TOL_3XTF32 = 2e-6 of its max."""
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: SimpleNamespace(multi_processor_count=sms))
+    g, _, x, a, t = _dx_dw_inputs(11 * sum(shape) + cout, bsz, cin, cout, shape)
+    x, g, a, t = map(torch.from_numpy, (x, g, a, t))
+    want = conv3_fused.conv3x3x3_cf_dw_prologue_reference(x, g, a, t)
+    got = emulate_dw_f32(conv3_fused.prologue_reference(x, a, t), g)
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    assert err <= DW_TOL_3XTF32, err
 
 
 # ---- the kernels' order of the channel sums ---------------------------------------------

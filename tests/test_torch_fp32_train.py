@@ -13,7 +13,10 @@ launches faked, as tests/test_torch_fp32_eval.py does for the eval forward.
 
 Tolerances: the dW partials summed in block order against the plain dW,
 1e-6 of max |plain| (fp32 sums of at most a few thousand terms in another
-order); the two train steps against JAX, tests/test_torch_train.py's.
+order); the dW body's 3xTF32 arithmetic, emulated, 2e-6 of max |plain|
+(the terms dropped by 3xTF32 are about 2^-22 of a product), and one TF32
+pass above the card's 2e-5; the two train steps against JAX,
+tests/test_torch_train.py's.
 """
 
 from collections import Counter
@@ -218,28 +221,40 @@ def test_the_fp32_training_conv_and_its_dx_launch_as_the_source_says(cin, cout, 
 
 @pytest.mark.parametrize("cin,cout,s", CONV_CASES)
 def test_the_fp32_dw_launch_is_the_sources(cin, cout, s, faked_launches):
-    """Grid (nblk, ceil(Cin / CI), ceil(Cout / CO)) with nblk two waves of
-    one block an SM over the channel blocks, THREADS threads, two ring
-    stages of CI haloed input channels and CO cotangent channels, and an
-    fp32 scratch of one (27, Cin, Cout) partial per block row: from the
-    constants of csrc/conv3_dw_f32.cu."""
+    """Grid (nblk, ceil(Cin / CIB), ceil(Cout / COB)) with nblk one wave of
+    one block an SM over the channel blocks, DW_THREADS threads (DW_WARPS
+    warps), the hi and lo planes of CIB input channels (CP floats each) and
+    16 or COB cotangent channels (GP floats each), two raw stages and their
+    mbarriers in shared memory, and an fp32 scratch of one (27, Cin, Cout)
+    partial per block row: from the constants of csrc/conv3_dw_f32.cu."""
     k = _constants("conv3_dw_f32.cu")
-    assert (k["CI"], k["CO"], k["THREADS"]) == (conv3.DW_F32_CI, conv3.DW_F32_CO,
-                                                conv3.DW_F32_THREADS)
-    assert (k["TD"], k["TH"], k["TW"]) == conv3.F32_TILE and k["PITCH"] == conv3.F32_PITCH
+    assert (k["CIB"], k["COB"], k["DW_THREADS"], k["CP"], k["GP"], k["RAW_PITCH"]) == (
+        conv3.DW_F32_CI, conv3.DW_F32_CO, conv3.DW_F32_THREADS, conv3.DW_F32_CP,
+        conv3.DW_F32_GP, conv3.DW_F32_RAW_PITCH)
+    assert (k["DTD"], k["DTH"], k["DTW"]) == conv3.DW_F32_TILE
+    assert k["DW_THREADS"] == 32 * k["DW_WARPS"]
     source = _source("conv3_dw_f32.cu")
-    for line in ("X_FLOATS = CI * ROWS * PITCH", "G_FLOATS = CO * TD * TH * PITCH",
-                 "SMEM_BYTES = 2 * STAGE_FLOATS * 4", "ROWS = DR * HR"):
-        assert f"constexpr int {line};" in source
+    for line in ("ROWS_OUT = DTD * DTH", "KSTEPS = 2 * ROWS_OUT", "XROWS = (DTD + 2) * DHR",
+                 "XW = DTW + 2", "VOX = ROWS_OUT * DTW", "XPLANE = CIB * CP",
+                 "RX_FLOATS = CIB * XROWS * RAW_PITCH", "COUT = 16 * MW",
+                 "GPLANE = COUT * GP", "GHI = 2 * XPLANE", "PLANES = GHI + 2 * GPLANE",
+                 "RG = RX_FLOATS", "RAT = RG + COUT * VOX", "STAGE = RAT + 2 * CIB",
+                 "BAR = PLANES + 2 * STAGE", "FLOATS = BAR + 4", "BYTES = FLOATS * 4"):
+        assert f" {line};" in source
+    assert "int m_tiles(int cout) { return cout <= 16 ? 1 : 2; }" in source
     x = torch.empty(1, cin, s, s, s + 2, device="meta")
     g = torch.empty(1, cout, s, s, s + 2, device="meta")
     call = conv3.dw_f32_call(x, g)
-    blocks = -(-cin // k["CI"]) * -(-cout // k["CO"])
-    nblk = max(1, 2 * SMS // blocks)
-    stage = (k["CI"] * (k["TD"] + 2) * (k["TH"] + 2) + k["CO"] * k["TD"] * k["TH"]) * k["PITCH"]
+    cb, cz = -(-cin // k["CIB"]), -(-cout // k["COB"])
+    nblk = max(1, SMS // (cb * cz))
+    cout16 = 16 if cout <= 16 else k["COB"]
+    xrows = (k["DTD"] + 2) * (k["DTH"] + 2)
+    stage = (k["CIB"] * xrows * k["RAW_PITCH"] + cout16 * k["DTD"] * k["DTH"] * k["DTW"]
+             + 2 * k["CIB"])
+    floats = 2 * (k["CIB"] * k["CP"] + cout16 * k["GP"]) + 2 * stage + 4
     assert call.entry == "mmseg_conv3_dw_f32"
-    assert call.args[4:] == (1, cin, cout, s, s, s + 2, nblk, -(-cin // k["CI"]),
-                             -(-cout // k["CO"]), k["THREADS"], 2 * stage * 4)
+    assert call.args[4:] == (1, cin, cout, s, s, s + 2, nblk, cb, cz, k["DW_THREADS"],
+                             4 * floats)
     assert call.args[-1] <= 227 * 1024
     partial = call.tensors[2]
     assert partial.shape == (nblk * 27 * cin * cout,) and partial.dtype == torch.float32
@@ -293,45 +308,147 @@ def test_the_fp32_head_backward_launches_are_the_sources(b, cf, co, s, faked_lau
 
 # ---- the fp32 dW body's order of sums ------------------------------------------------
 
+DW_TOL_3XTF32 = 2e-6  # the emulated 3xTF32 body against the plain dW, of max |plain|
+F32_TOL = 2e-5        # every fp32 output's bound on the card (chip_smoke.py)
+
+
+def _tiled(x, g):
+    """x's 27 shifted copies and g, cut into the fp32 dW body's k steps:
+    X (tiles, 18, 8, 27, Cin) and G (tiles, 18, 8, Cout), tiles in the
+    kernel's walk order (W fastest, then H, D, the batch), k step ks = 2 r +
+    h of output row r = 3 od + oh, voxel 8 h + k of it; zero outside the
+    volume (the halo of x, the padding of the last tiles)."""
+    bsz, cin, d, h, w = x.shape
+    cout = g.shape[1]
+    td, th, tw = conv3.DW_F32_TILE
+    nd, nh, nw = -(-d // td), -(-h // th), -(-w // tw)
+    dp, hp, wp = nd * td, nh * th, nw * tw
+    xp = F.pad(x, (1, 1 + wp - w, 1, 1 + hp - h, 1, 1 + dp - d))
+    gp = F.pad(g, (0, wp - w, 0, hp - h, 0, dp - d))
+    taps = torch.stack([xp[:, :, kd:kd + dp, kh:kh + hp, kw:kw + wp]
+                        for kd in range(3) for kh in range(3) for kw in range(3)], dim=-1)
+    xt = taps.reshape(bsz, cin, nd, td, nh, th, nw, 2, 8, 27).permute(0, 2, 4, 6, 3, 5, 7, 8, 9, 1)
+    gt = gp.reshape(bsz, cout, nd, td, nh, th, nw, 2, 8).permute(0, 2, 4, 6, 3, 5, 7, 8, 1)
+    n = bsz * nd * nh * nw
+    return xt.reshape(n, 2 * td * th, 8, 27, cin), gt.reshape(n, 2 * td * th, 8, cout)
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 as cvt.rna.tf32.f32 does: to 10 mantissa bits,
+    to nearest, ties away from zero (in int32 bit operations)."""
+    b = t.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def emulate_dw_f32(x: torch.Tensor, g: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """conv3_dw_f32.cu's arithmetic on the CPU -> (3, 3, 3, Cin, Cout). Each
+    operand split once, hi = tf32(v), lo = tf32(v - hi); per k step of 8
+    voxels, a fragment from zero adds lo_g hi_x, then hi_g lo_x, then hi_g
+    hi_x, the 8 exact products of each in voxel order, in fp32 (passes = 1:
+    hi_g hi_x alone, one TF32 pass); each warp adds its k steps' fragments
+    to its accumulators in order, tile after tile (block k takes tiles k, k
+    + nblk, ...; warp kp of a job the k steps kp, kp + 18 / J, ..., J jobs
+    as the kernel counts them); a job's warps add in warp order; the reduce
+    adds the nblk partials in block order. The tensor core's own order
+    inside an MMA is not emulated: only the sums around it."""
+    cin, cout = x.shape[1], g.shape[1]
+    nblk = conv3.dw_f32_launch_dims(None, tuple(x.shape), cout)[0]
+    mw = 1 if cout <= 16 else 2  # m16 tiles of a block's output channels
+    jobs = (1 if cin == 1 else 9) * mw
+    ksplit = 18 // jobs
+    xt, gt = _tiled(x.float(), g.float())
+    xh, gh = _tf32(xt), _tf32(gt)
+    xl, gl = _tf32(xt - xh), _tf32(gt - gh)
+    pairs = [(gl, xh), (gh, xl), (gh, xh)][3 - passes:]
+    frag = torch.zeros(*xt.shape[:2], 27, cin, cout)  # (tiles, 18, 27, Cin, Cout)
+    for gs, xs in pairs:
+        for k in range(8):
+            frag = frag + xs[:, :, k, :, :, None] * gs[:, :, k, None, None, :]
+    rounds = -(-frag.shape[0] // nblk)
+    frag = F.pad(frag, (0, 0, 0, 0, 0, 0, 0, 0, 0, rounds * nblk - frag.shape[0]))
+    frag = frag.reshape(rounds, nblk, 18, 27, cin, cout)
+    acc = torch.zeros(nblk, ksplit, 27, cin, cout)
+    for r in range(rounds):
+        for i in range(18 // ksplit):
+            acc = acc + frag[r, :, i * ksplit:(i + 1) * ksplit]
+    part = acc[:, 0]
+    for kp in range(1, ksplit):
+        part = part + acc[:, kp]
+    dw = part[0]
+    for blk in range(1, nblk):
+        dw = dw + part[blk]
+    return dw.reshape(3, 3, 3, cin, cout)
+
 
 @pytest.mark.parametrize("shape,cout,sms", [((2, 5, 6, 10, 20), 9, 10), ((1, 1, 5, 9, 17), 16, 3),
                                             ((1, 8, 4, 8, 16), 8, 132)])
 def test_the_fp32_dw_partials_summed_in_block_order_reproduce_the_plain_dw(
         shape, cout, sms, monkeypatch):
-    """Block k of the fp32 dW walks the output tiles k, k + nblk, ... (W
-    fastest, then H, D, the batch) and sums each tile's products of the
-    zero-haloed input and the cotangent (zero outside the volume); the
-    reduce adds the nblk partials in block order. That order, with nblk as
-    the wrapper picks it, reproduces conv3x3x3_cf_dw_reference (held
-    against the JAX package in tests/test_torch_train_ops.py) within 1e-6
-    of its max; the blocks that get no tile add zeros."""
+    """Block k of the fp32 dW walks the output tiles k, k + nblk, ... (of
+    DW_F32_TILE voxels, W fastest, then H, D, the batch) and sums each
+    tile's products of the zero-haloed input and the cotangent (zero
+    outside the volume); the reduce adds the nblk partials in block order.
+    That order, with nblk as the wrapper picks it, reproduces
+    conv3x3x3_cf_dw_reference (held against the JAX package in
+    tests/test_torch_train_ops.py) within 1e-6 of its max; the blocks that
+    get no tile add zeros."""
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda d: SimpleNamespace(multi_processor_count=sms))
     rng = np.random.default_rng(sum(shape) + cout)
     x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
     g = torch.from_numpy(rng.normal(size=(shape[0], cout, *shape[2:])).astype(np.float32))
-    bsz, cin, d, h, w = shape
+    cin = shape[1]
     nblk = conv3.dw_f32_launch_dims(None, shape, cout)[0]
-    td, th, tw = conv3.F32_TILE
-    nt = (-(-w // tw), -(-h // th), -(-d // td))
-    xp = F.pad(x, (1, 1, 1, 1, 1, 1))
+    assert nblk == max(1, sms // (-(-cin // conv3.DW_F32_CI) * -(-cout // conv3.DW_F32_CO)))
+    xt, gt = _tiled(x, g)
     partials = torch.zeros(nblk, 27, cin, cout)
-    for tile in range(bsz * nt[0] * nt[1] * nt[2]):
-        r, tw_i = divmod(tile, nt[0])
-        r, th_i = divmod(r, nt[1])
-        b, td_i = divmod(r, nt[2])
-        d0, h0, w0 = td_i * td, th_i * th, tw_i * tw
-        d1, h1, w1 = min(d0 + td, d), min(h0 + th, h), min(w0 + tw, w)
-        gt = g[b, :, d0:d1, h0:h1, w0:w1]
-        for tap in range(27):
-            kd, kh, kw = tap // 9, tap // 3 % 3, tap % 3
-            xt = xp[b, :, d0 + kd:d1 + kd, h0 + kh:h1 + kh, w0 + kw:w1 + kw]
-            partials[tile % nblk, tap] += torch.einsum("idhw,odhw->io", xt, gt)
+    for tile in range(xt.shape[0]):
+        partials[tile % nblk] += torch.einsum("skti,sko->tio", xt[tile], gt[tile])
     got = partials[0]
     for k in range(1, nblk):
         got = got + partials[k]
     want = conv3.conv3x3x3_cf_dw_reference(x, g).reshape(27, cin, cout)
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+DW_EMULATION_CASES = [((2, 5, 6, 10, 20), 9, 10), ((1, 1, 5, 9, 17), 16, 3),
+                      ((2, 1, 4, 7, 23), 20, 7), ((1, 16, 4, 6, 33), 16, 5),
+                      ((2, 5, 3, 5, 37), 64, 4), ((1, 20, 3, 4, 9), 48, 132)]
+
+
+@pytest.mark.parametrize("shape,cout,sms", DW_EMULATION_CASES)
+def test_the_fp32_dw_in_3xtf32_reproduces_the_plain_dw(shape, cout, sms, monkeypatch):
+    """The fp32 dW body's 3xTF32 arithmetic, emulated (emulate_dw_f32: the
+    hi/lo split, the three products in the kernel's order, the fragments'
+    fp32 sums in its tiling's order, the block-order reduce), reproduces
+    conv3x3x3_cf_dw_reference within DW_TOL_3XTF32 = 2e-6 of its max, a
+    tenth of the card's fp32 bound, at ragged shapes: Cin 1, 5, 16 and 20
+    (two channel blocks), Cout 9, 16, 20, 48 and 64 (one and two m16 tiles
+    a block, one and two blocks of output channels), W not a multiple of
+    16, batch 2, K split over 1, 2, 9 or 18 warps."""
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: SimpleNamespace(multi_processor_count=sms))
+    rng = np.random.default_rng(3 * sum(shape) + cout)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(shape[0], cout, *shape[2:])).astype(np.float32))
+    want = conv3.conv3x3x3_cf_dw_reference(x, g)
+    err = float((emulate_dw_f32(x, g) - want).abs().max()) / float(want.abs().max())
+    assert err <= DW_TOL_3XTF32, err
+
+
+@pytest.mark.parametrize("shape,cout,sms", DW_EMULATION_CASES)
+def test_one_tf32_pass_misses_the_fp32_bound(shape, cout, sms, monkeypatch):
+    """The control: the same emulation with hi_g hi_x alone (one TF32 pass)
+    reads above F32_TOL = 2e-5 of max |plain| at every shape, so that the
+    test above tells a 3xTF32 sum from a 1xTF32 one."""
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: SimpleNamespace(multi_processor_count=sms))
+    rng = np.random.default_rng(3 * sum(shape) + cout)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(shape[0], cout, *shape[2:])).astype(np.float32))
+    want = conv3.conv3x3x3_cf_dw_reference(x, g)
+    err = float((emulate_dw_f32(x, g, passes=1) - want).abs().max()) / float(want.abs().max())
+    assert err > F32_TOL, err
 
 
 # ---- the plain fp32 step on the per-conv chain against JAX ----------------------------
