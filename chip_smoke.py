@@ -10,11 +10,14 @@ Phases, each printing one line per check; any failure exits non-zero:
 2. build: compiles every kernel of ``multimodal_segmentation_project_tpu_torch/csrc``
    with nvcc (one process per source, in parallel), from this checkout;
    prints ptxas's registers and spills of each of the 24 instances of the
-   conv body (``csrc/conv3.cu``), of the 24 of the fp32 conv body
+   conv body (``csrc/conv3.cu``), of the 12 of the fp32 conv body
    (``csrc/conv3_f32.cu``), of the 8 of the dW body (``csrc/conv3_dw.cu``),
    of the fp32 dW body's 4 (``csrc/conv3_dw_f32.cu``) and of the head's and
    the upconv's 66 (``csrc/head1x1.cu``, ``csrc/upconv_d2s.cu``; none of the
-   last 102 may spill), and their dynamic shared memory per block;
+   last 90 may spill), and their dynamic shared memory per block; from
+   ``cuobjdump -sass``, that every fp32 conv-body instance multiplies in
+   ``HGMMA ... TF32`` instructions and holds no FFMA, and the digest of the
+   fp32 dW body's SASS;
 3. kernels: each kernel against its plain PyTorch version at every shape
    the 192^3 eval forward and train step give it, in bf16, the fp32
    instances of 7, 8 and 11 at every shape of the fp32 eval forward, and
@@ -25,10 +28,12 @@ Phases, each printing one line per check; any failure exits non-zero:
    time of the kernel as called, of its plain version and of one library
    call over distinct inputs (CUDA events; cuDNN's TF32 off), and its bound:
    the larger of its bytes over 3.35 TB/s and its FLOPs over 989 TFLOP/s
-   (bf16) or 67 TFLOP/s (fp32); for the fp32 dW body's two instances also
-   the 3xTF32 bound (three times its products' FLOPs over 494.7 TFLOP/s)
-   and the library call again with ``cudnn.benchmark`` on (its best
-   algorithm, not only its default). The fp32 pool also with NaNs planted, and
+   (bf16) or 67 TFLOP/s (fp32), where the fp32 conv body's seven instances
+   and the fp32 dW body's two, which multiply in 3xTF32, count their
+   products' FLOPs three times over 494.7 TFLOP/s (TF32) and print the FFMA
+   bound (the same FLOPs over 67 TFLOP/s) beside it; for the dW the library
+   call again with ``cudnn.benchmark`` on (its best algorithm, not only its
+   default). The fp32 pool also with NaNs planted, and
    two controls: the 16->16 192^3 conv and its weight gradient by cuDNN
    with TF32 allowed must miss the fp32 bound. For every kernel
    also the bare launch (operands packed before the timed window,
@@ -124,9 +129,14 @@ backend on the GPU, and nothing else. ``python3 chip_smoke.py
 step with gradient accumulation 2, with the port imported from ROOT (this
 checkout by default): run it on a parent's checkout and on this one in one
 call to compare the two. ``python3 chip_smoke.py --time-dw-f32 [ROOT]``
-does the same for the fp32 dW body's two instances (kernels 2 and 6 in
-fp32) at the fp32 train step's shapes: each checked against its plain
-version, timed as called and bare, summed per step.
+and ``--time-conv-f32 [ROOT]`` do the same for the fp32 dW body's two
+instances (kernels 2 and 6 in fp32, at the fp32 train step's shapes) and
+for the fp32 conv body's seven (7-fp32 over the fp32 eval forward, 1-,
+1-dx-, 3-, 4-, 5-fp32 over the fp32 train step, 12-fp32 over its conv1
+shapes): each checked against its plain version, timed as called and bare
+beside its bound (its multiplies as 3xTF32 products) and the FFMA bound,
+summed per pass and per step; each prints the digest of the fp32 dW body's
+SASS too, so that a parent's and this checkout's can be held side by side.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Scratch files go to
@@ -384,18 +394,18 @@ def conv_body_resources(log: str) -> list:
         lambda cout, epi, pro: f"conv3_kernel<COUT={cout}, {EPILOGUES[epi]}, prologue={pro}>")
 
 
-# conv3_f32.cu: COUT 16, 32, 48, 64, each with the bias+ReLU epilogue (7),
-# the cast-then-bias one without and with the prologue (1, 1-dx; 12), the
-# stats one without and with it (3; 4) and the dx mask (5), as conv3.cu
-F32_BODY_INSTANCES = 24
+# conv3_f32.cu: slices of NS = 16 and 32 output channels (a wgmma N of 3
+# NS), each with the bias+ReLU epilogue (7), the cast-then-bias one without
+# and with the prologue (1, 1-dx; 12), the stats one without and with it (3;
+# 4) and the dx mask (5), as conv3.cu
+F32_BODY_INSTANCES = 12
 
 
 def f32_body_resources(log: str) -> list:
-    """conv3_f32.cu's conv3_f32_kernel<COUT, EPI, PRO> instances."""
+    """conv3_f32.cu's conv3_f32_kernel<NS, EPI, PRO> instances."""
     return ptxas_resources(
         log, r"conv3_f32_kernelILi(\d+)ELi(\d)ELb(\d)E",
-        lambda cout, epi, pro: f"conv3_f32_kernel<COUT={cout}, {EPILOGUES[epi]}, "
-                               f"prologue={pro}>")
+        lambda ns, epi, pro: f"conv3_f32_kernel<NS={ns}, {EPILOGUES[epi]}, prologue={pro}>")
 
 
 DW_INSTANCES = 8  # conv3_dw.cu: COUT 16, 32, 48, 64, each without and with the prologue
@@ -443,6 +453,69 @@ def small_kernel_resources(log: str) -> list:
              r"|upconv_d2s_kernel)(?:I(13__nv_bfloat16|f)?Li(\d+)E(?:Lb(\d)E)?)?", label)
 
 
+def find_cuobjdump() -> str:
+    """cuobjdump of the toolkit whose nvcc builds the kernels."""
+    from multimodal_segmentation_project_tpu_torch.ops import _build
+
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    fail_unless(tool.is_file(), f"no cuobjdump beside {tool.parent / 'nvcc'}")
+    return str(tool)
+
+
+def sass_functions(lib: Path) -> dict:
+    """mangled kernel name -> its SASS lines (instructions only, the
+    namespace's path hash blanked), from cuobjdump -sass of the library."""
+    out = subprocess.run([find_cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=600)
+    fail_unless(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    funcs = {}
+    for part in re.split(r"\n\s*Function : ", out.stdout)[1:]:
+        name, body = part.split("\n", 1)
+        name = re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_cu_[0-9a-f]{8}", r"\1::",
+                      name.strip())
+        funcs[name] = [re.sub(r"/\*[0-9a-fx]+\*/", "", ln).strip()
+                       for ln in body.splitlines() if re.search(r"/\*[0-9a-f]{4,}\*/", ln)]
+    return funcs
+
+
+def dw_f32_sass_digest(lib: Path) -> tuple:
+    """(functions, lines, sha256) of conv3_dw_f32.cu's kernels' SASS, the
+    namespace's path hash blanked: equal digests mean the same SASS line
+    for line."""
+    import hashlib
+
+    funcs = {k: v for k, v in sass_functions(lib).items() if "conv3_dw_f32" in k}
+    h = hashlib.sha256()
+    for name in sorted(funcs):
+        h.update(name.encode())
+        h.update("\n".join(funcs[name]).encode())
+    return len(funcs), sum(len(v) for v in funcs.values()), h.hexdigest()[:16]
+
+
+def _f32_sass_checks(lib: Path) -> None:
+    """Every conv3_f32_kernel instance multiplies on the tensor cores
+    (HGMMA ... TF32) and issues no FFMA at all (its K loop's multiplies are
+    the wgmmas; the prologue, the split and the epilogues round each
+    operation); the fp32 dW body's digest, to hold against a parent's."""
+    funcs = sass_functions(lib)
+    body = {k: v for k, v in funcs.items() if "conv3_f32_kernel" in k}
+    fail_unless(len(body) == F32_BODY_INSTANCES,
+                f"cuobjdump found {len(body)} conv3_f32_kernel instances")
+    counts = []
+    for name, lines in sorted(body.items()):
+        hgmma = sum(1 for ln in lines if re.search(r"\bHGMMA\.64x\d+x8\.F32\.TF32\b", ln))
+        ffma = sum(1 for ln in lines if re.search(r"\bFFMA\b", ln))
+        counts.append((hgmma, ffma))
+        fail_unless(hgmma > 0 and ffma == 0,
+                    f"{name}: {hgmma} HGMMA TF32 and {ffma} FFMA in its SASS")
+    example = next(ln for lines in body.values() for ln in lines if "HGMMA" in ln)
+    print(f"[build] SASS: every conv3_f32_kernel instance ({len(body)}) holds "
+          f"{min(c[0] for c in counts)}-{max(c[0] for c in counts)} HGMMA TF32 and 0 FFMA, "
+          f"e.g. {example}", flush=True)
+    n, lines, sha = dw_f32_sass_digest(lib)
+    print(f"[build] SASS of conv3_dw_f32.cu: {n} kernels, {lines} lines, sha256 {sha}", flush=True)
+
+
 def phase_build() -> None:
     import multimodal_segmentation_project_tpu_torch as pkg
     from multimodal_segmentation_project_tpu_torch.ops import _build
@@ -473,10 +546,14 @@ def phase_build() -> None:
         print(f"[build] ptxas {line}", flush=True)
         fail_unless("0 bytes spill stores, 0 bytes spill loads" in line,
                     f"fp32 conv body spills: {line}")
-    print("[build] conv3_f32_kernel dynamic shared memory per block, one chunk of 8 input "
-          "channels / more: " + ", ".join(
+    print("[build] conv3_f32_kernel dynamic shared memory per block (its ring of stages), "
+          "Cin = 1 / 64: " + ", ".join(
               f"COUT={c} {lib.mmseg_conv3_f32_smem_bytes(c, 1)} / "
-              f"{lib.mmseg_conv3_f32_smem_bytes(c, 2)} B" for c in (16, 32, 48, 64)), flush=True)
+              f"{lib.mmseg_conv3_f32_smem_bytes(c, 64)} B" for c in (16, 32, 48, 64)), flush=True)
+    warned = [line.strip() for line in log.splitlines() if "wgmma" in line.lower()]
+    for line in warned:
+        print(f"[build] ptxas: {line}", flush=True)
+    _f32_sass_checks(_build.library_path())
     lines = dw_body_resources(log)
     fail_unless(len(lines) == DW_INSTANCES, f"ptxas reported {len(lines)} "
                 f"conv3_dw_partial_kernel instances, not {DW_INSTANCES}")
@@ -1128,6 +1205,24 @@ TRAIN_DW = ("conv3x3x3_cf_dw", "conv3x3x3_cf_dw_prologue")
 F32_TRAIN_BODY = ("conv3x3x3_cf_f32", "conv3x3x3_cf_dx_f32", "conv3x3x3_cf_stats_f32",
                   "conv3x3x3_cf_boundary_stats_f32", "conv3x3x3_cf_dx_epilogue_f32")
 F32_TRAIN_DW = ("conv3x3x3_cf_dw_f32", "conv3x3x3_cf_dw_prologue_f32")
+# the fp32 conv body's instances: 7-fp32 over the fp32 eval forward, the
+# train step's (1-, 1-dx-, 3-, 4-, 5-fp32) and 12-fp32 over conv1's shapes
+F32_CONV_BODY = ("conv3x3x3_cf_relu_f32", *F32_TRAIN_BODY, "conv3x3x3_cf_boundary_f32")
+# the 3xTF32 bodies: their bound counts each multiply as three TF32
+# tensor-core products; phase 3 prints the FFMA bound beside it
+TF32X3 = (*F32_CONV_BODY, *F32_TRAIN_DW)
+
+
+def _bounds_ms(name: str, work, shape) -> tuple:
+    """(bytes, operations, FFMA) bounds of one call in ms: the bytes over the
+    memory rate; the operations over their type's peak, a 3xTF32 body's
+    multiplies (TF32X3) as three TF32 tensor-core products each; the same
+    multiplies on the CUDA cores (the operations bound of every other row)."""
+    nbytes, flops, peak, *fp32_flops = work(*shape)
+    rest_s = sum(fp32_flops) / FP32_FLOPS
+    mul_s = 3 * flops / TF32_FLOPS if name in TF32X3 else flops / peak
+    return (nbytes / HBM_BYTES_PER_S * 1e3, (mul_s + rest_s) * 1e3,
+            (flops / peak + rest_s) * 1e3)
 
 
 def _pool_nan_checks(make) -> None:
@@ -1211,7 +1306,7 @@ def phase_kernels() -> dict:
     results = {}
     for name, (kern, plain, lib, make, shapes, tol, work, lib_label) in plan.items():
         tot = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms"), 0.0)
-        extra = dict.fromkeys(("tf32x3_bound_ms", "library_benchmark_ms"), 0.0)
+        extra = dict.fromkeys(("ffma_bound_ms", "library_benchmark_ms"), 0.0)
         bare_tot = 0.0
         max_abs = bytes_ms = ops_ms = 0.0
         for shape, mult in _count(shapes):
@@ -1220,21 +1315,21 @@ def phase_kernels() -> dict:
             ms = _time_ms(kern, inputs)
             plain_ms = _time_ms(plain, inputs)
             lib_ms = _time_ms(lib, inputs)
-            nbytes, flops, peak, *fp32_flops = work(*shape)
-            op_s = flops / peak + sum(fp32_flops) / FP32_FLOPS
-            b_ms = max(nbytes / HBM_BYTES_PER_S, op_s) * 1e3
-            bytes_ms += mult * nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms += mult * op_s * 1e3
+            one_bytes_ms, one_ops_ms, one_ffma_ms = _bounds_ms(name, work, shape)
+            b_ms = max(one_bytes_ms, one_ops_ms)
+            bytes_ms += mult * one_bytes_ms
+            ops_ms += mult * one_ops_ms
             sums_label = "" if sums is None else f", sums at {sums:.4g} of their bound"
-            if name in F32_TRAIN_DW:  # the 3xTF32 bound, the library at its best algorithm
-                tf32x3_ms = 3 * flops / TF32_FLOPS * 1e3
+            if name in TF32X3:  # the FFMA bound (and the dW's library at its best algorithm)
+                ffma_ms = max(one_bytes_ms, one_ffma_ms)
+                extra["ffma_bound_ms"] += mult * ffma_ms
+                sums_label += f", FFMA bound {ffma_ms:.4f} ms"
+            if name in F32_TRAIN_DW:
                 with torch.backends.cudnn.flags(enabled=True, benchmark=True,
                                                 deterministic=False, allow_tf32=False):
                     lib_best_ms = _time_ms(lib, inputs)
-                extra["tf32x3_bound_ms"] += mult * tf32x3_ms
                 extra["library_benchmark_ms"] += mult * lib_best_ms
-                sums_label += (f", 3xTF32 bound {tf32x3_ms:.4f} ms, library with "
-                               f"cudnn.benchmark {lib_best_ms:.4f} ms")
+                sums_label += f", library with cudnn.benchmark {lib_best_ms:.4f} ms"
             bare_ms = _time_bare_ms(name, bare[name], inputs)
             bare_tot += mult * bare_ms
             bare_label = (f", bare launch {bare_ms:.4f} ms | kernel/library "
@@ -1253,14 +1348,15 @@ def phase_kernels() -> dict:
             torch.cuda.empty_cache()
         results[name] = {"max_abs_err": max_abs, **tot, "bare_ms": bare_tot,
                          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-        if name in F32_TRAIN_DW:
+        if name in TF32X3:
             results[name].update(extra, bytes_bound_ms=bytes_ms)
         print(f"[kernel] {name}: summed over one pass (eval forward or train step; "
               f"kernel 12 over the train step's conv1 shapes): "
               + ", ".join(f"{k} {v:.4f}" for k, v in tot.items())
               + f", bare_ms {bare_tot:.4f}"
-              + "".join(f", {k} {v:.4f}" for k, v in extra.items() if name in F32_TRAIN_DW),
-              flush=True)
+              + (f", ffma_bound_ms {extra['ffma_bound_ms']:.4f}" if name in TF32X3 else "")
+              + (f", library_benchmark_ms {extra['library_benchmark_ms']:.4f}"
+                 if name in F32_TRAIN_DW else ""), flush=True)
     # the fp32 training conv, its dx and its dW at the per-conv chain's other
     # shapes (every conv of a step with no fused block, the JAX package's
     # data-mesh configuration); correctness only
@@ -1288,11 +1384,16 @@ def phase_kernels() -> dict:
         print(f"[kernel] {label} per fp32 train step ({', '.join(names)}): as called / bare / "
               f"bound / library {step['ms']:.4f} / {step['bare_ms']:.4f} / "
               f"{step['bound_ms']:.4f} / {step['library_ms']:.4f} ms", flush=True)
+    for name in F32_CONV_BODY:
+        r = results[name]
+        print(f"[kernel] {name} per pass: as called {r['ms']:.4f} ms, bare {r['bare_ms']:.4f} "
+              f"ms; bounds: 3xTF32 {r['bound_ms']:.4f} ms, FFMA {r['ffma_bound_ms']:.4f} ms, "
+              f"bytes {r['bytes_bound_ms']:.4f} ms; library {r['library_ms']:.4f} ms", flush=True)
     for name in F32_TRAIN_DW:
         r = results[name]
         print(f"[kernel] {name} per fp32 train step: as called {r['ms']:.4f} ms, bare "
-              f"{r['bare_ms']:.4f} ms; bounds: FFMA {r['bound_ms']:.4f} ms, 3xTF32 "
-              f"{r['tf32x3_bound_ms']:.4f} ms, bytes {r['bytes_bound_ms']:.4f} ms; library "
+              f"{r['bare_ms']:.4f} ms; bounds: 3xTF32 {r['bound_ms']:.4f} ms, FFMA "
+              f"{r['ffma_bound_ms']:.4f} ms, bytes {r['bytes_bound_ms']:.4f} ms; library "
               f"{r['library_ms']:.4f} ms, with cudnn.benchmark {r['library_benchmark_ms']:.4f} "
               f"ms", flush=True)
     # ragged shapes the slice does not reach: batch 2, odd extents, partial
@@ -3020,38 +3121,57 @@ def time_accum_step(root: Path, size: int = 192) -> None:
     _profile_steps(lambda *args: step(state, *args), [batch(300 + i) for i in range(4)])
 
 
-def time_dw_f32(root: Path) -> None:
-    """The fp32 dW body's two instances (2-fp32 over DW_SHAPES, 6-fp32 over
-    CONV1_SHAPES) as called and bare, per shape and summed per fp32 train
-    step, each checked against its plain version under F32_TOL. The port is
+def time_bodies(root: Path, tag: str, names: tuple, step_names: tuple) -> None:
+    """One body's instances (``names``) as called and bare, per shape and
+    summed over one pass (7-fp32 the fp32 eval forward, 6- and 12-fp32 the
+    fp32 train step's conv1 shapes, the others the whole step), each checked
+    against its plain version under its phase-3 tolerance, beside its bound
+    and the FFMA bound; then ``step_names`` summed per fp32 train step, and
+    the SASS digest of conv3_dw_f32.cu's kernels in the library. The port is
     imported from ``root``, so that another checkout (a parent commit) is
     timed by the same code in the same call."""
     sys.path.insert(0, str(root))
     import torch
 
     import multimodal_segmentation_project_tpu_torch as pkg
+    from multimodal_segmentation_project_tpu_torch.ops import _build
 
     fail_unless(Path(pkg.__file__).resolve().is_relative_to(root),
                 f"port package imported from {pkg.__file__}, not from {root}")
-    print(f"[dw-f32] port from {Path(pkg.__file__).parent}", flush=True)
+    print(f"[{tag}] port from {Path(pkg.__file__).parent}", flush=True)
     plan, _ = _kernel_plan()
     bare = bare_calls()
-    for name in F32_TRAIN_DW:
-        kern, plain, _, make, shapes, tol, *_ = plan[name]
-        ms_tot = bare_tot = 0.0
+    sums = {}
+    for name in names:
+        kern, plain, _, make, shapes, tol, work, _ = plan[name]
+        tot = dict.fromkeys(("ms", "bare_ms", "bound_ms", "ffma_ms"), 0.0)
         for shape, mult in _count(shapes):
             inputs = make(*shape)
-            err, rel, ok, _ = _errors(f"{name} {shape}", kern, plain, inputs, tol)
+            err, rel, ok, ratio = _errors(f"{name} {shape}", kern, plain, inputs, tol)
             fail_unless(ok, f"{name} {shape}: error {err} (scaled {rel}) over tolerance")
             ms, bare_ms = _time_ms(kern, inputs), _time_bare_ms(name, bare[name], inputs)
-            ms_tot += mult * ms
-            bare_tot += mult * bare_ms
-            print(f"[dw-f32] {name} {shape} x{mult}: scaled err {rel:.4g}, as called {ms:.4f} "
-                  f"ms, bare {bare_ms:.4f} ms", flush=True)
+            bytes_ms, ops_ms, ffma_ms = _bounds_ms(name, work, shape)
+            bound_ms, ffma_ms = max(bytes_ms, ops_ms), max(bytes_ms, ffma_ms)
+            for key, val in (("ms", ms), ("bare_ms", bare_ms), ("bound_ms", bound_ms),
+                             ("ffma_ms", ffma_ms)):
+                tot[key] += mult * val
+            print(f"[{tag}] {name} {shape} x{mult}: scaled err {rel:.4g}"
+                  f"{'' if ratio is None else f', sums at {ratio:.4g} of their bound'}, as called "
+                  f"{ms:.4f} ms, bare {bare_ms:.4f} ms; bound {bound_ms:.4f} ms, FFMA bound "
+                  f"{ffma_ms:.4f} ms", flush=True)
             del inputs
             torch.cuda.empty_cache()
-        print(f"[dw-f32] {name} per fp32 train step: as called {ms_tot:.4f} ms, bare "
-              f"{bare_tot:.4f} ms", flush=True)
+        sums[name] = tot
+        print(f"[{tag}] {name} per pass: as called {tot['ms']:.4f} ms, bare "
+              f"{tot['bare_ms']:.4f} ms; bound {tot['bound_ms']:.4f} ms, FFMA bound "
+              f"{tot['ffma_ms']:.4f} ms", flush=True)
+    step = {k: sum(sums[n][k] for n in step_names) for k in sums[step_names[0]]}
+    print(f"[{tag}] per fp32 train step ({', '.join(step_names)}): as called "
+          f"{step['ms']:.4f} ms, bare {step['bare_ms']:.4f} ms; bound {step['bound_ms']:.4f} "
+          f"ms, FFMA bound {step['ffma_ms']:.4f} ms", flush=True)
+    n, lines, sha = dw_f32_sass_digest(_build.library_path())
+    print(f"[{tag}] SASS of conv3_dw_f32.cu in {_build.library_path().name}: {n} kernels, "
+          f"{lines} lines, sha256 {sha}", flush=True)
 
 
 def phase_checkpoints(size: int = 192) -> None:
@@ -3068,24 +3188,21 @@ def phase_checkpoints(size: int = 192) -> None:
 
 def main() -> int:
     t_start = time.perf_counter()
-    if "--time-accum-step" in sys.argv[1:]:
-        rest = sys.argv[sys.argv.index("--time-accum-step") + 1:]
-        try:
-            phase_device()
-            time_accum_step(Path(rest[0]).resolve() if rest else ROOT)
-        except Exception as e:
-            print(f"[FAIL] {type(e).__name__}: {e}", flush=True)
-            return 1
-        return 0
-    if "--time-dw-f32" in sys.argv[1:]:
-        rest = sys.argv[sys.argv.index("--time-dw-f32") + 1:]
-        try:
-            phase_device()
-            time_dw_f32(Path(rest[0]).resolve() if rest else ROOT)
-        except Exception as e:
-            print(f"[FAIL] {type(e).__name__}: {e}", flush=True)
-            return 1
-        return 0
+    timers = {  # flag [ROOT]: the port imported from ROOT (default: this checkout)
+        "--time-accum-step": time_accum_step,
+        "--time-dw-f32": lambda root: time_bodies(root, "dw-f32", F32_TRAIN_DW, F32_TRAIN_DW),
+        "--time-conv-f32": lambda root: time_bodies(root, "conv-f32", F32_CONV_BODY,
+                                                    F32_TRAIN_BODY)}
+    for flag, timer in timers.items():
+        if flag in sys.argv[1:]:
+            rest = sys.argv[sys.argv.index(flag) + 1:]
+            try:
+                phase_device()
+                timer(Path(rest[0]).resolve() if rest else ROOT)
+            except Exception as e:
+                print(f"[FAIL] {type(e).__name__}: {e}", flush=True)
+                return 1
+            return 0
     if "--time-scipy-resample" in sys.argv[1:]:
         try:
             phase_device()

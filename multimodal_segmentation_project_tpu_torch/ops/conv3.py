@@ -184,39 +184,102 @@ def conv3x3x3_cf_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torc
 
 # ---- the fp32 body (csrc/conv3_f32.cu) ------------------------------------
 
-F32_TILE = (4, 8, 16)  # TD, TH, TW: a block's output tile
-F32_CK = 8             # input channels per chunk of the K loop
-F32_PITCH = 20         # floats per staged input row
-F32_THREADS = 256
+F32_TILE_HW = (8, 14)  # TILE_H, TILE_W of an output tile; TILE_D is the warpgroups'
+F32_XCH = 1000         # staged floats per channel: 5 planes of 10 rows of 20
+F32_MAX_STAGES = 4     # the ring's stages at most
+F32_FIXED_BYTES = 576 + 512 + 2048 + 8 * F32_MAX_STAGES  # k table, (a, t), sums, mbarriers
+F32_SMEM_LIMIT = 232448  # an H100 block's dynamic shared memory
+
+
+def f32_chunk(cin: int) -> int:
+    """Input channels per chunk of the fp32 body's K loop: 1 where Cin = 1
+    (the 9 (kd, kh) pairs are K), else 8 (K = 72: the pairs, 8 channels
+    each)."""
+    return 1 if cin == 1 else 8
+
+
+def f32_k_steps(ck: int) -> int:
+    """k steps of 8 per chunk: 9 CK rounded up to 8."""
+    return -(-9 * ck // 8)
+
+
+def f32_slice(cout: int) -> int:
+    """Output channels of a slice, NS: the wgmma's N is 3 NS (kw, channel);
+    Cout > 32 takes two slices of 32."""
+    return 16 if cout <= 16 else 32
+
+
+def f32_warpgroups(cout: int) -> int:
+    """Consumer warpgroups of an fp32 conv block, one output plane of a tile
+    each: three for a slice of 16 channels, two for one of 32."""
+    return 3 if f32_slice(cout) == 16 else 2
+
+
+def f32_tile(cout: int) -> tuple:
+    """(TILE_D, TILE_H, TILE_W): an output tile of the fp32 body's
+    persistent blocks for ``cout`` output channels."""
+    return (f32_warpgroups(cout), *F32_TILE_HW)
+
+
+def f32_stage_bytes(ck: int, cout: int) -> int:
+    """One stage of the ring: the haloed input tile of CK channels (from a
+    128-byte boundary), then the chunk's weight slab, the hi and lo planes
+    (32 N bytes each, N = 3 NS) of every k step."""
+    return -(-ck * F32_XCH * 4 // 128) * 128 + 64 * 3 * f32_slice(cout) * f32_k_steps(ck)
+
+
+def f32_smem_bytes(cin: int, cout: int) -> int:
+    """Dynamic shared memory of an fp32 conv block: as many stages as fit
+    (at most F32_MAX_STAGES) and the fixed part."""
+    stage = f32_stage_bytes(f32_chunk(cin), cout)
+    return min(F32_MAX_STAGES, (F32_SMEM_LIMIT - F32_FIXED_BYTES) // stage) * stage \
+        + F32_FIXED_BYTES
 
 
 def pack_weights_f32(w: torch.Tensor) -> torch.Tensor:
-    """(3, 3, 3, Cin, Cout) -> fp32 (ceil(Cin/8), 8, 27, Cout16), zero-padded:
-    one [channel][tap][cout] slab per chunk of F32_CK input channels, the
-    fp32 body's shared-memory image (Cout16 is Cout rounded up to 16). One
-    permuting copy; a pad first only where Cin is not a multiple of 8 or
-    Cout of 16."""
+    """(3, 3, 3, Cin, Cout) -> fp32 (nslices, nchunks, KS, 2, 2, 3 NS, 4): per
+    slice of NS = f32_slice(Cout) output channels and chunk of CK =
+    f32_chunk(Cin) input channels, K = 9 CK (k = CK (3 kd + kh) + ci,
+    zero-padded to KS = f32_k_steps(CK) steps of 8) by N = 3 NS (n = NS kw
+    + channel), and per k step a hi and a lo plane (hi = tf32(w), lo =
+    tf32(w - hi)), each two core matrices of N rows x 4 k (k = 4 kg + e):
+    the wgmma's K-major layout without swizzle, one (slice, chunk) slab the
+    fp32 body's shared-memory image (zero past Cout and past Cin)."""
     cin, cout = w.shape[3], w.shape[4]
-    cin_p, cout_p = -(-cin // F32_CK) * F32_CK, -(-cout // 16) * 16
-    w27 = w.reshape(27, cin, cout).float()
-    if (cin_p, cout_p) != (cin, cout):
-        w27 = F.pad(w27, (0, cout_p - cout, 0, cin_p - cin))
-    out = torch.empty((cin_p // F32_CK, F32_CK, 27, cout_p), dtype=torch.float32,
-                      device=w.device)
-    return out.copy_(w27.reshape(27, cin_p // F32_CK, F32_CK, cout_p).permute(1, 2, 0, 3))
+    ck, ns = f32_chunk(cin), f32_slice(cout)
+    ks, nch, nsl = f32_k_steps(ck), -(-cin // ck), -(-cout // ns)
+    w5 = w.float()
+    if (nch * ck, nsl * ns) != (cin, cout):
+        w5 = F.pad(w5, (0, nsl * ns - cout, 0, nch * ck - cin))
+    # (kd, kh, kw, chunk, ci, slice, co) -> (slice, chunk, (kd, kh, ci), (kw, co))
+    wk = w5.reshape(3, 3, 3, nch, ck, nsl, ns).permute(5, 3, 0, 1, 4, 2, 6)
+    wk = wk.reshape(nsl, nch, 9 * ck, 3 * ns)
+    if 8 * ks != 9 * ck:
+        wk = F.pad(wk, (0, 0, 0, 8 * ks - 9 * ck))
+    # each k step's (kg, e, n) as the planes' (kg, n, e), written in place
+    src = wk.reshape(nsl, nch, ks, 2, 4, 3 * ns).permute(0, 1, 2, 3, 5, 4)
+    out = torch.empty((nsl, nch, ks, 2, 2, 3 * ns, 4), dtype=torch.float32, device=w.device)
+    hi, lo = out[:, :, :, 0], out[:, :, :, 1]
+    hi_bits, lo_bits = hi.view(torch.int32), lo.view(torch.int32)
+    # TF32 as cvt.rna.tf32.f32 rounds: to 10 mantissa bits, to nearest, ties away
+    torch.add(src.view(torch.int32), 0x1000, out=hi_bits).bitwise_and_(-0x2000)
+    torch.sub(src, hi, out=lo)
+    lo_bits.add_(0x1000).bitwise_and_(-0x2000)
+    return out
 
 
-def f32_launch_dims(shape: tuple, cout: int) -> tuple:
+def f32_launch_dims(device: torch.device, shape: tuple, cout: int) -> tuple:
     """(grid x, grid y, grid z, threads, dynamic shared memory in bytes) of
-    the fp32 body on x of ``shape`` (B, Cin, D, H, W): a block per output
-    tile, its ring's stages (two where there is more than one chunk) each an
-    input tile of (TD + 2) (TH + 2) staged rows of F32_PITCH floats per
-    channel and a weight slab of 27 Cout16 floats per channel."""
+    the fp32 body on x of ``shape`` (B, Cin, D, H, W): persistent blocks of
+    f32_warpgroups(Cout) warpgroups, one an SM (at most one a unit), walking
+    the units (an output tile of f32_tile(Cout) voxels and a slice of its
+    output channels). A tile's sums do not depend on the grid: the result
+    is the same bits on any card."""
     bsz, cin, d, h, w = shape
-    td, th, tw = F32_TILE
-    stage = F32_CK * ((td + 2) * (th + 2) * F32_PITCH + 27 * (-(-cout // 16) * 16))
-    stages = 2 if cin > F32_CK else 1
-    return -(-w // tw) * -(-h // th), -(-d // td), bsz, F32_THREADS, stages * stage * 4
+    td, th, tw = f32_tile(cout)
+    units = bsz * -(-d // td) * -(-h // th) * -(-w // tw) * -(-cout // f32_slice(cout))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(units, sms), 1, 1, 128 * td, f32_smem_bytes(cin, cout)
 
 
 def _f32_call(name: str, entry: str, x: torch.Tensor, w: torch.Tensor,
@@ -224,7 +287,8 @@ def _f32_call(name: str, entry: str, x: torch.Tensor, w: torch.Tensor,
     wk, bk, out = conv_operands(name, x, w, b, torch.float32)
     cout = out.shape[1]
     args = (x.data_ptr(), wk.data_ptr(), None if bk is None else bk.data_ptr(), out.data_ptr(),
-            x.shape[0], x.shape[1], cout, *x.shape[2:], *f32_launch_dims(tuple(x.shape), cout))
+            x.shape[0], x.shape[1], cout, *x.shape[2:],
+            *f32_launch_dims(x.device, tuple(x.shape), cout))
     return Launch(entry, args, out, (x, wk, bk, out))
 
 

@@ -45,7 +45,7 @@ import torch
 
 from multimodal_segmentation_project_tpu_torch.ops import _build, conv3
 
-TD, TH, TW = 4, 8, 16  # the conv body's output tile (csrc/conv3_fwd_tile.cuh)
+TD, TH, TW = 4, 8, 16  # the bf16 conv body's output tile (csrc/conv3_fwd_tile.cuh)
 
 
 def _bc(v: torch.Tensor) -> torch.Tensor:
@@ -99,9 +99,12 @@ def conv3x3x3_cf_dw_prologue_reference(x, g, a, t):
 # ---- kernels ----------------------------------------------------------
 
 
-def conv_blocks(d: int, h: int, w: int) -> int:
-    """Blocks of the conv kernel per batch element: one per output tile."""
-    return -(-d // TD) * -(-h // TH) * -(-w // TW)
+def conv_blocks(d: int, h: int, w: int, f32_cout: int | None = None) -> int:
+    """Output tiles of a conv body per batch element, one partial of each
+    channel sum each: the bf16 body's (a block each) or, given its Cout, the
+    fp32 body's (conv3.f32_tile, walked by persistent blocks)."""
+    td, th, tw = (TD, TH, TW) if f32_cout is None else conv3.f32_tile(f32_cout)
+    return -(-d // td) * -(-h // th) * -(-w // tw)
 
 
 def _affine(name: str, x: torch.Tensor, a: torch.Tensor, t: torch.Tensor, c: int):
@@ -129,10 +132,10 @@ def _stats_call(name: str, x, w, b, a=None, t=None) -> conv3.Launch:
     wk, bk, y = conv3.conv_operands(name, x, w, b, torch.float32 if f32 else torch.bfloat16)
     bsz, cin, d, h, wd = x.shape
     cout = y.shape[1]
-    partial = torch.empty(2 * cout * bsz * conv_blocks(d, h, wd), dtype=torch.float32,
-                          device=x.device)
+    partial = torch.empty(2 * cout * bsz * conv_blocks(d, h, wd, cout if f32 else None),
+                          dtype=torch.float32, device=x.device)
     stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
-    dims = conv3.f32_launch_dims(tuple(x.shape), cout) if f32 else ()
+    dims = conv3.f32_launch_dims(x.device, tuple(x.shape), cout) if f32 else ()
     body = "mmseg_conv3_f32" if f32 else "mmseg_conv3"
     head = (x.data_ptr(), wk.data_ptr(), bk.data_ptr())
     tail = (y.data_ptr(), partial.data_ptr(), stats.data_ptr(), bsz, cin, cout, d, h, wd, *dims)
@@ -161,7 +164,7 @@ def boundary_call(x, w, b, a, t) -> conv3.Launch:
     wk, bk, y = conv3.conv_operands(name, x, w, b, torch.float32 if f32 else torch.bfloat16)
     bsz, cin, d, h, wd = x.shape
     ak, tk = _affine(name, x, a, t, cin)
-    dims = conv3.f32_launch_dims(tuple(x.shape), y.shape[1]) if f32 else ()
+    dims = conv3.f32_launch_dims(x.device, tuple(x.shape), y.shape[1]) if f32 else ()
     args = (x.data_ptr(), wk.data_ptr(), bk.data_ptr(), ak.data_ptr(), tk.data_ptr(),
             y.data_ptr(), bsz, cin, y.shape[1], d, h, wd, *dims)
     return conv3.Launch("mmseg_conv3_f32_prologue" if f32 else "mmseg_conv3_prologue", args, y,
@@ -183,10 +186,10 @@ def dx_epilogue_call(g, w, x, a, t) -> conv3.Launch:
     ak, tk = _affine(name, x, a, t, cx)
     wk = (conv3.pack_weights_f32 if f32 else conv3.pack_weights)(wt.to(g.device))
     dy = torch.empty_like(x)
-    partial = torch.empty(2 * bsz * cx * conv_blocks(d, h, wd), dtype=torch.float32,
-                          device=g.device)
+    partial = torch.empty(2 * bsz * cx * conv_blocks(d, h, wd, cx if f32 else None),
+                          dtype=torch.float32, device=g.device)
     dadt = torch.empty((2, bsz, cx), dtype=torch.float32, device=g.device)
-    dims = conv3.f32_launch_dims(tuple(g.shape), cx) if f32 else ()
+    dims = conv3.f32_launch_dims(g.device, tuple(g.shape), cx) if f32 else ()
     args = (g.data_ptr(), wk.data_ptr(), x.data_ptr(), ak.data_ptr(), tk.data_ptr(),
             dy.data_ptr(), partial.data_ptr(), dadt.data_ptr(), bsz, cg, cx, d, h, wd, *dims)
     return conv3.Launch("mmseg_conv3_f32_dx_epilogue" if f32 else "mmseg_conv3_dx_epilogue",

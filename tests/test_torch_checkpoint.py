@@ -32,6 +32,7 @@ import functools
 import json
 import os
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +45,7 @@ from flax import serialization
 from multimodal_segmentation_project_tpu.data.dataset import CombinedDataset as JaxDataset
 from multimodal_segmentation_project_tpu.data.pipeline import DataLoader as JaxDataLoader
 from multimodal_segmentation_project_tpu.engine import checkpoint as jax_ckpt
+from multimodal_segmentation_project_tpu.engine import trainer as jax_trainer_module
 from multimodal_segmentation_project_tpu.engine.interop import torch_state_dict_to_trees
 from multimodal_segmentation_project_tpu.engine.state import TrainState as JaxTrainState
 from multimodal_segmentation_project_tpu.engine.state import (
@@ -56,7 +58,6 @@ from multimodal_segmentation_project_tpu.engine.steps import make_train_step as 
 from multimodal_segmentation_project_tpu.engine.trainer import Trainer as JaxTrainer
 from multimodal_segmentation_project_tpu.engine.trainer import TrainerConfig as JaxTrainerConfig
 from multimodal_segmentation_project_tpu.models import DomainDiscriminator as JaxDiscriminator
-from multimodal_segmentation_project_tpu.models import UNet3D as JaxUNet3D
 from multimodal_segmentation_project_tpu.ops.losses import get_loss_fn as jax_loss_fn
 from multimodal_segmentation_project_tpu.workloads import train_unet as jax_train_unet
 from multimodal_segmentation_project_tpu_torch import ops
@@ -107,13 +108,33 @@ def _batch(seed, n=2):
 
 @functools.cache
 def _jax_model():
-    return JaxUNet3D(out_channels=4, features=FEATURES, dropout_rate=0.0, dtype=jnp.float32,
-                     conv_impl="xla")
+    """The model the JAX trainer builds for this file's runs (fp32, dropout 0,
+    no remat; its "auto" convs are XLA's off a TPU): one init for the file's
+    JAX states and JAX trainers."""
+    return jax_trainer_module.build_model(JaxTrainerConfig(
+        experiment_dir="", experiment_name="", precision="fp32", features=FEATURES,
+        dropout_rate=0.0, remat=False))
+
+
+@functools.cache
+def _jitted_init(model):
+    """A JAX model's own init, jitted once per model (flax modules compare
+    by their fields, so the trainers' models and _jax_model() are one entry):
+    the eager init compiles every initializer's op on its own (about 40 s on
+    the CPU)."""
+    return jax.jit(model.init)
+
+
+def _jax_create_train_state(model, *args, **kwargs) -> JaxTrainState:
+    """The JAX package's create_train_state with the model's own init jitted."""
+    return create_train_state(SimpleNamespace(init=_jitted_init(model), apply=model.apply),
+                              *args, **kwargs)
 
 
 def _jax_state(accum: int, seed: int = 0, lr: float = LR) -> JaxTrainState:
-    return create_train_state(_jax_model(), jax.random.key(seed),
-                              jnp.zeros((1, 1, SIZE, SIZE, SIZE)), make_optimizer(WD, accum), lr)
+    return _jax_create_train_state(_jax_model(), jax.random.key(seed),
+                                   jnp.zeros((1, 1, SIZE, SIZE, SIZE)), make_optimizer(WD, accum),
+                                   lr)
 
 
 def _fake_updates(state, n: int, seed: int):
@@ -490,7 +511,9 @@ def cli_checkpoints(data_root, tmp_path_factory):
         args = cli.build_parser().parse_args(
             ["--data_root", str(data_root), "--experiment_dir", str(exp), *CLI_ARGV, *extra])
         args.experiment_name = "run"
-        cli.main(args)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jax_trainer_module, "create_train_state", _jax_create_train_state)
+            cli.main(args)
         dirs.append(exp / "run" / "checkpoints")
     return dirs
 
@@ -533,7 +556,7 @@ def test_the_eval_cli_serves_the_ports_best_model(cli_checkpoints, data_root, tm
             assert torch.equal(value, want[name]), name
 
 
-def test_the_jax_trainer_resumes_the_ports_epoch1_checkpoint(data_root, tmp_path):
+def test_the_jax_trainer_resumes_the_ports_epoch1_checkpoint(data_root, tmp_path, monkeypatch):
     """A port Trainer checkpointing every epoch writes
     checkpoint_epoch1_<name>.msgpack and its sidecar; the JAX package's
     Trainer resumes from it (params, statistics, step, best val Dice, the
@@ -548,11 +571,12 @@ def test_the_jax_trainer_resumes_the_ports_epoch1_checkpoint(data_root, tmp_path
     path = tmp_path / "port" / "run" / "checkpoints" / "checkpoint_epoch1_run.msgpack"
     assert Path(f"{path}.json").exists()
 
+    monkeypatch.setattr(jax_trainer_module, "create_train_state", _jax_create_train_state)
     jcfg = JaxTrainerConfig(experiment_dir=str(tmp_path / "jax"), experiment_name="resumed",
                             epochs=2, lr=LR, weight_decay=WD, dropout_rate=0.0, precision="fp32",
                             features=FEATURES, num_workers=0, checkpoint_every=1,
                             use_scheduler=True, resume=str(path), verbose=False, n_data=1,
-                            auto_spatial=False)
+                            auto_spatial=False, remat=False)
     resumed = JaxTrainer(jcfg, *[JaxDataset(str(data_root / s), ["ct"]) for s in ("train", "val")])
     assert resumed.start_epoch == 1 and int(resumed.state.step) == port.state.step
     # both trainers write the periodic checkpoint before the epoch's best-model update

@@ -125,9 +125,15 @@ def _jax_unet():
 
 
 @functools.cache
+def _jax_init():
+    """The JAX UNet3D's init, jitted once for every seed."""
+    return jax.jit(_jax_unet().init)
+
+
+@functools.cache
 def _jax_weights(seed):
     """(params, batch_stats) of the JAX UNet3D, with non-trivial statistics."""
-    variables = jax.jit(_jax_unet().init)(jax.random.key(seed), jnp.zeros((1, 1, 16, 16, 16)))
+    variables = _jax_init()(jax.random.key(seed), jnp.zeros((1, 1, 16, 16, 16)))
     params, stats = _np(variables["params"]), _np(variables["batch_stats"])
     rng = np.random.default_rng(seed)
 

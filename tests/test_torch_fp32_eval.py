@@ -223,61 +223,92 @@ CONV_CASES = [(1, 16, 192), (16, 16, 192), (16, 32, 96), (32, 32, 96), (32, 64, 
 
 @pytest.mark.parametrize("cin,cout,s", CONV_CASES)
 def test_the_fp32_conv_launch_is_the_sources(cin, cout, s, faked_launches):
-    """Grid (a block per TD x TH x TW output tile), THREADS threads, and the
-    ring's dynamic shared memory (two stages where there is more than one
-    chunk of CK input channels: each CK staged tiles of (TD + 2) (TH + 2)
-    rows of PITCH floats, and CK x 27 x Cout16 weights), from the
-    constants of csrc/conv3_f32.cu; the packed weights are its chunks."""
+    """Grid (persistent blocks: one an SM, at most one a unit, an output
+    tile of TILE_D x TILE_H x TILE_W voxels and a slice of NS output
+    channels), a warpgroup of 128 threads a plane of the tile (three where
+    NS = 16, two where NS = 32), and the dynamic shared memory: as many ring
+    stages as fit under SMEM_LIMIT, at most MAX_STAGES, each a staged tile
+    of CK channels of XCH = XD XH XW floats and the chunk's weight slab (the
+    hi and lo planes, 64 N bytes a k step, N = 3 NS); then the k table, the
+    prologue's (a, t), the sums' scratch and the mbarriers: from the
+    constants of csrc/conv3_f32.cu; the packed weights are its slabs."""
     k = _constants("conv3_f32.cu")
-    assert (k["TD"], k["TH"], k["TW"]) == conv3.F32_TILE
-    assert (k["CK"], k["PITCH"], k["THREADS"]) == (conv3.F32_CK, conv3.F32_PITCH,
-                                                   conv3.F32_THREADS)
+    assert (k["TILE_H"], k["TILE_W"]) == conv3.F32_TILE_HW
+    assert k["XD"] * k["XH"] * k["XW"] == conv3.F32_XCH and conv3.F32_XCH % 32 == 8
+    ns = 16 if cout <= 16 else 32
+    td = 3 if ns == 16 else 2
+    assert conv3.f32_tile(cout) == (td, k["TILE_H"], k["TILE_W"])
+    assert k["XH"] == k["TILE_H"] + 2 and k["XD"] >= td + 2
+    assert k["XW"] >= 3 + k["TILE_W"] + 2 and k["XW"] % 4 == 0  # 16-byte box rows from w0 - 4
+    assert (k["TABLE_BYTES"] + k["AT_BYTES"] + k["RED_BYTES"] + 8 * k["MAX_STAGES"]
+            == conv3.F32_FIXED_BYTES)
+    assert (k["MAX_STAGES"], k["SMEM_LIMIT"]) == (conv3.F32_MAX_STAGES, conv3.F32_SMEM_LIMIT)
+    assert k["TABLE_BYTES"] >= 9 * 4 * 16 and k["RED_BYTES"] >= 8 * 2 * 32 * 4
     source = _source("conv3_f32.cu")
-    assert all(f"constexpr int {line};" in source
-               for line in ("DR = TD + 2", "HR = TH + 2", "ROWS = DR * HR"))
-    rows = (k["TD"] + 2) * (k["TH"] + 2)
+    assert "constexpr int XCH = XD * XH * XW;" in source
+    assert "constexpr int chunk_channels(int cin) { return cin == 1 ? 1 : 8; }" in source
+    assert "constexpr int slice_channels(int cout) { return cout <= 16 ? 16 : 32; }" in source
+    assert "constexpr int warpgroups(int ns) { return ns == 16 ? 3 : 2; }" in source
+    assert "constexpr int x_bytes(int ck) { return (ck * XCH * 4 + 127) / 128 * 128; }" in source
+    assert "constexpr int slab_bytes(int ck, int ns) { return 64 * 3 * ns * k_steps(ck); }" in source
+    assert ("(SMEM_LIMIT - FIXED_BYTES) / (x_bytes(ck) + slab_bytes(ck, ns));" in source)
     shape = (2, cin, s, s + 1, s)
     x = torch.empty(shape, device="meta")
     w, b = torch.empty(3, 3, 3, cin, cout, device="meta"), torch.empty(cout, device="meta")
     call = conv3.relu_f32_call(x, w, b)
-    nchunks, cout16 = -(-cin // k["CK"]), -(-cout // 16) * 16
-    stage = k["CK"] * (rows * k["PITCH"] + 27 * cout16) * 4
-    grid = (-(-s // k["TW"]) * -(-(s + 1) // k["TH"]), -(-s // k["TD"]), 2)
+    ck = 1 if cin == 1 else 8
+    ks, nchunks, nslices = -(-9 * ck // 8), -(-cin // ck), -(-cout // ns)
+    xb, wb = -(-ck * conv3.F32_XCH * 4 // 128) * 128, 64 * 3 * ns * ks
+    stages = min(k["MAX_STAGES"], (k["SMEM_LIMIT"] - conv3.F32_FIXED_BYTES) // (xb + wb))
+    smem = stages * (xb + wb) + conv3.F32_FIXED_BYTES
+    tiles = 2 * -(-s // k["TILE_W"]) * -(-(s + 1) // k["TILE_H"]) * -(-s // td)
     assert call.entry == "mmseg_conv3_f32_bias_relu"
     assert call.args[4:10] == (2, cin, cout, s, s + 1, s)
-    assert call.args[10:] == (*grid, k["THREADS"], (2 if nchunks > 1 else 1) * stage)
-    assert call.args[-1] <= 227 * 1024
+    assert call.args[10:] == (min(tiles * nslices, 132), 1, 1, 128 * td, smem)
+    assert stages >= 2 and call.args[-1] <= k["SMEM_LIMIT"]
     wk = call.tensors[1]
-    assert wk.shape == (nchunks, k["CK"], 27, cout16) and wk.dtype == torch.float32
+    assert wk.shape == (nslices, nchunks, ks, 2, 2, 3 * ns, 4) and wk.dtype == torch.float32
     assert call.result.shape == (2, cout, s, s + 1, s) and call.result.dtype == torch.float32
 
 
 @pytest.mark.parametrize("cin,cout", [(1, 16), (3, 8), (40, 20), (16, 48)])
 def test_the_fp32_packing_summed_as_the_kernel_sums_reproduces_the_op(cin, cout):
-    """The packed weights (chunk, channel, tap, Cout16), zero past Cin and
-    Cout, summed over the chunks, their channels and the taps as the fp32
-    body sums them (tap = (kd * 3 + kh) * 3 + kw on the zero-haloed input),
-    reproduce conv3x3x3_cf_relu_reference (held against the JAX package in
-    tests/test_torch_ops.py) within 2e-5 of its max."""
+    """The packed weights (slice, chunk, k step, hi/lo plane, core matrix kg,
+    N, 4): k = 8 step + 4 kg + e = CK (3 kd + kh) + ci of the chunk's CK
+    channels, n = NS kw + co of the slice's NS channels, zero past 9 CK, Cin
+    and Cout, each plane exact TF32 (hi = tf32(w), lo = tf32(w - hi)),
+    summed over the slices, chunks, k, n and the two planes as the fp32
+    body sums them (the kw taps combined from the neighbouring voxels on
+    the zero-haloed input), reproduce conv3x3x3_cf_relu_reference (held
+    against the JAX package in tests/test_torch_ops.py) within 2e-5 of its
+    max."""
     rng = np.random.default_rng(cin * 100 + cout)
     x = torch.from_numpy(rng.normal(size=(2, cin, 5, 6, 7)).astype(np.float32))
     w = torch.from_numpy((rng.normal(size=(3, 3, 3, cin, cout)) / (27 * cin) ** 0.5)
                          .astype(np.float32))
     b = torch.from_numpy(rng.normal(size=(cout,)).astype(np.float32) * 0.1)
     wk = conv3.pack_weights_f32(w)
-    ck = conv3.F32_CK
-    assert not wk.reshape(-1, 27, wk.shape[-1])[cin:].any() and not wk[..., cout:].any()
+    ck, ns = conv3.f32_chunk(cin), conv3.f32_slice(cout)
+    nsl, nch, ks = wk.shape[:3]
+    assert not (wk.view(torch.int32) & 0x1FFF).any()  # 10 mantissa bits in both planes
+    planes = wk.permute(0, 1, 3, 2, 4, 6, 5).reshape(nsl, nch, 2, 8 * ks, 3 * ns)
+    assert not planes[:, :, :, 9 * ck:].any()
+    wsum = planes[:, :, 0] + planes[:, :, 1]  # (slice, chunk, k, n)
     xp = F.pad(x, (1, 1, 1, 1, 1, 1))
-    acc = torch.zeros(2, wk.shape[-1], 5, 6, 7)
-    for chunk in range(wk.shape[0]):
-        for ci in range(min(ck, cin - chunk * ck)):
-            c = chunk * ck + ci
-            for kd in range(3):
-                for kh in range(3):
-                    for kw in range(3):
-                        tap = (kd * 3 + kh) * 3 + kw
-                        shifted = xp[:, c, kd:kd + 5, kh:kh + 6, kw:kw + 7]
-                        acc += shifted[:, None] * wk[chunk, ci, tap][None, :, None, None, None]
+    acc = torch.zeros(2, nsl * ns, 5, 6, 7)
+    for sl in range(nsl):
+        for chunk in range(nch):
+            for k in range(9 * ck):
+                c, pair = chunk * ck + k % ck, k // ck
+                if c >= cin:
+                    assert not wsum[sl, chunk, k].any()
+                    continue
+                kd, kh = pair // 3, pair % 3
+                for kw in range(3):
+                    wt = wsum[sl, chunk, k, kw * ns:(kw + 1) * ns]
+                    shifted = xp[:, c, kd:kd + 5, kh:kh + 6, kw:kw + 7]
+                    acc[:, sl * ns:(sl + 1) * ns] += shifted[:, None] * wt[None, :, None, None, None]
+    assert not acc[:, cout:].any()
     got = torch.relu(acc[:, :cout] + b.reshape(1, -1, 1, 1, 1))
     want = conv3.conv3x3x3_cf_relu_reference(x, w, b)
     assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max())

@@ -11,9 +11,10 @@ fp32 bodies, csrc/conv3_f32.cu and csrc/conv3_dw_f32.cu), on the CPU:
   orders; 3, 4 and 12 are held in tests/test_torch_fused_ops.py); 6's
   3xTF32 arithmetic, emulated on the activated input, against its plain
   version within 2e-6 of max |plain|;
-* the kernels' order of the channel sums, emulated (8 voxels a thread in
-  order, a shuffle tree over the warp, the group's two warps in order, one
-  partial per block, the reduce's strided sums and tree), reproduces the
+* the kernels' order of the channel sums, emulated (the fp32 body's: 4
+  voxels a thread in order, a butterfly over the 8 lanes of a channel, the
+  block's warps in order, one partial per output tile, the reduce's
+  strided sums and tree), reproduces the
   plain s1, s2, da and dt within 1e-6 of the sum of |terms| (fp32 sums of
   a few thousand terms in another order);
 * on the card an fp32 tensor never reaches a plain version, and another
@@ -80,8 +81,19 @@ def _meta(*shape, dtype=torch.float32):
     return torch.empty(*shape, dtype=dtype, device="meta")
 
 
-def _blocks(d, h, w):
-    return -(-d // 4) * -(-h // 8) * -(-w // 16)
+def _tile_d(cout):
+    """The fp32 body's output planes of a tile: one a warpgroup, three for a
+    slice of 16 channels, two for one of 32 (csrc/conv3_f32.cu)."""
+    assert "constexpr int warpgroups(int ns) { return ns == 16 ? 3 : 2; }" in (
+        CSRC / "conv3_f32.cu").read_text()
+    return 3 if cout <= 16 else 2
+
+
+def _blocks(d, h, w, cout):
+    """The fp32 body's output tiles per batch element (csrc/conv3_f32.cu's
+    TILE_D x TILE_H x TILE_W), one partial of each channel sum each."""
+    k = _constants("conv3_f32.cu")
+    return -(-d // _tile_d(cout)) * -(-h // k["TILE_H"]) * -(-w // k["TILE_W"])
 
 
 # ---- the launches against their sources ---------------------------------------------
@@ -104,18 +116,21 @@ def test_the_fp32_fused_forwards_launch_as_the_source_says(op, cin, cout, s, fak
     entry = {"stats": "mmseg_conv3_f32_stats", "boundary_stats": "mmseg_conv3_f32_prologue_stats",
              "boundary": "mmseg_conv3_f32_prologue"}[op]
     assert call.entry == entry and len(call.args) + 1 == len(_build._SIGNATURES[entry])
-    dims = conv3.f32_launch_dims(tuple(x.shape), cout)
+    dims = conv3.f32_launch_dims(x.device, tuple(x.shape), cout)
     assert call.args[-11:] == (bsz, cin, cout, s, s + 1, s, *dims)
     wk = call.tensors[1]
-    assert wk.dtype == torch.float32 and wk.shape == (-(-cin // 8), 8, 27, -(-cout // 16) * 16)
+    ck, ns = conv3.f32_chunk(cin), conv3.f32_slice(cout)
+    assert wk.dtype == torch.float32 and wk.shape == (-(-cout // ns), -(-cin // ck),
+                                                      conv3.f32_k_steps(ck), 2, 2, 3 * ns, 4)
     assert call.tensors[2].dtype == torch.float32 and call.tensors[2].shape == (cout,)
     y = call.result if op == "boundary" else call.result[0]
     assert y.shape == (bsz, cout, s, s + 1, s) and y.dtype == torch.float32
     if op == "boundary":
         return
     partial, stats = call.tensors[4], call.tensors[5]
-    assert partial.shape == (2 * cout * bsz * _blocks(s, s + 1, s),)
-    assert dims[0] * dims[1] == _blocks(s, s + 1, s) and dims[2] == bsz
+    assert partial.shape == (2 * cout * bsz * _blocks(s, s + 1, s, cout),)
+    nslices = -(-cout // conv3.f32_slice(cout))
+    assert dims[:3] == (min(bsz * _blocks(s, s + 1, s, cout) * nslices, SMS), 1, 1)
     assert stats.shape == (2, cout) and all(r.shape == (cout,) for r in call.result[1:])
 
 
@@ -133,12 +148,15 @@ def test_the_fp32_dx_epilogue_launches_as_the_source_says(cin, cout, s, faked_la
     assert call.entry == "mmseg_conv3_f32_dx_epilogue"
     assert len(call.args) + 1 == len(_build._SIGNATURES[call.entry])
     assert call.args[-11:] == (bsz, cout, cin, s, s, s + 2,
-                               *conv3.f32_launch_dims(tuple(g.shape), cin))
-    assert call.tensors[1].shape == (-(-cout // 8), 8, 27, -(-cin // 16) * 16)
+                               *conv3.f32_launch_dims(g.device, tuple(g.shape), cin))
+    # the dx conv: Cout input channels, Cin output ones
+    ck, ns = conv3.f32_chunk(cout), conv3.f32_slice(cin)
+    assert call.tensors[1].shape == (-(-cin // ns), -(-cout // ck), conv3.f32_k_steps(ck), 2, 2,
+                                     3 * ns, 4)
     dy, da, dt = call.result
     assert dy.shape == x.shape and dy.dtype == torch.float32
     assert da.shape == dt.shape == (bsz, cin)
-    assert call.tensors[6].shape == (2 * bsz * cin * _blocks(s, s, s + 2),)
+    assert call.tensors[6].shape == (2 * bsz * cin * _blocks(s, s, s + 2, cin),)
 
 
 @pytest.mark.parametrize("cin,cout,s", STEP_CASES + RAGGED_CASES)
@@ -285,27 +303,36 @@ def test_the_fp32_dw_prologue_in_3xtf32_reproduces_the_plain_version(bsz, cin, c
 
 
 def _block_partials(terms: torch.Tensor) -> torch.Tensor:
-    """(B, C, D, H, W) fp32 terms -> (B, C, blocks) fp32: each block's sum as
-    conv3_f32.cu takes it. Thread (warp, lane) of a channel group holds the
-    8 voxels [8 half, 8 half + 8) of output row (plane 2 (warp & 1) + ((lane
-    >> 3) & 1), row lane & 7), half = lane >> 4, and sums them in order; a
-    butterfly of shuffles sums the warp; the group's two warps add in
+    """(B, C, D, H, W) fp32 terms -> (B, C, tiles) fp32: each output tile's
+    sum as conv3_f32.cu takes it. In a TILE_D x TILE_H x TILE_W tile (3 x 8
+    x 14 for C <= 16, else 2 x 8 x 14: a warpgroup a plane), warp 4 g + q of
+    the block holds rows q and 4 + q of plane g, and its lane (gq, tq)
+    fragment rows gq and gq + 8 of each, output voxels w0 + gq - 1 and w0 +
+    gq + 7 (rows 1 to 14 only); a thread adds its terms of a channel in
+    order (row q, then 4 + q; fragment row gq, then gq + 8), a butterfly
+    over the 8 lanes gq that share the channel sums them (((r0 + r1) + (r2 +
+    r3)) + ((r4 + r5) + (r6 + r7))), and the block's warps add in warp
     order. Voxels past the volume add nothing (0 here: adding 0 is exact)."""
     bsz, c, d, h, w = terms.shape
-    nd, nh, nw = -(-d // 4), -(-h // 8), -(-w // 16)
-    v = F.pad(terms, (0, nw * 16 - w, 0, nh * 8 - h, 0, nd * 4 - d))
-    # (B, C, nd, plane, nh, row, nw, half, m) -> (B, C, nd, nh, nw, plane, row, half, m)
-    v = v.reshape(bsz, c, nd, 4, nh, 8, nw, 2, 8).permute(0, 1, 2, 4, 6, 3, 5, 7, 8)
-    r = v[..., 0]
-    for m in range(1, 8):
-        r = r + v[..., m]
-    # plane = 2 wp + (lane >> 3 & 1), row = lane & 7, half = lane >> 4
-    r = r.reshape(*r.shape[:5], 2, 2, 8, 2)  # (..., wp, plane & 1, row, half)
-    r = r.permute(0, 1, 2, 3, 4, 5, 8, 6, 7).reshape(*r.shape[:5], 2, 32)  # lane order
-    lane = torch.arange(32)
-    for s in (16, 8, 4, 2, 1):
-        r = r + r[..., lane ^ s]
-    block = r[..., 0, 0] + r[..., 1, 0]
+    k = _constants("conv3_f32.cu")
+    td, th, tw = _tile_d(c), k["TILE_H"], k["TILE_W"]
+    nd, nh, nw = -(-d // td), -(-h // th), -(-w // tw)
+    v = F.pad(terms, (0, nw * tw - w, 0, nh * th - h, 0, nd * td - d))
+    # the 16 fragment rows of a tile's output row: rows 0 and 15 are no voxel
+    v = F.pad(v.reshape(bsz, c, nd * td, nh * th, nw, tw), (1, 16 - tw - 1))
+    # (B, C, nd, g, nh, mt, q, nw, v1, gq) -> (B, C, nd, nh, nw, g, q, gq, mt, v1)
+    v = v.reshape(bsz, c, nd, td, nh, 2, 4, nw, 2, 8).permute(0, 1, 2, 4, 7, 3, 6, 9, 5, 8)
+    r = torch.zeros(v.shape[:-2])
+    for mt in range(2):
+        for v1 in range(2):
+            r = r + v[..., mt, v1]
+    lane = torch.arange(8)
+    for sh in (1, 2, 4):  # the lanes 4, 8 and 16 apart: gq ^ 1, ^ 2, ^ 4
+        r = r + r[..., lane ^ sh]
+    r = r[..., 0].reshape(*r.shape[:5], 4 * td)  # (B, C, nd, nh, nw, warp 4 g + q)
+    block = r[..., 0]
+    for wp in range(1, 4 * td):
+        block = block + r[..., wp]
     return block.reshape(bsz, c, nd * nh * nw)
 
 

@@ -210,13 +210,14 @@ def test_the_fp32_training_conv_and_its_dx_launch_as_the_source_says(cin, cout, 
     w, b = torch.empty(3, 3, 3, cin, cout, device="meta"), torch.empty(cout, device="meta")
     fwd, dx = conv3.conv_f32_call(x, w, b), conv3.dx_f32_call(g, w)
     assert fwd.entry == dx.entry == "mmseg_conv3_f32"
-    assert fwd.args[10:] == conv3.f32_launch_dims(tuple(x.shape), cout)
-    assert dx.args[10:] == conv3.f32_launch_dims(tuple(g.shape), cin)
+    assert fwd.args[10:] == conv3.f32_launch_dims(x.device, tuple(x.shape), cout)
+    assert dx.args[10:] == conv3.f32_launch_dims(g.device, tuple(g.shape), cin)
     assert fwd.args[2] is not None and dx.args[2] is None  # the dx has no bias
     assert fwd.args[4:10] == (2, cin, cout, s, s + 1, s)
     assert dx.args[4:10] == (2, cout, cin, s, s + 1, s)
     assert dx.result.shape == x.shape and dx.result.dtype == torch.float32
-    assert dx.tensors[1].shape[-1] == -(-cin // 16) * 16  # the packed flip_transpose(w)
+    # the packed flip_transpose(w): N = 3 NS for the dx's Cin output channels
+    assert dx.tensors[1].shape[-2] == 3 * conv3.f32_slice(cin)
 
 
 @pytest.mark.parametrize("cin,cout,s", CONV_CASES)
