@@ -44,7 +44,11 @@ Phases, each printing one line per check; any failure exits non-zero:
    Cout = 20 and 48, batch 2 and an unaligned view, t > 0 on some
    channels); the same bits twice where blocks' partials are summed (the
    head's weight gradient and the fused block's fp32 sums too), and for
-   the upconv and the head's dx;
+   the upconv and the head's dx; and every kernel the quickstart
+   (``examples/quickstart_torch.py``) launches at its shapes (UNet3D (8,
+   16) at 32^3: Cout = 8 at 32^3, 16 at 16^3, the 32-wide bottleneck at
+   8^3, batch 2, and batch 1 for the eval forward's kernels), under the
+   same tolerances, with its time as called and its plain version's;
 4. slice: writes two synthetic 192^3 CT cases and a seeded default-width
    UNet3D ``.pth``, runs the port's eval CLI (``workloads.test_model``) on
    the GPU, checks its artifacts and that every forward launched exactly
@@ -104,6 +108,20 @@ Phases, each printing one line per check; any failure exits non-zero:
    phase 8's data, through the fused block, exact launches (a distillation
    step 59 with the teacher's eval forward in fp32, a DANN step 74), and
    the fp32 DANN step alone (time, peak);
+10. entry points (run after phase 8b, before phase 7): the five ``_torch``
+   recipes through bash from this checkout's root, with ``python`` this
+   interpreter, at full width on phases 6 and 8's 192^3 splits, one epoch
+   each, cut only through their own variables (``EPOCHS=1``,
+   ``N_SAMPLES=2``, ``GRAD_ACCUM=2`` in ``run_training_torch.sh``;
+   ``MODALITIES=ct`` for its CT split): ``run_training_torch.sh``, then
+   ``run_testing_torch.sh`` on its best checkpoint, which
+   ``run_finetune_ct_torch.sh`` (``PRETRAINED``) and
+   ``run_distillation_torch.sh`` (``TEACHER``) take too, and
+   ``run_dann_torch.sh`` on the MRI -> CT splits; each exit code and the
+   files each CLI writes; the quickstart in this process (one epoch), its
+   launches of every kernel exact (3 steps at batch 2, 5 eval forwards);
+   the QA script's augmentation on a CUDA tensor (shapes, dtypes, labels
+   within 0..3, p = 0 the identity); the phase's time;
 9. checkpoints and preprocessing (run last): writes phase 6's trained state
    (its optimizer and its ``optax.MultiSteps`` accumulator included) as the
    JAX package's ``.msgpack`` with the port's writer, reads it back and
@@ -148,8 +166,10 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -193,6 +213,38 @@ HEAD_DW_SHAPES = [(16, 4, 192)]                              # (Cin, classes, S)
 # swapped (with CONV_SHAPES, where phase 3 also holds the fp32 training
 # conv, its dx and its dW: every conv of a step on the per-conv chain)
 PER_CONV_DX_SHAPES = [(cout, cin, s) for cin, cout, s in CONV_SHAPES if cin > 1]
+# the quickstart's model (examples/quickstart_torch.py): UNet3D (8, 16) at
+# 32^3, bf16, every conv <= 64 wide, so the fused block in every block
+# (enc0, enc1, the bottleneck, dec0, dec1), two pools and two upconvs; its
+# train steps run at batch 2, its validation and eval forwards at batch 1.
+# Its splits (make_dataset there): one epoch runs 6 / 2 = 3 train steps and 2
+# validation forwards, then the eval CLI's warm-up forward and one forward
+# per test case.
+QS_SPLITS = {"train": 6, "val": 2, "test": 2}
+QS_BATCH = 2
+# (Cin, Cout, S) of conv0 and conv1 of each block:
+QS_CONV0 = [(1, 8, 32), (8, 16, 16), (16, 32, 8), (32, 16, 16), (16, 8, 32)]
+QS_CONV1 = [(8, 8, 32), (16, 16, 16), (32, 32, 8), (16, 16, 16), (8, 8, 32)]
+QS_POOLS = [(8, 32), (16, 16)]
+QS_UPCONVS = [(32, 16, 8), (16, 8, 16)]
+QS_EVAL_CONVS = [shape for pair in zip(QS_CONV0, QS_CONV1) for shape in pair]
+# phase 3 holds every kernel the quickstart launches at its shapes: the
+# train step's at batch 2, the eval forward's at batch 1 and 2
+QUICKSTART_SHAPES = {
+    "conv3x3x3_cf_stats": [(*sh, QS_BATCH) for sh in QS_CONV0],
+    "conv3x3x3_cf_boundary_stats": [(*sh, QS_BATCH) for sh in QS_CONV1],
+    "conv3x3x3_cf_dx": [(cout, cin, s, QS_BATCH) for cin, cout, s in QS_CONV0 if cin > 1],
+    "conv3x3x3_cf_dx_epilogue": [(*sh, QS_BATCH) for sh in QS_CONV1],
+    "conv3x3x3_cf_dw": [(*sh, QS_BATCH) for sh in QS_CONV0],
+    "conv3x3x3_cf_dw_prologue": [(*sh, QS_BATCH) for sh in QS_CONV1],
+    "max_pool2x_cf": [(*sh, n) for sh in QS_POOLS for n in (1, QS_BATCH)],
+    "max_pool2x_cf_bwd": [(*sh, QS_BATCH) for sh in QS_POOLS],
+    "upconv2x_cf": [(*sh, n) for sh in QS_UPCONVS for n in (1, QS_BATCH)],
+    "head1x1_cf": [(8, 4, 32, n) for n in (1, QS_BATCH)],
+    "head1x1_cf_dx": [(4, 8, 32, QS_BATCH)],
+    "head1x1_cf_dw": [(8, 4, 32, QS_BATCH)],
+    "conv3x3x3_cf_relu": [(*sh, n) for sh in QS_EVAL_CONVS for n in (1, QS_BATCH)],
+}
 
 # launches per eval forward and per train step (default widths, 192^3)
 PER_FORWARD = {"conv3x3x3_cf_relu": 11, "max_pool2x_cf": 4, "upconv2x_cf": 3, "head1x1_cf": 1}
@@ -206,6 +258,14 @@ PER_STEP = {"conv3x3x3_cf_stats": 5, "conv3x3x3_cf_boundary_stats": 5, "conv3x3x
             "conv3x3x3_cf_dx": 5, "conv3x3x3_cf_dx_epilogue": 5, "conv3x3x3_cf_dw": 6,
             "conv3x3x3_cf_dw_prologue": 5, "max_pool2x_cf": 4, "max_pool2x_cf_bwd": 4,
             "upconv2x_cf": 3, "head1x1_cf": 1, "head1x1_cf_dx": 1, "head1x1_cf_dw": 1}
+# the quickstart's launches per train step (batch 2) and per eval forward:
+# conv0's dx in every block but enc0 (whose input is the image), conv1's by
+# the dx epilogue
+QS_PER_STEP = {"conv3x3x3_cf_stats": 5, "conv3x3x3_cf_boundary_stats": 5, "conv3x3x3_cf_dx": 4,
+               "conv3x3x3_cf_dx_epilogue": 5, "conv3x3x3_cf_dw": 5,
+               "conv3x3x3_cf_dw_prologue": 5, "max_pool2x_cf": 2, "max_pool2x_cf_bwd": 2,
+               "upconv2x_cf": 2, "head1x1_cf": 1, "head1x1_cf_dx": 1, "head1x1_cf_dw": 1}
+QS_PER_FORWARD = {"conv3x3x3_cf_relu": 10, "max_pool2x_cf": 2, "upconv2x_cf": 2, "head1x1_cf": 1}
 
 
 def _f32_counts(counts: dict) -> dict:
@@ -787,16 +847,18 @@ def _kernel_plan():
     def conv_w(cin, cout):
         return randn(3, 3, 3, cin, cout, scale=(2.0 / (27 * cin)) ** 0.5, dtype=torch.float32)
 
-    def conv_inputs(cin, cout, s):
+    # the bf16 makers take the batch n last: 1 at the 192^3 shapes, 2 at the
+    # quickstart's train shapes (QUICKSTART_SHAPES)
+    def conv_inputs(cin, cout, s, n=1):
         w, b = conv_w(cin, cout), randn(cout, scale=0.1, dtype=torch.float32)
-        return [(randn(1, cin, s, s, s), w, b) for _ in range(N_TIMED)]
+        return [(randn(n, cin, s, s, s), w, b) for _ in range(N_TIMED)]
 
-    def dx_inputs(gc, xc, s):  # cotangent channels (the conv's Cout), dx channels
+    def dx_inputs(gc, xc, s, n=1):  # cotangent channels (the conv's Cout), dx channels
         w = conv_w(xc, gc)
-        return [(randn(1, gc, s, s, s), w) for _ in range(N_TIMED)]
+        return [(randn(n, gc, s, s, s), w) for _ in range(N_TIMED)]
 
-    def dw_inputs(cin, cout, s):
-        return [(randn(1, cin, s, s, s), randn(1, cout, s, s, s, scale=1e-2))
+    def dw_inputs(cin, cout, s, n=1):
+        return [(randn(n, cin, s, s, s), randn(n, cout, s, s, s, scale=1e-2))
                 for _ in range(N_TIMED)]
 
     def affine(c, n=1):
@@ -806,50 +868,50 @@ def _kernel_plan():
         a = (torch.rand(n, c, generator=gen, device=dev) + 0.5) * m
         return a, torch.randn(n, c, generator=gen, device=dev) * 0.5 * m
 
-    def boundary_inputs(cin, cout, s):
+    def boundary_inputs(cin, cout, s, n=1):
         w, b = conv_w(cin, cout), randn(cout, scale=0.1, dtype=torch.float32)
-        return [(randn(1, cin, s, s, s), w, b, *affine(cin)) for _ in range(N_TIMED)]
+        return [(randn(n, cin, s, s, s), w, b, *affine(cin, n)) for _ in range(N_TIMED)]
 
-    def dx_epilogue_inputs(cin, cout, s):  # the boundary conv's channels
+    def dx_epilogue_inputs(cin, cout, s, n=1):  # the boundary conv's channels
         w = conv_w(cin, cout)
-        return [(randn(1, cout, s, s, s, scale=1e-2), w, randn(1, cin, s, s, s), *affine(cin))
+        return [(randn(n, cout, s, s, s, scale=1e-2), w, randn(n, cin, s, s, s), *affine(cin, n))
                 for _ in range(N_TIMED)]
 
-    def dw_prologue_inputs(cin, cout, s):
-        return [(randn(1, cin, s, s, s), randn(1, cout, s, s, s, scale=1e-2), *affine(cin))
+    def dw_prologue_inputs(cin, cout, s, n=1):
+        return [(randn(n, cin, s, s, s), randn(n, cout, s, s, s, scale=1e-2), *affine(cin, n))
                 for _ in range(N_TIMED)]
 
-    def pool_inputs(c, s):
-        return [(randn(1, c, s, s, s),) for _ in range(N_TIMED)]
+    def pool_inputs(c, s, n=1):
+        return [(randn(n, c, s, s, s),) for _ in range(N_TIMED)]
 
-    def pool_bwd_inputs(c, s):
+    def pool_bwd_inputs(c, s, n=1):
         """Inputs rounded to integers in [-4, 4]: most windows hold tied maxima."""
         out = []
         for _ in range(N_TIMED):
-            x = (randn(1, c, s, s, s, scale=2.0, dtype=torch.float32).round()
+            x = (randn(n, c, s, s, s, scale=2.0, dtype=torch.float32).round()
                  .clamp(-4, 4).to(torch.bfloat16))
-            out.append((x, pool.max_pool2x_cf(x), randn(1, c, s // 2, s // 2, s // 2)))
+            out.append((x, pool.max_pool2x_cf(x), randn(n, c, s // 2, s // 2, s // 2)))
         return out
 
-    def upconv_inputs(cin, cout, s):
+    def upconv_inputs(cin, cout, s, n=1):
         k = randn(2, 2, 2, cin, cout, scale=(1.0 / cin) ** 0.5, dtype=torch.float32)
         b = randn(cout, scale=0.1, dtype=torch.float32)
-        return [(randn(1, cin, s, s, s), k, b) for _ in range(N_TIMED)]
+        return [(randn(n, cin, s, s, s), k, b) for _ in range(N_TIMED)]
 
     # the head's kernel (Cin, Co) as the model passes it: the transposed
     # view of its (Co, Cin) parameter
-    def head_inputs(cin, co, s):
+    def head_inputs(cin, co, s, n=1):
         k = randn(co, cin, scale=(1.0 / cin) ** 0.5, dtype=torch.float32).t()
         b = randn(co, scale=0.1, dtype=torch.float32)
-        return [(randn(1, cin, s, s, s), k, b) for _ in range(N_TIMED)]
+        return [(randn(n, cin, s, s, s), k, b) for _ in range(N_TIMED)]
 
-    def head_dx_inputs(co, cin, s):
+    def head_dx_inputs(co, cin, s, n=1):
         k = randn(co, cin, scale=(1.0 / cin) ** 0.5, dtype=torch.float32).t()
-        return [(randn(1, co, s, s, s, scale=1e-3, dtype=torch.float32), k)
+        return [(randn(n, co, s, s, s, scale=1e-3, dtype=torch.float32), k)
                 for _ in range(N_TIMED)]
 
-    def head_dw_inputs(cin, co, s):
-        return [(randn(1, cin, s, s, s), randn(1, co, s, s, s, scale=1e-3, dtype=torch.float32))
+    def head_dw_inputs(cin, co, s, n=1):
+        return [(randn(n, cin, s, s, s), randn(n, co, s, s, s, scale=1e-3, dtype=torch.float32))
                 for _ in range(N_TIMED)]
 
     f32 = torch.float32
@@ -1296,6 +1358,26 @@ def _tf32_control(make) -> None:
     fail_unless(not torch.backends.cudnn.allow_tf32, "cuDNN's TF32 left on after the control")
 
 
+def _quickstart_kernel_checks(plan) -> None:
+    """Every kernel the quickstart launches at its shapes (QUICKSTART_SHAPES:
+    Cout = 8 at 32^3, 16 at 16^3, the 32-wide bottleneck at 8^3, batch 2,
+    and 1 for the eval forward's kernels) against its plain version, under
+    the tolerance of its 192^3 rows; prints its time as called and the plain
+    version's."""
+    for name, shapes in QUICKSTART_SHAPES.items():
+        kern, plain, _, make, _, tol, *_ = plan[name]
+        for shape in shapes:
+            inputs = make(*shape)
+            err, rel, ok, sums = _errors(f"{name} {shape}", kern, plain, inputs, tol)
+            ms, plain_ms = _time_ms(kern, inputs), _time_ms(plain, inputs)
+            sums_label = "" if sums is None else f", sums at {sums:.4g} of their bound"
+            print(f"[kernel] {name} {shape[:-1]} batch {shape[-1]} (quickstart): max_abs_err "
+                  f"{err:.4g} scaled {rel:.4g}{sums_label}, {_tol_label(tol)}: "
+                  f"{'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
+                  flush=True)
+            fail_unless(ok, f"{name} {shape}: error {err} (scaled {rel}) over tolerance")
+
+
 def phase_kernels() -> dict:
     """Each kernel vs its plain version at every slice shape."""
     import torch
@@ -1370,6 +1452,7 @@ def phase_kernels() -> dict:
                   f"{rel:.4g}, {_tol_label(tol)}: {'ok' if ok else 'FAIL'}", flush=True)
             fail_unless(ok, f"{name} {shape}: error {err} (scaled {rel}) over tolerance")
             torch.cuda.empty_cache()
+    _quickstart_kernel_checks(plan)
     step = {k: sum(results[n][k] for n in TRAIN_BODY) for k in ("ms", "bare_ms", "library_ms")}
     print(f"[kernel] conv body per train step ({', '.join(TRAIN_BODY)}): kernel as called "
           f"{step['ms']:.4f} ms, bare launches {step['bare_ms']:.4f} ms, library "
@@ -2518,6 +2601,197 @@ def phase_fp32_workloads(size: int = 192) -> None:
                PER_FP32_DANN_STEP, size, "fp32")
 
 
+# ---- phase 10: the port's public entry points ----------------------------------------
+
+RECIPE_TIMEOUT = 600  # seconds per recipe
+
+
+def _load_script(rel: str):
+    """A script of the checkout (not in a package) as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(Path(rel).stem, ROOT / rel)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# the lines that mark a CLI's start of work and the end of its first epoch
+# (or, for the eval CLI, of its first volume)
+RECIPE_MARKS = {"start": ("[START]", "[TEST]"), "first epoch": ("[EPOCH]", "[1/")}
+
+
+def _run_recipe(script: str, env: dict) -> None:
+    """One ``_torch`` recipe through bash from the checkout's root, as a user
+    runs it, with ``python`` this interpreter; its output goes to
+    ``<SCRATCH>/<script>.log``. Prints when the CLI printed its first line
+    and each of RECIPE_MARKS, so a recipe's time splits into process start,
+    set-up, the first epoch and the rest. Fails on a non-zero exit; a recipe
+    that outlives RECIPE_TIMEOUT is killed with its process group."""
+    import threading
+
+    shim = SCRATCH / "bin"
+    shim.mkdir(exist_ok=True)
+    # a script, not a symlink: a virtual environment's interpreter finds its
+    # packages from the path it is started by
+    (shim / "python").write_text(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    (shim / "python").chmod(0o755)
+    full_env = {**os.environ, "PATH": f"{shim}:{os.environ.get('PATH', '')}",
+                "PYTHONUNBUFFERED": "1", **env}
+    log = SCRATCH / f"{script}.log"
+    seen: dict[str, float] = {}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(["bash", str(ROOT / script)], cwd=ROOT, env=full_env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+    def copy_output() -> None:
+        with open(log, "w") as out:
+            for line in proc.stdout:
+                now = time.perf_counter() - t0
+                out.write(line)
+                if line.strip():
+                    seen.setdefault("first line", now)
+                for mark, prefixes in RECIPE_MARKS.items():
+                    if line.lstrip().startswith(prefixes):
+                        seen.setdefault(mark, now)
+
+    reader = threading.Thread(target=copy_output)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=RECIPE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc = "killed at the time limit"
+    secs = time.perf_counter() - t0
+    reader.join()
+    marks = ", ".join(f"{k} at {v:.2f} s" for k, v in seen.items())
+    print(f"[entry] bash {script} ({' '.join(f'{k}={v}' for k, v in env.items())}): exit {rc} "
+          f"in {secs:.2f} s ({marks})", flush=True)
+    if rc != 0:
+        print(log.read_text()[-3000:], flush=True)
+    fail_unless(rc == 0, f"{script} exited {rc}")
+
+
+def _check_recipe_run(exp: Path, ckpt_glob: str, log_name: str) -> Path:
+    """The one run directory a training recipe wrote under ``exp``: its best
+    checkpoint (and JSON sidecar) and one finite CSV row; returns the
+    checkpoint."""
+    import csv
+
+    (run,) = [p for p in exp.iterdir() if p.is_dir()]
+    (best,) = (run / "checkpoints").glob(ckpt_glob)
+    fail_unless(Path(f"{best}.json").exists(), f"no sidecar beside {best.name}")
+    with open(run / "logs" / log_name) as f:
+        rows = list(csv.DictReader(f))
+    fail_unless(len(rows) == 1 and all(math.isfinite(float(rows[0][k]))
+                                       for k in ("train_loss", "val_loss", "val_dice")),
+                f"{run.name}/logs/{log_name}: {rows}")
+    print(f"[entry] {exp.name}: {best.name} and its sidecar, {log_name} epoch 1 train loss "
+          f"{float(rows[0]['train_loss']):.4f}, val dice {float(rows[0]['val_dice']):.4f}",
+          flush=True)
+    return best
+
+
+def _phase_recipes(size: int) -> None:
+    """(a) The five _torch recipes at full width on phases 6 and 8's 192^3
+    splits, one epoch each, cut only through their own variables."""
+    data, dann_data = SCRATCH / "train_data", SCRATCH / "dann_data"
+    cut = {"EPOCHS": "1", "N_SAMPLES": "2"}
+    exp = SCRATCH / "recipe_train_exp"
+    _run_recipe("run_training_torch.sh", {"DATA_ROOT": str(data), "EXPERIMENT_DIR": str(exp),
+                                          "MODALITIES": "ct", "GRAD_ACCUM": "2", **cut})
+    best = _check_recipe_run(exp, "best_model_*.msgpack", "train_log.csv")
+    exp = SCRATCH / "recipe_test_exp"
+    _run_recipe("run_testing_torch.sh", {"MODEL_PATH": str(best), "DATA_ROOT": str(data),
+                                         "EXPERIMENT_DIR": str(exp), "MODEL_NAME": "recipe"})
+    _check_eval_results(exp, "recipe", TRAIN_SPLITS["test"], size)
+    exp = SCRATCH / "recipe_finetune_exp"
+    _run_recipe("run_finetune_ct_torch.sh", {"PRETRAINED": str(best), "DATA_ROOT": str(data),
+                                             "EXPERIMENT_DIR": str(exp), **cut})
+    _check_recipe_run(exp, "best_finetuned_model_*.msgpack", "finetune_log.csv")
+    exp = SCRATCH / "recipe_distill_exp"
+    _run_recipe("run_distillation_torch.sh", {"TEACHER": str(best), "DATA_ROOT": str(data),
+                                              "EXPERIMENT_DIR": str(exp), **cut})
+    _check_recipe_run(exp, "best_student_*.msgpack", "distill_log.csv")
+    exp = SCRATCH / "recipe_dann_exp"
+    _run_recipe("run_dann_torch.sh", {"DATA_ROOT": str(dann_data), "EXPERIMENT_DIR": str(exp),
+                                      **cut})
+    _check_recipe_run(exp, "best_model_*.msgpack", "train_log.csv")
+
+
+def _phase_quickstart() -> None:
+    """(b) The quickstart in this process, one epoch, on the card: its
+    launches of every kernel against QS_PER_STEP and QS_PER_FORWARD."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch import ops
+
+    quickstart = _load_script("examples/quickstart_torch.py")
+    workdir = SCRATCH / "quickstart"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = quickstart.main(["--workdir", str(workdir), "--epochs", "1"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    steps = QS_SPLITS["train"] // QS_BATCH
+    forwards = QS_SPLITS["val"] + 1 + QS_SPLITS["test"]
+    print(f"[entry] quickstart_torch.main --epochs 1 in {secs:.2f} s: {steps} train steps at "
+          f"batch {QS_BATCH}, {forwards} eval forwards; launches "
+          f"{ {k: n for k, n in counts.items() if n} }", flush=True)
+    for name, n in counts.items():
+        want = QS_PER_STEP.get(name, 0) * steps + QS_PER_FORWARD.get(name, 0) * forwards
+        fail_unless(n == want, f"quickstart: {name}: {n} launches, want {want} ("
+                               f"{QS_PER_STEP.get(name, 0)}/step, "
+                               f"{QS_PER_FORWARD.get(name, 0)}/forward)")
+    fail_unless(Path(out["best"]).exists() and Path(f"{out['best']}.json").exists(),
+                f"quickstart: no best checkpoint and sidecar at {out['best']}")
+    dice = out["eval"]["mean_dice_overall"]
+    fail_unless(math.isfinite(dice), f"quickstart: eval mean dice {dice}")
+    print(f"[entry] quickstart: {Path(out['best']).name}, eval mean dice {dice:.4f}", flush=True)
+
+
+def _phase_qa_augmentation() -> None:
+    """(c) The QA script's augmentation on the card, on a 192^3 training case."""
+    import torch
+
+    qa = _load_script("scripts/plotting/visualize_augmentations_torch.py")
+    split = SCRATCH / "train_data" / "train"
+    vols = qa.augmented_pair(str(split), index=0, seed=0, prob=1.0, device="cuda")
+    same = qa.augmented_pair(str(split), index=0, seed=0, prob=0.0, device="cuda")
+    img, aug_img, lbl, aug_lbl = vols
+    shape = tuple(img.shape)
+    fail_unless(all(v.is_cuda and tuple(v.shape) == shape for v in vols),
+                f"QA augmentation: {[(v.device.type, tuple(v.shape)) for v in vols]}")
+    fail_unless(img.dtype == aug_img.dtype == torch.float32
+                and lbl.dtype == aug_lbl.dtype == torch.int32,
+                f"QA augmentation dtypes {[v.dtype for v in vols]}")
+    labels = set(torch.unique(aug_lbl).tolist())
+    fail_unless(labels <= {0, 1, 2, 3}, f"QA augmentation: labels {sorted(labels)}")
+    fail_unless(bool(torch.isfinite(aug_img).all()), "QA augmentation: non-finite image")
+    fail_unless(not torch.equal(img, aug_img), "QA augmentation at p = 1 left the image as it was")
+    fail_unless(torch.equal(same[1], same[0]) and torch.equal(same[3], same[2]),
+                "QA augmentation at p = 0 changed the volumes")
+    print(f"[entry] QA augmentation on {img.device}: {shape} fp32 image and int32 labels, "
+          f"labels {sorted(labels)}, |aug - orig| max {(aug_img - img).abs().max().item():.4g}; "
+          f"p = 0 leaves both as they were", flush=True)
+
+
+def phase_entry_points(size: int = 192) -> None:
+    """Phase 10: the recipes, the quickstart and the QA script's augmentation."""
+    t0 = time.perf_counter()
+    _phase_recipes(size)
+    t1 = time.perf_counter()
+    _phase_quickstart()
+    t2 = time.perf_counter()
+    _phase_qa_augmentation()
+    t3 = time.perf_counter()
+    print(f"[entry] phase 10 in {t3 - t0:.2f} s: recipes {t1 - t0:.2f} s, quickstart "
+          f"{t2 - t1:.2f} s, QA augmentation {t3 - t2:.2f} s", flush=True)
+
+
 # train parity: one step at 128^3, full width, dropout 0, augmentation off,
 # from the same weights, three ways: CPU fp32 plain (the function), CPU bf16
 # plain (the bf16 emulation: the port's plain path, which rounds to bf16
@@ -3225,6 +3499,7 @@ def main() -> int:
         f32_train_launches = phase_fp32_train()
         phase_workloads()
         phase_fp32_workloads()
+        phase_entry_points()
         phase_train_parity()
         phase_fp32_train_parity()
         phase_checkpoints()

@@ -8,6 +8,8 @@ uploads batches from pinned memory instead.
 """
 
 from multimodal_segmentation_project_tpu_torch.data.dataset import (
+    AMOS_MAPPING,
+    CHAOS_RANGES,
     CombinedDataset,
     ConcatDataset,
     Subset,
@@ -19,11 +21,14 @@ from multimodal_segmentation_project_tpu_torch.data.nifti import (
     NiftiImage,
     load_nifti,
     load_nifti_header,
+    reorient_to_ras,
     save_nifti,
 )
 from multimodal_segmentation_project_tpu_torch.data.pipeline import DataLoader
 
 __all__ = [
+    "AMOS_MAPPING",
+    "CHAOS_RANGES",
     "CombinedDataset",
     "ConcatDataset",
     "DataLoader",
@@ -33,6 +38,7 @@ __all__ = [
     "load_nifti_header",
     "preprocess_ct",
     "preprocess_mri",
+    "reorient_to_ras",
     "save_nifti",
     "seeded_subset",
 ]

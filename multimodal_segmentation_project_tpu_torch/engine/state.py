@@ -30,6 +30,13 @@ package's ``.msgpack`` checkpoints hold (``engine/checkpoint.py``):
 moment and the accumulator take their param's layout transform
 (``engine/interop.py``); ``count`` is torch's per-param ``step``;
 ``trainable_mask`` (float32 0/1 per param) is ``frozen_prefixes``.
+
+The JAX module's functions have counterparts here: :func:`make_optimizer`
+builds the AdamW (the only place the port builds one), :func:`freeze_mask`
+the 0/1 value per parameter, :func:`create_train_state` the state of a
+built module (a torch module is built, with its own generator, before its
+state is, so it takes the module where the JAX one takes an rng and a
+sample input) and :func:`param_count` counts its parameters.
 """
 
 from __future__ import annotations
@@ -59,6 +66,31 @@ def jax_module_name(param_name: str) -> str:
     return head
 
 
+def _frozen(param_name: str, frozen_prefixes: tuple[str, ...]) -> bool:
+    return any(jax_module_name(param_name).startswith(p) for p in frozen_prefixes)
+
+
+def make_optimizer(params, lr: float = 1.0, weight_decay: float = 0.01, b1: float = 0.9,
+                   b2: float = 0.999, eps: float = 1e-8) -> torch.optim.AdamW:
+    """torch's decoupled AdamW over ``params``, with the JAX ``make_optimizer``'s
+    defaults. :class:`TrainState` sets its LR before every update and does
+    the gradient accumulation itself."""
+    return torch.optim.AdamW(params, lr=lr, betas=(b1, b2), eps=eps, weight_decay=weight_decay)
+
+
+def freeze_mask(model: torch.nn.Module, frozen_prefixes: tuple[str, ...]) -> dict:
+    """{param name: fp32 0-d tensor}: 0 for the params under a JAX top-level
+    module whose name starts with one of ``frozen_prefixes`` (``('enc',)``
+    freezes the encoder, ``('enc', 'bottleneck')`` the encoder and the
+    bottleneck), 1 for the others."""
+    return {name: torch.tensor(0.0 if _frozen(name, frozen_prefixes) else 1.0)
+            for name, _ in model.named_parameters()}
+
+
+def param_count(model: torch.nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
 class TrainState:
     def __init__(self, model: torch.nn.Module, lr: float, weight_decay: float = 0.01,
                  grad_accum_steps: int = 1, b1: float = 0.9, b2: float = 0.999,
@@ -74,15 +106,13 @@ class TrainState:
 
     def reset_optimizer(self) -> None:
         """A fresh AdamW (zero moments, step 0) and an empty accumulator."""
-        self.optimizer = torch.optim.AdamW(
-            self.model.parameters(), lr=self.lr, betas=self.betas, eps=self.eps,
-            weight_decay=self.weight_decay,
-        )
+        self.optimizer = make_optimizer(self.model.parameters(), self.lr, self.weight_decay,
+                                        *self.betas, self.eps)
         self.mini_step = 0
         self.acc_grads: dict[str, torch.Tensor] = {}
 
     def trainable(self, name: str) -> bool:
-        return not any(jax_module_name(name).startswith(p) for p in self.frozen_prefixes)
+        return not _frozen(name, self.frozen_prefixes)
 
     def with_mask(self, frozen_prefixes: tuple[str, ...]) -> None:
         """Freeze the params under the JAX top-level modules whose names
@@ -137,8 +167,7 @@ class TrainState:
 
     def trainable_mask(self) -> dict:
         """The JAX state's ``trainable_mask``: float32 1 or 0 per param."""
-        return named_to_tree({n: np.asarray(float(self.trainable(n)), np.float32)
-                              for n, _ in self.model.named_parameters()})
+        return named_to_tree(freeze_mask(self.model, self.frozen_prefixes))
 
     def optax_state(self) -> dict:
         """AdamW and the accumulator as the JAX state's ``opt_state``."""
@@ -198,6 +227,14 @@ class TrainState:
             dev = next(self.model.parameters()).device
             self.acc_grads = {n: v.to(dev)
                               for n, v in tree_to_named(opt_state["acc_grads"]).items()}
+
+
+def create_train_state(model: torch.nn.Module, lr: float, weight_decay: float = 0.01,
+                       grad_accum_steps: int = 1) -> TrainState:
+    """The train state of a built model (on its device): a fresh AdamW from
+    :func:`make_optimizer`, step 0, every param trainable
+    (:meth:`TrainState.with_mask` freezes)."""
+    return TrainState(model, lr, weight_decay, grad_accum_steps)
 
 
 def frozen_prefixes_from_mask(mask: dict) -> tuple[str, ...]:

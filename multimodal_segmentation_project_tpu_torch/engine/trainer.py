@@ -63,7 +63,7 @@ from multimodal_segmentation_project_tpu_torch.engine.interop import (
     state_dict_to_discriminator_params,
 )
 from multimodal_segmentation_project_tpu_torch.engine.schedule import ReduceLROnPlateau
-from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
+from multimodal_segmentation_project_tpu_torch.engine.state import create_train_state
 from multimodal_segmentation_project_tpu_torch.engine.steps import (
     make_dann_step,
     make_distill_step,
@@ -156,7 +156,8 @@ class Trainer:
         model = build_model(cfg)
         if cfg.pretrained_model:
             self._load_pretrained(model, cfg.pretrained_model, cfg.pretrained_strict)
-        self.state = TrainState(model.to(self.device), cfg.lr, cfg.weight_decay, cfg.grad_accum)
+        self.state = create_train_state(model.to(self.device), cfg.lr, cfg.weight_decay,
+                                        cfg.grad_accum)
         self.encoder_frozen = False
         if cfg.freeze_at_start:
             self._freeze(cfg.freeze_prefixes)
@@ -464,8 +465,8 @@ class DannTrainer(Trainer):
         # built before Trainer.__init__, which may resume into it
         disc = DomainDiscriminator(2 * cfg.features[-1],
                                    generator=torch.Generator().manual_seed(cfg.seed + 7))
-        self.disc_state = TrainState(disc.to(torch.device(cfg.device)), cfg.lr,
-                                     cfg.weight_decay, cfg.grad_accum)
+        self.disc_state = create_train_state(disc.to(torch.device(cfg.device)), cfg.lr,
+                                             cfg.weight_decay, cfg.grad_accum)
         super().__init__(cfg, source_dataset, val_dataset)
         self.target_loader = DataLoader(target_dataset, batch_size=cfg.batch_size, shuffle=True,
                                         seed=cfg.seed + 1000, num_workers=cfg.num_workers)

@@ -6,7 +6,10 @@ the head) count their forward launches on themselves and their backward
 kernels on the wrappers named here; the eval conv, the pool and the head
 count their fp32 instances on the ``*_f32`` wrappers (the training conv's
 forward, dx and dW, the pool's backward and the head's dx and weight
-gradient too), the fused DoubleConv's five kernels on ``*_f32`` counters."""
+gradient too), the fused DoubleConv's five kernels on ``*_f32`` counters.
+
+Beside them, the JAX package's ``ops`` exports: the losses, the metrics and
+``grad_reverse``, in plain torch."""
 
 from multimodal_segmentation_project_tpu_torch.ops.conv3 import (
     conv3x3x3_cf,
@@ -30,6 +33,7 @@ from multimodal_segmentation_project_tpu_torch.ops.conv3_fused import (
     conv3x3x3_cf_stats,
     conv3x3x3_cf_stats_f32,
 )
+from multimodal_segmentation_project_tpu_torch.ops.grl import grad_reverse
 from multimodal_segmentation_project_tpu_torch.ops.head import (
     head1x1_cf,
     head1x1_cf_dw,
@@ -37,6 +41,22 @@ from multimodal_segmentation_project_tpu_torch.ops.head import (
     head1x1_cf_dx,
     head1x1_cf_dx_f32,
     head1x1_cf_f32,
+)
+from multimodal_segmentation_project_tpu_torch.ops.losses import (
+    combined_ce_tversky_loss,
+    combined_loss,
+    cross_entropy_loss,
+    distillation_loss,
+    get_loss_fn,
+    soft_dice_loss,
+    tversky_loss,
+)
+from multimodal_segmentation_project_tpu_torch.ops.metrics import (
+    calculate_accuracy,
+    calculate_dice,
+    calculate_iou,
+    per_class_dice_iou,
+    segmentation_metrics,
 )
 from multimodal_segmentation_project_tpu_torch.ops.pool import (
     max_pool2x_cf,
@@ -90,3 +110,26 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for op in KERNEL_OPS.values():
         op.launches = 0
+
+
+__all__ = [
+    # the JAX package's ops exports
+    "cross_entropy_loss",
+    "soft_dice_loss",
+    "combined_loss",
+    "tversky_loss",
+    "combined_ce_tversky_loss",
+    "distillation_loss",
+    "get_loss_fn",
+    "calculate_dice",
+    "calculate_iou",
+    "calculate_accuracy",
+    "per_class_dice_iou",
+    "segmentation_metrics",
+    "grad_reverse",
+    # the kernel ops and their launch counters
+    *KERNEL_OPS,
+    "KERNEL_OPS",
+    "launch_counts",
+    "reset_launch_counts",
+]

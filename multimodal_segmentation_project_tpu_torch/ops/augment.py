@@ -23,6 +23,7 @@ jax.random's, so only distributions, not draws, match across frameworks.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT_PROB = 0.3
@@ -156,3 +157,19 @@ def augment_batch(gen, images, labels, prob: float = DEFAULT_PROB):
     """Per-sample augmentation over the batch axis."""
     out = [augment_sample(gen, i, l, prob) for i, l in zip(images, labels)]
     return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+
+
+def augmented_pair(data_root, index: int = 0, seed: int = 0, prob: float = 1.0,
+                   device="cuda", modalities=None):
+    """(original image, augmented image, original label, augmented label) of
+    sample ``index`` of the CombinedDataset at ``data_root``: (D, H, W)
+    tensors on ``device``, the images fp32 and the labels int32, augmented
+    by :func:`augment_sample` from a generator seeded with ``seed``. The
+    quickstart's demo and the augmentation QA script draw it."""
+    from multimodal_segmentation_project_tpu_torch.data.dataset import CombinedDataset
+
+    img, lbl = CombinedDataset(data_root, modalities=modalities, verbose=False)[index]
+    image = torch.tensor(img, device=device)  # (1, D, H, W) float32
+    label = torch.tensor(np.asarray(lbl, np.int32), device=device)
+    aug_img, aug_lbl = augment_sample(torch.Generator().manual_seed(seed), image, label, prob)
+    return image[0], aug_img[0], label, aug_lbl

@@ -8,7 +8,8 @@ the same flags and the same artifacts under
 * ``metrics/metrics.json`` (per-organ and overall means, timings);
 * ``predictions/<dataset>_<case>_pred.nii.gz`` (uint8, source header);
 * ``visualizations/<dataset>_<case>_pred.png`` (3x3 panel) unless
-  ``--no_visualizations``.
+  ``--no_visualizations``, or where matplotlib is not installed (one line
+  says so, and the other artifacts are written).
 
     python -m multimodal_segmentation_project_tpu_torch.workloads.test_model \\
         --model_path best_model_unet.msgpack --data_root data --experiment_dir exp --model_name unet
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import importlib.util
 import json
 import os
 import time
@@ -167,6 +169,10 @@ def test_model(model, device, test_dataset, args, results_dir) -> dict:
     for d in (predictions_dir, metrics_dir, visualizations_dir):
         os.makedirs(d, exist_ok=True)
 
+    visualize = not args.no_visualizations
+    if visualize and importlib.util.find_spec("matplotlib") is None:
+        print("[INFO] matplotlib is not installed: no visualizations")
+        visualize = False
     predict = make_predict_fn(model, device)
     batch_size = max(1, int(args.batch_size or 1))
     loader = DataLoader(test_dataset, batch_size=batch_size, shuffle=False, num_workers=2)
@@ -174,7 +180,7 @@ def test_model(model, device, test_dataset, args, results_dir) -> dict:
     def export_sample(image0, label0, pred0, name, image_path):
         # per-sample resilience, as the reference eval: report and go on
         try:
-            if not args.no_visualizations:
+            if visualize:
                 visualize_prediction(
                     image0[0], label0, pred0,
                     os.path.join(visualizations_dir, f"{name}_pred.png"),

@@ -79,6 +79,7 @@ from multimodal_segmentation_project_tpu_torch.engine.trainer import (
     Trainer,
     TrainerConfig,
 )
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 from multimodal_segmentation_project_tpu_torch.models import DomainDiscriminator, UNet3D
 from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
 from multimodal_segmentation_project_tpu_torch.workloads import test_model, train_dann, train_unet

@@ -59,6 +59,7 @@ from multimodal_segmentation_project_tpu_torch.engine.steps import (
 from multimodal_segmentation_project_tpu_torch.models import DomainDiscriminator, UNet3D
 from multimodal_segmentation_project_tpu_torch.ops.grl import grad_reverse
 from multimodal_segmentation_project_tpu_torch.ops.losses import distillation_loss, get_loss_fn
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 
 FEATURES = (4, 8)
 LR, WD = 1e-3, 0.01

@@ -16,6 +16,7 @@ from multimodal_segmentation_project_tpu.workloads import test_model as jax_eval
 from multimodal_segmentation_project_tpu_torch import ops
 from multimodal_segmentation_project_tpu_torch.workloads import test_model as port_eval
 from tests.test_interop import reference_shaped_state_dict
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 
 SIZE = 16
 FEATURES = "4,8"

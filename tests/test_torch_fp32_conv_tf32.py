@@ -36,6 +36,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from multimodal_segmentation_project_tpu_torch.ops import conv3, conv3_fused
 from tests.test_torch_fp32_eval import _constants
 from tests.test_torch_fp32_train import _tf32
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 
 TOL_3XTF32 = 2e-6
 F32_TOL = 2e-5

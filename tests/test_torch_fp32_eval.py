@@ -39,6 +39,7 @@ from multimodal_segmentation_project_tpu_torch.workloads import (
     train_unet,
 )
 from tests.test_torch_unet import _close, _jax_weights, _port
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 
 CSRC = Path(conv3.__file__).resolve().parent.parent / "csrc"
 WIDTHS = (16, 32, 64, 128)  # the default widths, whose routing the card sees

@@ -41,6 +41,7 @@ from multimodal_segmentation_project_tpu_torch import ops
 from multimodal_segmentation_project_tpu_torch.ops import _build, conv3, conv3_fused
 from tests.test_torch_fp32_eval import _constants, _require_as_on_the_card
 from tests.test_torch_fp32_train import DW_TOL_3XTF32, emulate_dw_f32
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 
 CSRC = Path(conv3.__file__).resolve().parent.parent / "csrc"
 SMS = 132  # the H100's SM count, which the faked device properties report

@@ -36,6 +36,7 @@ from multimodal_segmentation_project_tpu_torch.ops import conv3, conv3_fused, he
 from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
 from tests.test_torch_fp32_eval import _constants, _require_as_on_the_card, _source
 from tests.test_torch_train import check_two_train_steps_against_jax
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 
 CSRC = Path(conv3.__file__).resolve().parent.parent / "csrc"
 WIDTHS = (16, 32, 64, 128)  # the default widths, whose routing the card sees

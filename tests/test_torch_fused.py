@@ -28,6 +28,7 @@ from multimodal_segmentation_project_tpu_torch import ops
 from multimodal_segmentation_project_tpu_torch.engine.interop import trees_to_state_dict
 from multimodal_segmentation_project_tpu_torch.models import UNet3D
 from multimodal_segmentation_project_tpu_torch.models.unet3d import DoubleConv
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 
 TOL = 2e-5
 RATE = 0.5  # high enough that 2 x 8 channels drop some and keep some

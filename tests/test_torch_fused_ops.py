@@ -30,6 +30,7 @@ import jax.numpy as jnp
 from multimodal_segmentation_project_tpu.ops import pallas_conv as jconv
 from multimodal_segmentation_project_tpu_torch import ops
 from multimodal_segmentation_project_tpu_torch.ops import conv3, conv3_fused
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 
 TOL = 2e-5
 

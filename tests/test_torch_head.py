@@ -32,6 +32,7 @@ import jax.numpy as jnp
 from multimodal_segmentation_project_tpu.ops import head as jhead
 from multimodal_segmentation_project_tpu_torch import ops
 from multimodal_segmentation_project_tpu_torch.ops import head
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 
 HEAD_TOL = 1e-5
 DW_TOL = 1e-5

@@ -27,10 +27,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from multimodal_segmentation_project_tpu.ops import head as jhead
 from multimodal_segmentation_project_tpu.ops import upconv as jupconv
 from multimodal_segmentation_project_tpu_torch import ops
 from multimodal_segmentation_project_tpu_torch.ops import head, upconv
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 
 FP32_TOL = 2e-5
 SMS = 132  # an H100 SXM's SM count
@@ -222,20 +222,25 @@ def test_upconv_call_refuses_what_the_kernel_does_not_take(monkeypatch):
                            torch.empty(15, device="meta"))
 
 
+def _jax_head_dx(ct, k, dtype):
+    """The JAX head's dx as the JAX package's own head tests hold its kernel
+    (tests/test_head.py: the einsum): the fp32 sum over the classes, rounded
+    once to the features' dtype, as _head_bwd_rule's kernel call rounds it."""
+    return jnp.einsum("bodhw,io->bidhw", ct, k).astype(dtype).astype(jnp.float32)
+
+
 @pytest.mark.parametrize("shape,cf", HEAD_DX_EDGES, ids=[f"{s}-{c}" for s, c in HEAD_DX_EDGES])
 def test_head_dx_reference_matches_jax(shape, cf):
     """The plain dx against the JAX head's backward (_head_bwd_rule: the
-    head kernel with the transposed weights and a zero bias, interpret
-    mode): in fp32, and in bf16 features (dx rounded once) within one ulp."""
+    head kernel with the transposed weights and a zero bias), in the form
+    the JAX package's head tests accept for its kernel: in fp32, and in bf16
+    features (dx rounded once) within one ulp."""
     rng = np.random.default_rng(sum(shape) + cf)
     b, co, d, h, w = shape
     ct = (rng.normal(size=shape) * 1e-2).astype(np.float32)
     k = (rng.normal(size=(cf, co)) * 0.5).astype(np.float32)
-    x = _bf16_valued(rng, (b, cf, d, h, w))
-    zeros = jnp.zeros((co,), jnp.float32)
     for dtype, jdtype in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
-        _, vjp = jax.vjp(jhead.head1x1_cf, jnp.asarray(x, jdtype), jnp.asarray(k), zeros)
-        want = np.array(vjp(jnp.asarray(ct))[0].astype(jnp.float32))
+        want = np.array(_jax_head_dx(jnp.asarray(ct), jnp.asarray(k), jdtype))
         got = head.head1x1_cf_dx_reference(torch.from_numpy(ct), torch.from_numpy(k), dtype)
         assert got.dtype == dtype and got.shape == (b, cf, d, h, w)
         if dtype == torch.float32:

@@ -17,8 +17,14 @@ from multimodal_segmentation_project_tpu_torch import ops
 from multimodal_segmentation_project_tpu_torch.ops import _build, conv3, conv3_fused, head, pool
 from multimodal_segmentation_project_tpu_torch.ops import upconv
 from multimodal_segmentation_project_tpu_torch.workloads import test_model, train_unet
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 
 ROOT = Path(__file__).resolve().parents[1]
+# the port's root entry points beside the package
+ENTRY_SCRIPTS = ["examples/quickstart_torch.py",
+                 "scripts/plotting/visualize_augmentations_torch.py"]
+TORCH_RECIPES = ["run_training_torch.sh", "run_testing_torch.sh", "run_finetune_ct_torch.sh",
+                 "run_distillation_torch.sh", "run_dann_torch.sh", "run_ablations_torch.sh"]
 
 
 def _port_modules():
@@ -41,6 +47,10 @@ def test_port_imports_without_jax_flax_optax():
         "    sys.modules[m] = None  # any import of them raises\n"
         f"for name in {modules!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
+        "import importlib.util\n"
+        f"for rel in {ENTRY_SCRIPTS!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(rel.replace('/', '_'), rel)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'msgpack')\n"
         "             and sys.modules[m] is not None)\n"
@@ -66,6 +76,25 @@ def test_only_the_data_module_takes_code_from_the_jax_package():
     assert borrowing == []
     assert (pkg_dir / "data" / "dataset.py").exists()
     assert not imports.search((ROOT / "chip_smoke.py").read_text())
+    for rel in ENTRY_SCRIPTS:
+        assert not imports.search((ROOT / rel).read_text()), rel
+
+
+def test_the_torch_recipes_reach_the_ports_orchestrator_and_no_main_py():
+    """Each _torch recipe runs the port's orchestrator (the ablations recipe
+    the other _torch recipes), and none names main.py or a JAX recipe."""
+    entry = "python -m multimodal_segmentation_project_tpu_torch.workloads.main"
+    for name in TORCH_RECIPES:
+        text = "\n".join(line for line in (ROOT / name).read_text().splitlines()
+                         if not line.lstrip().startswith("#"))
+        assert "main.py" not in text, name
+        assert not re.search(r"run_\w+(?<!_torch)\.sh\b", text), name
+        if name == "run_ablations_torch.sh":
+            assert "python" not in text
+            assert sorted(set(re.findall(r"run_\w+_torch\.sh", text))) == sorted(
+                r for r in TORCH_RECIPES if r not in (name, "run_testing_torch.sh"))
+        else:
+            assert text.count(entry) == 1, name
 
 
 def test_eval_cli_refuses_cuda_without_a_gpu():

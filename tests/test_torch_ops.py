@@ -27,6 +27,7 @@ from multimodal_segmentation_project_tpu.ops import pool as jpool
 from multimodal_segmentation_project_tpu.ops import upconv as jupconv
 from multimodal_segmentation_project_tpu_torch import ops
 from multimodal_segmentation_project_tpu_torch.ops import conv3, conv3_fused, head, pool, upconv
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 
 FP32_TOL = 2e-5
 BF16_TOL = 2.0**-7

@@ -27,6 +27,7 @@ from multimodal_segmentation_project_tpu.data import resample as jax_rs
 from multimodal_segmentation_project_tpu_torch.data import NiftiImage, load_nifti, save_nifti
 from multimodal_segmentation_project_tpu_torch.data import resample as rs
 from multimodal_segmentation_project_tpu_torch.workloads import resample as cli
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 
 ULP1 = 2.0 ** -23  # a float32 ulp of 1
 

@@ -54,6 +54,7 @@ from multimodal_segmentation_project_tpu_torch.models import UNet3D
 from multimodal_segmentation_project_tpu_torch.models.unet3d import DoubleConv
 from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
 from multimodal_segmentation_project_tpu_torch.workloads import test_model, train_unet
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 
 FEATURES = (4, 8)
 LR = 1e-3
@@ -168,6 +169,8 @@ def _batch(seed, n=2, size=16):
 
 @functools.cache
 def _jax_setup():
+    """The JAX model and its initial (params, batch_stats) as numpy, one
+    jitted init for the file (the tests only read them)."""
     model = JaxUNet3D(out_channels=4, features=FEATURES, dropout_rate=0.0, dtype=jnp.float32,
                       conv_impl="xla")
     variables = jax.jit(model.init)(jax.random.key(0), jnp.zeros((1, 1, 16, 16, 16)))

@@ -38,6 +38,7 @@ from multimodal_segmentation_project_tpu_torch import ops
 from multimodal_segmentation_project_tpu_torch.engine.schedule import ReduceLROnPlateau
 from multimodal_segmentation_project_tpu_torch.ops import augment, conv3, head, losses, metrics
 from multimodal_segmentation_project_tpu_torch.ops import pool, upconv
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 
 TOL = 2e-5
 

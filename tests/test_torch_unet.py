@@ -21,6 +21,7 @@ from multimodal_segmentation_project_tpu.models import UNet3D as JaxUNet3D
 from multimodal_segmentation_project_tpu_torch import ops
 from multimodal_segmentation_project_tpu_torch.engine.interop import trees_to_state_dict
 from multimodal_segmentation_project_tpu_torch.models import UNet3D
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 
 FEATURES = (4, 8)
 TOL = 2e-5
@@ -94,7 +95,10 @@ def test_eval_logits_match_jax(conv_impl, size):
     guard fire."""
     jmodel, params, stats = _jax_weights(conv_impl)
     x = np.random.default_rng(1).normal(size=(1, 1, size, size, size)).astype(np.float32)
-    want = jmodel.apply({"params": params, "batch_stats": stats}, jnp.asarray(x), train=False)
+    # jitted: one compile of the Pallas kernels' interpret mode, not an eager
+    # trace op by op (the same logits, bit for bit)
+    want = jax.jit(functools.partial(jmodel.apply, train=False))(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x))
     ops.reset_launch_counts()
     with torch.inference_mode():
         got = _port(params, stats)(torch.from_numpy(x))

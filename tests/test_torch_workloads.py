@@ -33,6 +33,7 @@ from multimodal_segmentation_project_tpu_torch.workloads import (
     train_dann,
     train_unet,
 )
+from tests import _torch_threads  # noqa: F401  (torch's threads in the workers)
 
 SIZE = 16
 TOY = ["--features", "4,8", "--device", "cpu", "--mixed_precision", "no", "--batch_size", "1",
