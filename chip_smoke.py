@@ -48,7 +48,10 @@ Phases, each printing one line per check; any failure exits non-zero:
    (``examples/quickstart_torch.py``) launches at its shapes (UNet3D (8,
    16) at 32^3: Cout = 8 at 32^3, 16 at 16^3, the 32-wide bottleneck at
    8^3, batch 2, and batch 1 for the eval forward's kernels), under the
-   same tolerances, with its time as called and its plain version's;
+   same tolerances, with its time as called and its plain version's; and
+   the multi-device path's shapes: 1, 1-dx, 2 and 7 (bf16 and fp32) at
+   every per-conv chain shape with D the haloed slab's planes at 1 x 2 and
+   1 x 4 (98, 50, 26; 50, 26, 14), 8 and 9 (bf16 and fp32) at the slabs' D;
 4. slice: writes two synthetic 192^3 CT cases and a seeded default-width
    UNet3D ``.pth``, runs the port's eval CLI (``workloads.test_model``) on
    the GPU, checks its artifacts and that every forward launched exactly
@@ -122,8 +125,9 @@ Phases, each printing one line per check; any failure exits non-zero:
    launches of every kernel exact (3 steps at batch 2, 5 eval forwards);
    the QA script's augmentation on a CUDA tensor (shapes, dtypes, labels
    within 0..3, p = 0 the identity); the phase's time;
-9. checkpoints and preprocessing (run last): writes phase 6's trained state
-   (its optimizer and its ``optax.MultiSteps`` accumulator included) as the
+9. checkpoints and preprocessing (run after phase 7b): writes phase 6's
+   trained state (its optimizer and its ``optax.MultiSteps`` accumulator
+   included) as the
    JAX package's ``.msgpack`` with the port's writer, reads it back and
    holds every leaf bit-equal (size, write and read seconds); serves it:
    the eval CLI on the ``.msgpack`` gives the predictions of the ``.pth``
@@ -138,8 +142,33 @@ Phases, each printing one line per check; any failure exits non-zero:
    case at 0.78x0.78x2.5 mm (int16, uint8 labels) on the GPU, then the eval
    CLI on its 192^3 result; the card's image against the same function on
    the CPU within 1e-5 * max |x|, the labels equal; the seconds per case and
-   the peak device memory.
+   the peak device memory;
+11. multi-device (run last): (a) the train CLI under ``torchrun
+   --standalone --nproc_per_node 1`` (NCCL, one rank) writes phase 6's
+   files, and in this process a world-1 step gives the bits of the step
+   with no process group (cuDNN deterministic); (b) two processes of this
+   script (``--mesh-rank``) on the one card over gloo, which the phase
+   names (NCCL refuses two ranks on one device), at 192^3 and full width in
+   fp32 and bf16: meshes 1 x 2 at batch 1 and 2 x 1 at batch 2, one train
+   step each through the per-conv chain, against one process running the
+   global batch through the per-conv chain (fp32: phase 7b's bounds; bf16:
+   phase 7's, with e the one process's bf16 step against its fp32 step),
+   the noise floor printed; controls that must be refused: every halo
+   zeroed (fp32, 1 x 2) and the gradient all-reduce without its division;
+   the ranks' gradients the same bits; (c) the eval forward at 1 x 2
+   against the unsharded one (fp32 within 1e-4 of max |logit|, argmax >=
+   0.999; bf16 argmax >= 0.98); (d) one fp32 DANN and one fp32
+   distillation step at 1 x 2 against one process; (e) every rank's
+   launches exact, the halo bytes each rank sends, the steps' times (two
+   processes on one card: not multi-GPU performance) and the phase's
+   seconds; and which gloo operations take CUDA tensors (all_reduce,
+   broadcast and all_gather must; point-to-point, which the halo stages
+   through host memory, must not, checked in a pair of processes of its
+   own).
 
+``python3 chip_smoke.py --multi-gpu`` instead runs (b)-(e) across the
+machine's N > 1 cards over NCCL, at 1 x N, N x 1 and, for an even N >= 4,
+(N/2) x 2, with each rank's step time and halo bytes.
 ``python3 chip_smoke.py --time-scipy-resample`` instead times the resampling
 case once with the scipy backend on the host and once with the torch
 backend on the GPU, and nothing else. ``python3 chip_smoke.py
@@ -1378,6 +1407,63 @@ def _quickstart_kernel_checks(plan) -> None:
             fail_unless(ok, f"{name} {shape}: error {err} (scaled {rel}) over tolerance")
 
 
+# the multi-device path (phase 11): every conv on a spatial mesh runs on its
+# rank's haloed slab of D (Dl + 2 planes: at 1 x 2, 98, 50 and 26 at the
+# kernels' 192, 96 and 48 levels; at 1 x 4, 50, 26 and 14), and every pool
+# on its slab (Dl planes)
+MESH_SPLITS = (2, 4)
+
+
+def _haloed_d_checks(plan, randn) -> None:
+    """Kernels 1, 1-dx, 2 and 7 (bf16 and fp32) at every per-conv chain shape
+    with D the haloed slab's planes at 1 x 2 and 1 x 4, and 8 and 9 (bf16
+    and fp32) at the slabs' D, against their plain versions under their
+    192^3 rows' tolerances; correctness only."""
+    import torch
+
+    f32 = torch.float32
+
+    def w_of(cin, cout):
+        return randn(3, 3, 3, cin, cout, scale=(2.0 / (27 * cin)) ** 0.5, dtype=f32)
+
+    def checks():  # made one at a time: the slabs are full width
+        for n in MESH_SPLITS:
+            for cin, cout, s in sorted(set(CONV_SHAPES)):
+                d = s // n + 2
+                for dt, suffix in ((torch.bfloat16, ""), (f32, "_f32")):
+                    x = randn(1, cin, d, s, s, dtype=dt)
+                    w, b = w_of(cin, cout), randn(cout, scale=0.1, dtype=f32)
+                    yield f"conv3x3x3_cf_relu{suffix}", n, (x, w, b)
+                    yield f"conv3x3x3_cf{suffix}", n, (x, w, b)
+                    yield f"conv3x3x3_cf_dw{suffix}", n, (x, randn(1, cout, d, s, s, scale=1e-2,
+                                                                   dtype=dt))
+            for gc, xc, s in sorted(set(PER_CONV_DX_SHAPES)):
+                for dt, suffix in ((torch.bfloat16, ""), (f32, "_f32")):
+                    yield (f"conv3x3x3_cf_dx{suffix}", n,
+                           (randn(1, gc, s // n + 2, s, s, dtype=dt), w_of(xc, gc)))
+            for c, s in POOL_SHAPES:
+                for dt, suffix in ((torch.bfloat16, ""), (f32, "_f32")):
+                    # halves in [-4, 4]: tied maxima in most windows
+                    x = randn(1, c, s // n, s, s, scale=4.0, dtype=f32).round().clamp(-8, 8)
+                    x = x.div(2).to(dt)
+                    yield f"max_pool2x_cf{suffix}", n, (x,)
+                    yield (f"max_pool2x_cf_bwd{suffix}", n,
+                           (x, plan["max_pool2x_cf"][1](x),
+                            randn(1, c, s // n // 2, s // 2, s // 2, dtype=dt)))
+
+    worst: dict = {}
+    for name, n, args in checks():
+        kern, plain, *_, tol, _, _ = plan[name]
+        label = f"{name} at 1 x {n}, slab {tuple(args[0].shape)}"
+        err, rel, ok, _ = _errors(label, kern, plain, [args], tol)
+        worst[name] = max(worst.get(name, 0.0), rel)
+        fail_unless(ok, f"{label}: error {err} (scaled {rel}) over {_tol_label(tol)}")
+    torch.cuda.empty_cache()
+    for name, rel in worst.items():
+        print(f"[kernel] {name} on the haloed slabs of D (1 x {' and 1 x '.join(map(str, MESH_SPLITS))}"
+              f"): worst scaled err {rel:.4g}, {_tol_label(plan[name][5])}: ok", flush=True)
+
+
 def phase_kernels() -> dict:
     """Each kernel vs its plain version at every slice shape."""
     import torch
@@ -1453,6 +1539,7 @@ def phase_kernels() -> dict:
             fail_unless(ok, f"{name} {shape}: error {err} (scaled {rel}) over tolerance")
             torch.cuda.empty_cache()
     _quickstart_kernel_checks(plan)
+    _haloed_d_checks(plan, randn)
     step = {k: sum(results[n][k] for n in TRAIN_BODY) for k in ("ms", "bare_ms", "library_ms")}
     print(f"[kernel] conv body per train step ({', '.join(TRAIN_BODY)}): kernel as called "
           f"{step['ms']:.4f} ms, bare launches {step['bare_ms']:.4f} ms, library "
@@ -3460,8 +3547,611 @@ def phase_checkpoints(size: int = 192) -> None:
           flush=True)
 
 
+# ---- phase 11: the multi-device path ----------------------------------------------------
+
+MESH_SIZE = 192
+# (n_data, n_spatial) and the global batch: the shipped recipe (batch 1) on
+# two cards, where the trainer raises the spatial axis, and data parallel
+MESH_CASES = (((1, 2), 1), ((2, 1), 2))
+MESH_WORKER_TIMEOUT = 900   # seconds for a world of phase 11
+MESH_EVAL_LOGIT_TOL = 1e-4  # fp32 eval on the mesh vs unsharded, of max |logit|
+MESH_EVAL_ARGMAX_F32 = 0.999
+MESH_TIMED = 2              # steps timed after the counted one
+# launches per rank: a train step on the per-conv chain (every conv on 1,
+# its dx but the image conv's, its dW, or F.conv3d in the deep region;
+# pools on 8 and 9; the bf16 upconvs on 10; the head on 11, 11-dx and
+# 11-dw; none of 3-6 or 12), in fp32 the same on the fp32 instances; the
+# distillation step adds the teacher's eval forward; the DANN step adds the
+# target's forward and its backward through the encoder and the bottleneck
+MESH_STEP = {"conv3x3x3_cf": 11, "conv3x3x3_cf_dx": 10, "conv3x3x3_cf_dw": 11,
+             "max_pool2x_cf": 4, "max_pool2x_cf_bwd": 4, "upconv2x_cf": 3, "head1x1_cf": 1,
+             "head1x1_cf_dx": 1, "head1x1_cf_dw": 1}
+MESH_STEP_F32 = _f32_counts(MESH_STEP)
+MESH_DISTILL_F32 = _add_counts(MESH_STEP_F32, PER_FP32_FORWARD)
+MESH_DANN_F32 = _add_counts(MESH_STEP_F32, _f32_counts({
+    "conv3x3x3_cf": 11, "max_pool2x_cf": 4, "head1x1_cf": 1, "conv3x3x3_cf_dx": 5,
+    "conv3x3x3_cf_dw": 6, "max_pool2x_cf_bwd": 4}))
+MESH_FORWARD = {"bf16": PER_FORWARD, "fp32": PER_FP32_FORWARD}
+MESH_STEPS = {"bf16": MESH_STEP, "fp32": MESH_STEP_F32}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _per_conv_chain():
+    """One process's model on the per-conv chain in every block, the chain
+    the JAX package runs under a mesh (the fused block is single-device)."""
+    from multimodal_segmentation_project_tpu_torch.models.unet3d import DoubleConv
+
+    real = DoubleConv.fused
+    DoubleConv.fused = lambda self: False
+    try:
+        yield
+    finally:
+        DoubleConv.fused = real
+
+
+@contextlib.contextmanager
+def _zeroed_halos():
+    """Control: every halo plane received as zeros."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.ops import halo
+
+    real = halo._swap_planes
+    halo._swap_planes = lambda mesh, to_prev, to_next: (torch.zeros_like(to_prev),
+                                                        torch.zeros_like(to_next))
+    try:
+        yield
+    finally:
+        halo._swap_planes = real
+
+
+def _on_rank(mesh, *tensors):
+    """This rank's slices (the whole tensors without a mesh), on the card."""
+    from multimodal_segmentation_project_tpu_torch.parallel.mesh import shard_batch_arrays
+
+    if mesh is not None:
+        tensors = shard_batch_arrays(mesh, *tensors)
+        tensors = tensors if isinstance(tensors, tuple) else (tensors,)
+    return [t.cuda() for t in tensors]
+
+
+def _grads(*models) -> dict:
+    return {f"{i}.{n}" if i else n: p.grad.detach().float().cpu()
+            for i, m in enumerate(models) for n, p in m.named_parameters()}
+
+
+def _run_counted(mesh, fn):
+    """fn() under the mesh: (its result, the launches it made, the halo bytes
+    this rank sent)."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch import ops
+    from multimodal_segmentation_project_tpu_torch.ops.halo import exchange_halo_d
+    from multimodal_segmentation_project_tpu_torch.parallel.mesh import use_spatial_mesh
+
+    with use_spatial_mesh(mesh):
+        ops.reset_launch_counts()
+        exchange_halo_d.bytes_sent = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, ops.launch_counts(), exchange_halo_d.bytes_sent
+
+
+def _mesh_train(dtype, mesh, x, y, timed: int = 0):
+    """One make_train_step of phase 6's loss on this rank's slice of (x, y)
+    from make_model's weights: (loss, gradients, launches, halo bytes, ms of
+    ``timed`` more steps)."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
+    from multimodal_segmentation_project_tpu_torch.engine.steps import make_train_step
+    from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
+    from multimodal_segmentation_project_tpu_torch.parallel.mesh import use_spatial_mesh
+
+    model = make_model(dtype).cuda()
+    state = TrainState(model, 1e-3, 1e-4)
+    step = make_train_step(get_loss_fn("ce_tversky"), nan_guard=True)
+    xs, ys = _on_rank(mesh, x, y)
+    metrics, counts, sent = _run_counted(mesh, lambda: step(state, xs, ys))
+    fail_unless(float(metrics["nonfinite"]) == 0.0, "non-finite gradients on the mesh")
+    loss, grads = float(metrics["loss"]), _grads(model)
+    times = []
+    with use_spatial_mesh(mesh):
+        for _ in range(timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, xs, ys)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    del model, state
+    torch.cuda.empty_cache()
+    return loss, grads, counts, sent, times
+
+
+def _mesh_eval(dtype, mesh, x):
+    """The eval forward on this rank's slab against the unsharded forward's
+    slab: (max error over max |logit|, argmax agreement, launches)."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.parallel.mesh import shard_batch_arrays
+
+    model = make_model(dtype).cuda()
+    with torch.no_grad():
+        want = model(x.cuda())
+        (xs,) = _on_rank(mesh, x)
+        got, counts, _ = _run_counted(mesh, lambda: model(xs))
+        want = shard_batch_arrays(mesh, want)
+        err = float((got - want).abs().max() / want.abs().max())
+        agree = float((got.argmax(1) == want.argmax(1)).float().mean())
+    del model, want, got
+    torch.cuda.empty_cache()
+    return err, agree, counts
+
+
+def _mesh_dann(mesh, x, y, tgt):
+    """One fp32 DANN step (phase 8's lambda, the discriminator's dropout on)
+    on this rank's slices: (losses, gradients of both models, launches)."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
+    from multimodal_segmentation_project_tpu_torch.engine.steps import make_dann_step
+    from multimodal_segmentation_project_tpu_torch.models import DomainDiscriminator
+    from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
+
+    model = make_model(torch.float32).cuda()
+    disc = DomainDiscriminator(256, generator=torch.Generator().manual_seed(SEED)).cuda()
+    seg_state, disc_state = TrainState(model, 1e-3, 1e-4), TrainState(disc, 1e-3, 1e-4)
+    step = make_dann_step(get_loss_fn("ce_tversky"), LAMBDA_DOMAIN, nan_guard=True)
+    src, lbl, tgt = _on_rank(mesh, x, y, tgt)
+    metrics, counts, _ = _run_counted(mesh, lambda: step(
+        seg_state, disc_state, src, lbl, tgt, torch.Generator().manual_seed(SEED)))
+    out = {k: float(metrics[k]) for k in ("task_loss", "domain_loss", "loss")}, _grads(model, disc)
+    del model, disc, seg_state, disc_state
+    torch.cuda.empty_cache()
+    return (*out, counts)
+
+
+def _mesh_distill(mesh, x, y):
+    """One fp32 distillation step (phase 8's alpha and T; the teacher from
+    another seed) on this rank's slices: (loss, gradients, launches)."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
+    from multimodal_segmentation_project_tpu_torch.engine.steps import make_distill_step
+    from multimodal_segmentation_project_tpu_torch.ops.losses import distillation_loss
+
+    model = make_model(torch.float32).cuda()
+    teacher = make_model(torch.float32, seed=SEED + 1).cuda().requires_grad_(False)
+    state = TrainState(model, 1e-3, 1e-4)
+    step = make_distill_step(
+        lambda s, t, lb: distillation_loss(s, t, lb, alpha=0.7, temperature=2.0), nan_guard=True)
+    xs, ys = _on_rank(mesh, x, y)
+    metrics, counts, _ = _run_counted(mesh, lambda: step(state, teacher, xs, ys))
+    out = float(metrics["loss"]), _grads(model)
+    del model, teacher, state
+    torch.cuda.empty_cache()
+    return (*out, counts)
+
+
+def _held(loss, grads, ref_loss, ref_grads, loss_tol, bounds) -> dict:
+    """The loss and every gradient but the BN-fed biases' against the one
+    process's, under ``loss_tol`` scaled and ``bounds`` (name -> bound)."""
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    rel = grad_rel(grads, ref_grads)
+    worst = max(rel, key=lambda n: rel[n] / bounds[n])
+    over = sorted(n for n in rel if rel[n] > bounds[n])
+    return {"loss": loss, "ref_loss": ref_loss, "loss_err": loss_err, "loss_tol": loss_tol,
+            "worst": worst, "worst_rel": rel[worst], "worst_bound": bounds[worst],
+            "over": over, "ok": loss_err <= loss_tol and not over}
+
+
+def _digest(grads: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(grads):
+        h.update(grads[name].numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_worker(rank: int, world: int, port: int, backend: str, out_dir: Path) -> None:
+    """One rank of phase 11 (or of ``--multi-gpu``): every case's step on its
+    mesh, the eval forwards, the fp32 distillation and DANN steps at the
+    first case's mesh; rank 0 also runs each one in one process on the
+    per-conv chain and holds the mesh's results against it. Writes
+    ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_segmentation_project_tpu_torch.parallel.mesh import (
+        GLOO_CUDA_COLLECTIVES,
+        Mesh,
+        init_distributed,
+    )
+
+    init_distributed(backend=backend, device="cuda", init_method=f"tcp://127.0.0.1:{port}",
+                     rank=rank, world_size=world)
+    torch.backends.cudnn.allow_tf32 = False  # as phase_device: fp32 plain versions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        inp = torch.load(out_dir / "inputs.pt")
+        x, y, tgt = inp["images"], inp["labels"], inp["target"]
+        res = {"rank": rank, "backend": backend, "device": torch.cuda.current_device(),
+               "train": {}, "launches": {}, "halo_bytes": {}, "step_ms": {}, "eval": {},
+               "digests": {}}
+        if backend == "gloo":  # the collectives the port hands gloo on CUDA tensors
+            t = torch.full((4,), rank + 1.0, device="cuda")
+            parts = [torch.empty_like(t) for _ in range(world)]
+            dist.all_gather(parts, t)
+            dist.all_reduce(t)
+            dist.broadcast(t, 0)
+            fail_unless(set(GLOO_CUDA_COLLECTIVES) == {"all_reduce", "broadcast", "all_gather"}
+                        and bool((t == world * (world + 1) / 2).all())
+                        and all(bool((p == i + 1).all()) for i, p in enumerate(parts)),
+                        "gloo's collectives of CUDA tensors are wrong")
+            res["gloo_cuda_direct"] = sorted(GLOO_CUDA_COLLECTIVES)
+        f32, bf16 = torch.float32, torch.bfloat16
+        cases = [(tuple(m), b) for m, b in inp["cases"]]
+        refs: dict = {}
+        for dname, dtype in (("fp32", f32), ("bf16", bf16)):
+            for (nd, ns), batch in cases:
+                tag = f"{dname} {nd}x{ns}"
+                mesh = Mesh(nd, ns)
+                xb, yb = x[:batch], y[:batch]
+                loss, grads, counts, sent, ms = _mesh_train(dtype, mesh, xb, yb, MESH_TIMED)
+                res["launches"][f"train {tag}"] = counts
+                res["halo_bytes"][tag], res["step_ms"][tag] = sent, ms
+                res["digests"][tag] = _digest(grads)
+                zero = None
+                if dname == "fp32" and ns > 1:  # control: the halos zeroed
+                    with _zeroed_halos():
+                        zero = _mesh_train(dtype, mesh, xb, yb)[:2]
+                dist.barrier()
+                if rank == 0:
+                    with _per_conv_chain():
+                        ref_loss, ref, _, _, ref_ms = _mesh_train(dtype, None, xb, yb,
+                                                                  MESH_TIMED)
+                        ulp = torch.where(torch.rand(xb.shape, generator=torch.Generator()
+                                                     .manual_seed(SEED)) < 0.5, -2.0**-24, 2.0**-24)
+                        noise_loss, noisy = _mesh_train(dtype, None, xb * (1 + ulp), yb)[:2]
+                    floor = grad_rel(noisy, ref)
+                    if dname == "fp32":
+                        refs[(nd, ns)] = ref
+                        bounds = dict.fromkeys(floor, F32_TRAIN_GRAD_TOL)
+                        loss_tol = F32_TRAIN_LOSS_TOL
+                    else:  # phase 7's: e is the one-process bf16 step's error against fp32
+                        e = grad_rel(ref, refs[(nd, ns)])
+                        bounds = {n: min(v + TRAIN_GRAD_FLOOR, TRAIN_GRAD_EMU_CAP)
+                                  for n, v in e.items()}
+                        loss_tol = TRAIN_LOSS_TOL
+                    out = _held(loss, grads, ref_loss, ref, loss_tol, bounds)
+                    floor_name = max(floor, key=floor.get)
+                    out.update(noise_loss=abs(noise_loss - ref_loss) / abs(ref_loss),
+                               floor_name=floor_name, floor=floor[floor_name], ref_ms=ref_ms)
+                    undivided = {n: g * mesh.size for n, g in grads.items()}
+                    out["undivided_refused"] = not _held(loss, undivided, ref_loss, ref,
+                                                         loss_tol, bounds)["ok"]
+                    if zero is not None:
+                        held = _held(*zero, ref_loss, ref, loss_tol, bounds)
+                        out["zero_halo"] = {k: held[k] for k in ("loss_err", "worst", "worst_rel",
+                                                                 "worst_bound", "ok")}
+                    res["train"][tag] = out
+                dist.barrier()
+            mesh = Mesh(1, world)  # the eval forward on the volume's D split
+            err, agree, counts = _mesh_eval(dtype, mesh, x[:1])
+            res["eval"][dname] = {"err": err, "agree": agree}
+            res["launches"][f"eval {dname} 1x{world}"] = counts
+        (nd, ns), _ = cases[0]
+        mesh = Mesh(nd, ns)
+        losses, grads, counts = _mesh_dann(mesh, x[:1], y[:1], tgt[:1])
+        res["launches"][f"dann fp32 {nd}x{ns}"] = counts
+        res["digests"]["dann"] = _digest(grads)
+        kd_loss, kd_grads, counts = _mesh_distill(mesh, x[:1], y[:1])
+        res["launches"][f"distill fp32 {nd}x{ns}"] = counts
+        res["digests"]["distill"] = _digest(kd_grads)
+        dist.barrier()
+        if rank == 0:
+            with _per_conv_chain():
+                ref_losses, ref = _mesh_dann(None, x[:1], y[:1], tgt[:1])[:2]
+                ref_kd, ref_kd_grads = _mesh_distill(None, x[:1], y[:1])[:2]
+            bounds = dict.fromkeys(grad_rel(ref, ref), F32_TRAIN_GRAD_TOL)
+            res["dann"] = _held(losses["loss"], grads, ref_losses["loss"], ref,
+                                F32_TRAIN_LOSS_TOL, bounds)
+            res["dann"]["loss_errs"] = {k: abs(losses[k] - ref_losses[k]) / abs(ref_losses[k])
+                                        for k in losses}
+            res["distill"] = _held(kd_loss, kd_grads, ref_kd, ref_kd_grads, F32_TRAIN_LOSS_TOL,
+                                   dict.fromkeys(grad_rel(ref_kd_grads, ref_kd_grads),
+                                                 F32_TRAIN_GRAD_TOL))
+        dist.barrier()
+        (out_dir / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_p2p_probe(rank: int, port: int) -> None:
+    """One of two processes: a gloo point-to-point exchange of CUDA tensors,
+    which ops/halo.py stages through host memory; prints whether gloo ran
+    it. Exits without the group's teardown (a refused send breaks the
+    pair's connection)."""
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    t = torch.full((1024,), rank + 1.0, device="cuda")
+    got = torch.empty_like(t)
+    try:
+        for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, t, 1 - rank),
+                                            dist.P2POp(dist.irecv, got, 1 - rank)]):
+            work.wait()
+        torch.cuda.synchronize()
+        print(f"GLOO_P2P_CUDA ran, right: {bool((got == 2 - rank).all())}", flush=True)
+    except RuntimeError as e:
+        print(f"GLOO_P2P_CUDA refused: {str(e).splitlines()[0][:160]}", flush=True)
+    os._exit(0)
+
+
+def _check_gloo_p2p() -> None:
+    """Whether gloo's point-to-point takes CUDA tensors, in a pair of
+    processes of its own: it must not, or the halo's staging is needless."""
+    port = str(_free_port())
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--gloo-p2p-probe",
+                               str(r), port], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    lines = []
+    for r, p in enumerate(procs):
+        try:
+            out = p.communicate(timeout=120)[0]
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out = p.communicate()[0] + "\nGLOO_P2P_CUDA refused: no answer in 120 s"
+        lines += [f"rank {r}: {ln}" for ln in out.splitlines() if "GLOO_P2P_CUDA" in ln]
+    refused = any("refused" in ln for ln in lines)
+    print(f"[multi] gloo point-to-point of CUDA tensors, in a pair of its own: {lines}", flush=True)
+    fail_unless(refused, "gloo ran point-to-point on CUDA tensors: the halo's staging is needless")
+
+
+def _mesh_world(backend: str, world: int, cases, size: int) -> list:
+    """Starts ``world`` worker processes of this script over ``backend`` (each
+    a rank; under gloo all on card 0), waits for them, prints their output
+    and returns their results."""
+    import torch
+
+    out_dir = SCRATCH / f"mesh_{backend}_{world}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    n = max(batch for _, batch in cases)
+    vols = [_parity_case(SEED + 400 + i, size) for i in range(max(n, 2))]
+    images, labels = (torch.cat(v) for v in zip(*vols))
+    torch.save({"images": images, "labels": labels, "target": images.roll(1, 0),
+                "cases": [[list(m), b] for m, b in cases]}, out_dir / "inputs.pt")
+    del vols, images, labels
+    port = str(_free_port())
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    logs = [open(out_dir / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+                               str(r), str(world), port, backend, str(out_dir)], cwd=ROOT,
+                              env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    try:
+        deadline = time.perf_counter() + MESH_WORKER_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        text = (out_dir / f"rank{r}.log").read_text()
+        lines = [ln for ln in text.splitlines() if ln.strip()]
+        for ln in lines[-40:] if p.returncode else [ln for ln in lines if ln.startswith("[")]:
+            print(f"[multi] rank {r}: {ln}", flush=True)
+        fail_unless(p.returncode == 0, f"{backend} rank {r} of {world} exited {p.returncode}")
+    return [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def _report_mesh_world(results: list, backend: str) -> None:
+    """Prints phase 11's (b)-(e) from the ranks' results and fails on any
+    check."""
+    world = len(results)
+    main = results[0]
+    where = (f"{world} processes on one card over gloo (their times are not multi-GPU "
+             f"performance)" if backend == "gloo" else f"{world} cards over NCCL")
+    print(f"[multi] {where}; cards {[r['device'] for r in results]}", flush=True)
+    if backend == "gloo":
+        print(f"[multi] gloo takes CUDA tensors directly in {main['gloo_cuda_direct']} (each "
+              f"checked on the card); its point-to-point does not, so the halo's planes are "
+              f"staged through host memory", flush=True)
+    for tag, out in main["train"].items():
+        dname = tag.split()[0]
+        ms = [round(t, 3) for r in results for t in r["step_ms"][tag]]
+        print(f"[multi] train {tag} at {MESH_SIZE}^3, full width, per-conv chain vs one process: "
+              f"loss {out['loss']:.8f} vs {out['ref_loss']:.8f}, scaled error "
+              f"{out['loss_err']:.4g} (<= {out['loss_tol']:g}) | worst gradient {out['worst']} "
+              f"{out['worst_rel']:.4g} (<= {out['worst_bound']:.4g}); over a bound: "
+              f"{out['over'] or 'none'} | noise floor (one process, one ulp on its input): loss "
+              f"{out['noise_loss']:.4g}, worst gradient {out['floor_name']} {out['floor']:.4g} | "
+              f"halo bytes sent per step per rank {[r['halo_bytes'][tag] for r in results]} | "
+              f"step ms (host clock) {ms}; one process, the global batch on one card: "
+              f"{[round(t, 3) for t in out['ref_ms']]} {'ok' if out['ok'] else 'FAIL'}",
+              flush=True)
+        fail_unless(out["ok"], f"the {tag} mesh step is over its bounds")
+        print(f"[multi] control, {tag}: the gradient all-reduce without its division: "
+              f"{'refused' if out['undivided_refused'] else 'ACCEPTED'}", flush=True)
+        fail_unless(out["undivided_refused"], f"{tag}: an undivided all-reduce is accepted")
+        if "zero_halo" in out:
+            z = out["zero_halo"]
+            print(f"[multi] control, {tag}: every halo zeroed: loss error {z['loss_err']:.4g}, "
+                  f"worst gradient {z['worst']} {z['worst_rel']:.4g} (bound "
+                  f"{z['worst_bound']:.4g}): {'ACCEPTED' if z['ok'] else 'refused'}", flush=True)
+            fail_unless(not z["ok"], f"{tag}: zeroed halos are accepted")
+        digests = {r["digests"][tag] for r in results}
+        fail_unless(len(digests) == 1, f"{tag}: the ranks' gradients differ")
+        del dname
+    for dname, tol in (("fp32", MESH_EVAL_ARGMAX_F32), ("bf16", PARITY_ARGMAX_MIN)):
+        err = max(r["eval"][dname]["err"] for r in results)
+        agree = min(r["eval"][dname]["agree"] for r in results)
+        ok = agree >= tol and (dname == "bf16" or err <= MESH_EVAL_LOGIT_TOL)
+        print(f"[multi] eval {dname} at 1x{world}, {MESH_SIZE}^3 vs the unsharded forward: max "
+              f"error {err:.4g} of max |logit|"
+              + (f" (<= {MESH_EVAL_LOGIT_TOL:g})" if dname == "fp32" else "")
+              + f", argmax agreement {agree:.6f} (>= {tol}) {'ok' if ok else 'FAIL'}", flush=True)
+        fail_unless(ok, f"the {dname} eval forward on the mesh is over its bounds")
+    for name, key in (("DANN", "dann"), ("distillation", "distill")):
+        out = main[key]
+        extra = ("" if key != "dann" else " (task, domain, total: "
+                 + ", ".join(f"{v:.4g}" for v in out["loss_errs"].values()) + ")")
+        print(f"[multi] {name} fp32 at {list(main['train'])[0].split()[1]} vs one process: loss "
+              f"scaled error {out['loss_err']:.4g}{extra} (<= {out['loss_tol']:g}) | worst "
+              f"gradient {out['worst']} {out['worst_rel']:.4g} (<= {out['worst_bound']:g}) "
+              f"{'ok' if out['ok'] else 'FAIL'}", flush=True)
+        fail_unless(out["ok"] and all(e <= F32_TRAIN_LOSS_TOL
+                                      for e in out.get("loss_errs", {}).values()),
+                    f"the {name} step on the mesh is over its bounds")
+        fail_unless(len({r["digests"][key] for r in results}) == 1,
+                    f"{name}: the ranks' gradients differ")
+    for r in results:
+        for label, counts in r["launches"].items():
+            kind, dname = label.split()[:2]
+            want = {"train": MESH_STEPS.get(dname), "eval": MESH_FORWARD.get(dname),
+                    "dann": MESH_DANN_F32, "distill": MESH_DISTILL_F32}[kind]
+            bad = {k: n for k, n in counts.items() if n != want.get(k, 0)}
+            fail_unless(not bad, f"rank {r['rank']}, {label}: launches {bad}, want {want}")
+    print(f"[multi] launches per rank exact on every rank: train step "
+          f"{sum(MESH_STEP.values())} (bf16) / {sum(MESH_STEP_F32.values())} (fp32), eval "
+          f"forward {sum(PER_FORWARD.values())} / {sum(PER_FP32_FORWARD.values())}, DANN "
+          f"{sum(MESH_DANN_F32.values())}, distillation {sum(MESH_DISTILL_F32.values())}; none of "
+          f"3-6 or 12", flush=True)
+
+
+def _world_one(size: int) -> None:
+    """(a): the train CLI under torchrun with one rank (NCCL) writes phase 6's
+    files; in this process, a world-1 step gives the bits of the step with
+    no process group (cuDNN deterministic)."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
+    from multimodal_segmentation_project_tpu_torch.engine.steps import make_train_step
+    from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
+    from multimodal_segmentation_project_tpu_torch.parallel.mesh import Mesh, use_spatial_mesh
+
+    data, exp = SCRATCH / "train_data", SCRATCH / "mesh_world1_exp"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         "-m", "multimodal_segmentation_project_tpu_torch.workloads.train_unet",
+         "--data_root", str(data), "--experiment_dir", str(exp), "--batch_size", "1",
+         "--epochs", "1", "--lr", "1e-3", "--weight_decay", "1e-4",
+         "--gradient_accumulation_steps", "2", "--mixed_precision", "bf16", "--loss",
+         "ce_tversky", "--early_stopping", "--patience", "10", "--seed", "42"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    fail_unless(proc.returncode == 0, f"the train CLI under torchrun exited {proc.returncode}:\n"
+                                      + "\n".join(out.splitlines()[-30:]))
+    fail_unless("[DIST] 1 rank(s) over nccl" in out, "torchrun's rank did not initialise NCCL")
+
+    def files(run: Path) -> list:
+        return sorted(str(p.relative_to(run)).replace(run.name, "<name>")
+                      for p in run.rglob("*") if p.is_file())
+
+    (run,) = exp.iterdir()
+    got, want = files(run), files(SCRATCH / "train_exp" / "smoke_train")
+    print(f"[multi] (a) the train CLI under torchrun --standalone --nproc_per_node 1 (NCCL, one "
+          f"rank): exit 0 in {secs:.2f} s, files {got}", flush=True)
+    fail_unless(got == want, f"torchrun's run wrote {got}, phase 6 wrote {want}")
+
+    x, y = (t.cuda() for t in _parity_case(SEED + 450, size))
+
+    def step():
+        model = make_model(torch.bfloat16).cuda()
+        state = TrainState(model, 1e-3, 1e-4)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+            metrics = make_train_step(get_loss_fn("ce_tversky"), nan_guard=True)(state, x, y)
+        return metrics["loss"].cpu(), _grads(model)
+
+    want_loss, want_grads = step()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        with use_spatial_mesh(Mesh(1, 1)):
+            got_loss, got_grads = step()
+    finally:
+        dist.destroy_process_group()
+    same = torch.equal(got_loss, want_loss) and all(
+        torch.equal(got_grads[n], g) for n, g in want_grads.items())
+    print(f"[multi] (a) a world-1 step (NCCL, one rank, its 1x1 mesh) against the step with no "
+          f"process group, {size}^3 bf16, cuDNN deterministic: "
+          f"{'the same bits' if same else 'DIFFERENT bits'}", flush=True)
+    fail_unless(same, "a world of one does not give the single-device bits")
+
+
+def phase_multi(size: int = MESH_SIZE) -> None:
+    """Phase 11 on one card: (a) a world of one; (b)-(e) two processes on the
+    card over gloo (the caller names it: NCCL refuses two ranks on one
+    device)."""
+    import torch
+
+    t0 = time.perf_counter()
+    _world_one(size)
+    torch.cuda.empty_cache()
+    _check_gloo_p2p()
+    _report_mesh_world(_mesh_world("gloo", 2, MESH_CASES, size), "gloo")
+    print(f"[multi] phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def multi_gpu(size: int = MESH_SIZE) -> None:
+    """``--multi-gpu``: (b)-(e) across the machine's N cards over NCCL, at
+    1 x N, N x 1 and, for an even N >= 4, (N/2) x 2."""
+    import torch
+
+    n = torch.cuda.device_count()
+    fail_unless(n > 1, f"--multi-gpu needs more than one card, found {n}")
+    cases = [((1, n), 1), ((n, 1), n)] + ([((n // 2, 2), n // 2)] if n >= 4 and n % 2 == 0
+                                           else [])
+    t0 = time.perf_counter()
+    _report_mesh_world(_mesh_world("nccl", n, cases, size), "nccl")
+    print(f"[multi] --multi-gpu in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase 11, started by _mesh_world
+        rank, world, port, backend, out_dir = sys.argv[2:7]
+        mesh_worker(int(rank), int(world), int(port), backend, Path(out_dir))
+        return 0
+    if sys.argv[1:2] == ["--gloo-p2p-probe"]:  # started by _check_gloo_p2p
+        gloo_p2p_probe(int(sys.argv[2]), int(sys.argv[3]))
+    if "--multi-gpu" in sys.argv[1:]:
+        try:
+            phase_device()
+            phase_build()
+            SCRATCH.mkdir(parents=True, exist_ok=True)
+            multi_gpu()
+        except Exception as e:
+            import traceback
+
+            traceback.print_exc()
+            print(f"[FAIL] {type(e).__name__}: {e}", flush=True)
+            return 1
+        return 0
     timers = {  # flag [ROOT]: the port imported from ROOT (default: this checkout)
         "--time-accum-step": time_accum_step,
         "--time-dw-f32": lambda root: time_bodies(root, "dw-f32", F32_TRAIN_DW, F32_TRAIN_DW),
@@ -3503,6 +4193,7 @@ def main() -> int:
         phase_train_parity()
         phase_fp32_train_parity()
         phase_checkpoints()
+        phase_multi()
     except Exception as e:  # every phase's failure fails the run
         import traceback
 

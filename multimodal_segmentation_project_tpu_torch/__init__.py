@@ -8,7 +8,10 @@ stack (``data/``) and CLI helpers (``workloads/common.py``) are its own
 copies.
 
 Slice 1 covers full-volume evaluation (``workloads.test_model``); slice 2
-the baseline training step and its CLI (``workloads.train_unet``).
+the baseline training step and its CLI (``workloads.train_unet``). The
+multi-device path (``parallel``: the mesh over ``torch.distributed`` ranks,
+one process per GPU, with ``ops/halo.py``'s D-axis halo exchange) runs
+every training CLI and the eval CLI on several GPUs.
 """
 
 NUM_CLASSES = 4  # background, spleen=1, liver=2, kidneys=3

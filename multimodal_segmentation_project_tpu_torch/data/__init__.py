@@ -3,8 +3,9 @@ preprocessing, the decode-once cache and the threaded loader.
 
 These modules are copies of the JAX package's ``data/`` modules (numpy,
 ctypes and gzip only), kept here so that the port imports nothing of the
-JAX package. The JAX package's device prefetch is not copied: the trainer
-uploads batches from pinned memory instead.
+JAX package. ``pipeline.prefetch_to_device`` and ``pipeline.upload``
+take the JAX package's device prefetch's place: each batch (each rank's
+slice of it on a mesh) is uploaded from pinned memory, non-blocking.
 """
 
 from multimodal_segmentation_project_tpu_torch.data.dataset import (

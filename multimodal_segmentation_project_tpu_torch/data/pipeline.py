@@ -1,11 +1,12 @@
-"""Host data pipeline: shuffling, batching, threaded prefetch.
+"""Host data pipeline: shuffling, batching, threaded prefetch, the upload.
 
 A copy of the JAX package's ``data/pipeline.py`` loader (the port keeps
 its own host data stack). The loader is IO-bound (gzip inflate + disk),
 so a small thread pool with a bounded prefetch queue overlaps host IO
-with device compute without fork overhead. The trainer uploads each
-batch from pinned memory with a non-blocking copy
-(``engine/trainer.py``), so the copy overlaps the host's next decode.
+with device compute without fork overhead. :func:`upload` (which the
+trainer calls) and :func:`prefetch_to_device` copy each batch from pinned
+memory with a non-blocking copy, so the copy overlaps the host's next
+decode; on a mesh (``parallel/mesh.py``) each rank uploads only its slice.
 """
 
 from __future__ import annotations
@@ -14,6 +15,9 @@ import queue
 import threading
 
 import numpy as np
+import torch
+
+from multimodal_segmentation_project_tpu_torch.parallel.mesh import shard_batch_arrays
 
 
 def _collate(samples):
@@ -145,3 +149,28 @@ class DataLoader:
         finally:
             stop.set()
 
+
+
+def upload(arrays, device, mesh=None) -> list:
+    """numpy arrays -> tensors on ``device``, each through pinned memory with
+    a non-blocking copy on CUDA; with ``mesh``, this rank's slice of each
+    (``parallel.mesh.batch_sharding``)."""
+    device = torch.device(device)
+    out = []
+    for a in arrays:
+        t = torch.from_numpy(np.ascontiguousarray(
+            a if mesh is None else shard_batch_arrays(mesh, a)))
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out.append(t.to(device, non_blocking=True))
+    return out
+
+
+def prefetch_to_device(iterator, sharding=None, device="cuda"):
+    """(images, labels) numpy batches -> device tensors, each uploaded by
+    :func:`upload` as the iterator yields it: the copy of one batch runs
+    while the caller computes on the one before. ``sharding`` is a
+    ``parallel.mesh.Mesh``: each rank uploads its slice of the global
+    batch, the JAX ``prefetch_to_device``'s split over the data axis."""
+    for images, labels in iterator:
+        yield tuple(upload((images, labels), device, sharding))

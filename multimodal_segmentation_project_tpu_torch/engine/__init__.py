@@ -1,8 +1,7 @@
 """The training engine: the train state, the LR schedule, the steps, the
 loop (``trainer``), checkpoint IO and weight interop with the JAX package.
 
-The package exports the JAX package's ``engine`` names but
-``make_sharded_eval_step``, which needs several devices.
+The package exports the JAX package's ``engine`` names.
 """
 
 from multimodal_segmentation_project_tpu_torch.engine.schedule import ReduceLROnPlateau
@@ -16,6 +15,7 @@ from multimodal_segmentation_project_tpu_torch.engine.steps import (
     make_dann_step,
     make_distill_step,
     make_eval_step,
+    make_sharded_eval_step,
     make_train_step,
 )
 
@@ -27,6 +27,7 @@ __all__ = [
     "ReduceLROnPlateau",
     "make_train_step",
     "make_eval_step",
+    "make_sharded_eval_step",
     "make_distill_step",
     "make_dann_step",
 ]

@@ -22,6 +22,18 @@ scope the model's forward runs its library calls in: in an fp32 step
 cuDNN's backward of the deep region's convs and of the fp32 transpose
 convs runs with TF32 off, as the forward does, and the flag reads as
 before once the backward returns. A bf16 step leaves it alone.
+
+On a multi-device mesh (``parallel/mesh.py``) every rank runs the step on
+its shard of the global batch. The losses and metrics are the global
+batch's on every rank (their sums all-reduce, and so do their cotangents),
+so each rank's backward gives the gradient of world * L; the gradients are
+all-reduced over the mesh as one flat buffer and divided by its size right
+after the backward, before the NaN guard, which then decides the same way
+on every rank. A step with augmentation takes the global batch, which
+every rank augments whole (flips cross the shards, as the JAX package
+augments the global array) before it takes its own slice; the other steps
+take this rank's slice. :func:`make_sharded_eval_step` evaluates
+``n_data`` distinct volumes a step.
 """
 
 from __future__ import annotations
@@ -32,7 +44,20 @@ from multimodal_segmentation_project_tpu_torch.models.unet3d import library_prec
 from multimodal_segmentation_project_tpu_torch.ops.augment import augment_batch
 from multimodal_segmentation_project_tpu_torch.ops.grl import grad_reverse
 from multimodal_segmentation_project_tpu_torch.ops.losses import cross_entropy_loss
-from multimodal_segmentation_project_tpu_torch.ops.metrics import segmentation_metrics
+from multimodal_segmentation_project_tpu_torch.ops.metrics import (
+    segmentation_metrics,
+    segmentation_metrics_per_sample,
+)
+from multimodal_segmentation_project_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    SPATIAL_AXIS,
+    active_multi_mesh,
+    all_reduce_,
+    data_rows,
+    reduce_sum,
+    reduction_axis,
+    shard_batch_arrays,
+)
 
 
 def _bn_buffers(model: torch.nn.Module) -> list[torch.Tensor]:
@@ -46,11 +71,33 @@ def _zero_grads(*models: torch.nn.Module) -> None:
             p.grad = None
 
 
-def _backward(loss: torch.Tensor, model: torch.nn.Module) -> None:
-    """loss.backward() in the model's library-precision scope: cuDNN's TF32
-    off in an fp32 model's backward."""
+def _backward(loss: torch.Tensor, model: torch.nn.Module, *others: torch.nn.Module) -> None:
+    """loss.backward() in the model's library-precision scope (cuDNN's TF32
+    off in an fp32 model's backward), then, on a multi-device mesh, the
+    gradients of ``model`` and ``others`` summed over the mesh in one flat
+    buffer and divided by its size."""
     with library_precision(model.dtype):
         loss.backward()
+    mesh = active_multi_mesh()
+    if mesh is None:
+        return
+    grads = [p.grad for m in (model, *others) for p in m.parameters() if p.grad is not None]
+    flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), mesh.group)
+    flat /= mesh.size
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def _augment_and_shard(generator, images, labels):
+    """The global batch augmented whole, then this rank's slice of it on a
+    multi-device mesh."""
+    images, labels = augment_batch(generator, images, labels)
+    mesh = active_multi_mesh()
+    if mesh is not None:
+        images, labels = shard_batch_arrays(mesh, images, labels)
+    return images, labels
 
 
 def _guard(metrics: dict, models: tuple, saved: list, loss_keys: tuple) -> bool:
@@ -94,11 +141,13 @@ def _supervised_step(state, images, labels, generator, nan_guard: bool, loss_fn)
 def make_train_step(loss_fn, augment: bool = False, nan_guard: bool = False):
     """train_step(state, images, labels, generator) -> metrics (0-d tensors
     on the device: dice, iou, acc, loss, and nonfinite with the guard).
-    ``generator`` draws the augmentation and the dropout masks."""
+    ``generator`` draws the augmentation and the dropout masks; on a mesh it
+    is the same on every rank. With ``augment`` on a mesh, ``images`` and
+    ``labels`` are the global batch; else this rank's slice."""
 
     def train_step(state, images, labels, generator=None):
         if augment:  # rebinding frees the batch from before the augmentation
-            images, labels = augment_batch(generator, images, labels)
+            images, labels = _augment_and_shard(generator, images, labels)
         return _supervised_step(state, images, labels, generator, nan_guard, loss_fn)
 
     return train_step
@@ -119,6 +168,36 @@ def make_eval_step(loss_fn):
     return eval_step
 
 
+def make_sharded_eval_step(loss_fn):
+    """eval_step(state, images, labels, weights) -> the weighted sums of the
+    per-volume dice, iou, acc and loss, and ``n``, the sum of the weights.
+
+    Port of ``engine/steps.py:make_sharded_eval_step``: the val loader packs
+    ``n_data`` distinct volumes a step, each data rank evaluates its own
+    (``images``, ``labels`` and ``weights`` are this rank's slices), the
+    metrics and the loss are per volume (their sums all-reduced over the
+    spatial group), and the weights zero the repeat-padding of a ragged
+    last batch; the sums are all-reduced over the data axis, so every rank
+    returns the global batch's."""
+
+    @torch.no_grad()
+    def eval_step(state, images, labels, weights):
+        model = state.model
+        model.eval()
+        logits = model(images)
+        per = segmentation_metrics_per_sample(logits, labels)
+        with reduction_axis(SPATIAL_AXIS):
+            per["loss"] = torch.stack([loss_fn(lg[None], lb[None])
+                                       for lg, lb in zip(logits, labels)])
+        w = weights.float()
+        keys = [*per, "n"]
+        sums = torch.stack([*((per[k].float() * w).sum() for k in per), w.sum()])
+        sums = reduce_sum(sums, DATA_AXIS)
+        return dict(zip(keys, sums))
+
+    return eval_step
+
+
 def make_distill_step(kd_loss_fn, augment: bool = False, nan_guard: bool = False):
     """distill_step(state, teacher, images, labels, generator) -> metrics.
 
@@ -130,7 +209,7 @@ def make_distill_step(kd_loss_fn, augment: bool = False, nan_guard: bool = False
 
     def distill_step(state, teacher, images, labels, generator=None):
         if augment:
-            images, labels = augment_batch(generator, images, labels)
+            images, labels = _augment_and_shard(generator, images, labels)
         teacher.eval()
         with torch.no_grad():
             teacher_logits = teacher(images)
@@ -147,6 +226,16 @@ def _split_generator(generator: torch.Generator | None, n: int) -> list:
         return [None] * n
     seeds = torch.randint(0, 2**62, (n,), generator=generator, device=generator.device)
     return [torch.Generator(device=generator.device).manual_seed(int(s)) for s in seeds]
+
+
+def _domain_rows(n_local: int):
+    """On a data mesh, (global rows, this rank's rows) of the
+    discriminator's input [source; target], for its dropout masks."""
+    n_global, rows = data_rows(n_local)
+    if n_global == n_local:
+        return None
+    idx = torch.arange(rows.start, rows.stop)
+    return 2 * n_global, torch.cat([idx, idx + n_global])
 
 
 def make_dann_step(loss_fn, lambda_domain: float, nan_guard: bool = False):
@@ -181,14 +270,16 @@ def make_dann_step(loss_fn, lambda_domain: float, nan_guard: bool = False):
         tgt_feat = model(tgt_images, return_features=True, generator=g_tgt)[1]
         feats = torch.cat([grad_reverse(src_feat, lambda_domain),
                            grad_reverse(tgt_feat, lambda_domain)])
-        domain_logits = disc(feats, generator=g_disc)
+        domain_logits = disc(feats, generator=g_disc, rows=_domain_rows(src_feat.shape[0]))
         domain_labels = torch.cat([
             torch.zeros(src_feat.shape[0], dtype=torch.long, device=feats.device),
             torch.ones(tgt_feat.shape[0], dtype=torch.long, device=feats.device),
         ])
-        domain_loss = cross_entropy_loss(domain_logits, domain_labels)
+        # the features' rows are replicated over the spatial axis
+        with reduction_axis(DATA_AXIS):
+            domain_loss = cross_entropy_loss(domain_logits, domain_labels)
         total = task_loss + lambda_domain * domain_loss
-        _backward(total, model)  # the discriminator's matmuls are full fp32 already
+        _backward(total, model, disc)  # the discriminator's matmuls are full fp32 already
         metrics = segmentation_metrics(src_logits.detach(), src_labels)
         metrics.update(task_loss=task_loss.detach(), domain_loss=domain_loss.detach(),
                        loss=total.detach())

@@ -42,6 +42,22 @@ guard reads one flag per step). ``logs/device_usage.log`` gets the CUDA
 allocator's statistics at the start and after every epoch. The plots need
 matplotlib; a failed plot warns and does not end the run.
 
+Several GPUs (one process per GPU, ``torch.distributed`` initialised by the
+CLI, ``workloads/common.py``): the trainer picks the mesh as the JAX
+trainer does (:func:`parallel.mesh.choose_mesh`: the largest data axis
+that divides the global batch, then the spatial axis raised to fill the
+idle ranks, the ``[MESH]`` line; a warning where ranks stay idle) and
+activates it. Every rank loads the same global batches (the same shuffle),
+takes its slice on upload (a step with augmentation augments the whole
+batch on every rank first: ``engine/steps.py``), with ``drop_last`` when the
+data axis has more than one rank, and validates ``n_data`` distinct
+volumes a step (``make_sharded_eval_step``: a ragged last batch is padded
+by its first volume with weight 0). Every rank reads ``--resume`` and
+``--pretrained_model``, and the trainer checks once that every rank starts
+from the same parameters. Only rank 0 writes: ``config.txt``, the logs,
+the CSV, the plots and the checkpoints; the others print nothing but
+errors.
+
 The per-step generator is seeded from (seed, epoch, step), and each
 epoch's shuffle from (seed, epoch), so a resumed run draws the same batches,
 augmentation and dropout as an uninterrupted one.
@@ -58,6 +74,7 @@ import torch
 
 from multimodal_segmentation_project_tpu_torch import NUM_CLASSES
 from multimodal_segmentation_project_tpu_torch.data import DataLoader
+from multimodal_segmentation_project_tpu_torch.data.pipeline import upload
 from multimodal_segmentation_project_tpu_torch.engine import checkpoint as ckpt
 from multimodal_segmentation_project_tpu_torch.engine.interop import (
     state_dict_to_discriminator_params,
@@ -67,11 +84,20 @@ from multimodal_segmentation_project_tpu_torch.engine.state import create_train_
 from multimodal_segmentation_project_tpu_torch.engine.steps import (
     make_dann_step,
     make_distill_step,
-    make_eval_step,
+    make_sharded_eval_step,
     make_train_step,
 )
 from multimodal_segmentation_project_tpu_torch.models import DomainDiscriminator, UNet3D
 from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
+from multimodal_segmentation_project_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_,
+    broadcast_,
+    choose_mesh,
+    rank,
+    set_active_mesh,
+    world_size,
+)
 from multimodal_segmentation_project_tpu_torch.utils.experiment import (
     ExperimentPaths,
     format_time,
@@ -114,6 +140,11 @@ class TrainerConfig:
     pretrained_model: str | None = None
     pretrained_strict: bool = True
     num_workers: int = 2
+    n_spatial: int = 1
+    # when the global batch cannot fill the ranks, raise n_spatial (the
+    # volume's D split over ranks) to use the idle ones
+    auto_spatial: bool = True
+    n_data: int | None = None  # the data axis (None: the largest that divides the batch)
     device: str = "cuda"
     plot_title: str = "Training Metrics"
     extra_config: dict = field(default_factory=dict)
@@ -142,15 +173,24 @@ class Trainer:
                  teacher: UNet3D | None = None, kd_loss_fn=None):
         self.cfg = cfg
         self.device = torch.device(cfg.device)
-        self.paths = ExperimentPaths.create(cfg.experiment_dir, cfg.experiment_name)
-        write_config(os.path.join(self.paths.root, "config.txt"),
-                     {**cfg.__dict__, **cfg.extra_config})
+        # every write is rank 0's: the other ranks hold the same state
+        self.is_main = rank() == 0
+        self.paths = ExperimentPaths.create(cfg.experiment_dir, cfg.experiment_name,
+                                            make_dirs=self.is_main)
         self.device_log = os.path.join(self.paths.logs, "device_usage.log")
-        log_device_usage(self.device_log, self.device)
+        if self.is_main:
+            write_config(os.path.join(self.paths.root, "config.txt"),
+                         {**cfg.__dict__, **cfg.extra_config})
+            log_device_usage(self.device_log, self.device)
 
+        self.mesh = self._make_mesh(train_dataset)
+        set_active_mesh(self.mesh)
+        data_par = self.mesh.n_data
         self.train_loader = DataLoader(train_dataset, batch_size=cfg.batch_size, shuffle=True,
-                                       seed=cfg.seed, num_workers=cfg.num_workers)
-        self.val_loader = DataLoader(val_dataset, batch_size=1, shuffle=False,
+                                       seed=cfg.seed, num_workers=cfg.num_workers,
+                                       drop_last=data_par > 1)
+        # validation: n_data distinct volumes a step, one per data rank
+        self.val_loader = DataLoader(val_dataset, batch_size=data_par, shuffle=False,
                                      num_workers=cfg.num_workers)
 
         model = build_model(cfg)
@@ -173,7 +213,7 @@ class Trainer:
         else:
             self.train_step = make_train_step(self.loss_fn, augment=cfg.augment,
                                               nan_guard=cfg.nan_guard)
-        self.eval_step = make_eval_step(self.loss_fn)
+        self.eval_step = make_sharded_eval_step(self.loss_fn)
         self.scheduler = (ReduceLROnPlateau(cfg.lr, mode="max", patience=10, factor=0.1,
                                             min_lr=1e-6) if cfg.use_scheduler else None)
         self.log_file = os.path.join(self.paths.logs, cfg.log_name)
@@ -181,24 +221,72 @@ class Trainer:
         self.start_epoch = 0
         if cfg.resume:
             self._resume(cfg.resume)
+        self._check_replicas()
         # a resumed run lands in a fresh experiment dir: its log starts empty too
-        if not cfg.resume or not os.path.exists(self.log_file):
+        if self.is_main and (not cfg.resume or not os.path.exists(self.log_file)):
             with open(self.log_file, "w") as f:
                 f.write(",".join(self.CSV_COLUMNS) + "\n")
 
+    # ---------- the mesh ----------
+
+    def _make_mesh(self, train_dataset) -> Mesh:
+        """The JAX trainer's mesh over this world's ranks (a 1x1 mesh, the
+        single-device path, in a world of one)."""
+        cfg, world = self.cfg, world_size()
+        depth = train_dataset[0][0].shape[1] if world > 1 else 1
+        choice = choose_mesh(world, cfg.batch_size, cfg.n_spatial, cfg.n_data, cfg.auto_spatial,
+                             depth, len(cfg.features))
+        if choice.auto_spatial:
+            self._print(f"[MESH] global batch {cfg.batch_size} fills only {choice.n_data}/{world} "
+                        f"ranks with data parallelism — auto-raising spatial sharding to "
+                        f"n_spatial={choice.n_spatial} ({choice.n_data}x{choice.n_spatial} mesh, "
+                        f"volume D split across ranks)")
+        used = choice.n_data * choice.n_spatial
+        if world > 1:
+            self._print(f"[MESH] {choice.n_data}x{choice.n_spatial} mesh (data x spatial) over "
+                        f"{used} of {world} ranks")
+        if used < world:
+            self._print("=" * 72 + f"\n[WARN] the {used}-rank mesh uses only {used} of {world} "
+                        f"ranks — {world - used} sit IDLE every step. batch_size here is the "
+                        f"GLOBAL batch (the reference's --batch_size is per-device); raise "
+                        f"batch_size, or n_spatial, so n_data * n_spatial = {world}.\n" + "=" * 72)
+        return Mesh(choice.n_data, choice.n_spatial)
+
+    def _replicas(self) -> list:
+        """The modules every rank must hold alike."""
+        return [self.state.model]
+
+    def _check_replicas(self) -> None:
+        """Once, on a mesh: every rank starts from rank 0's parameters and
+        BatchNorm statistics, bit for bit."""
+        group = self.mesh.group
+        if group is None or not self.mesh.member:
+            return
+        mine = torch.cat([t.detach().reshape(-1).double() for m in self._replicas()
+                          for t in m.state_dict().values()])
+        ref = broadcast_(mine.clone(), 0, group)
+        differ = all_reduce_(torch.tensor([float(not torch.equal(mine, ref))],
+                                          device=mine.device), group)
+        if differ.item():
+            raise RuntimeError(f"{int(differ.item())} rank(s) start from other parameters than "
+                               f"rank 0: every rank must build and load the same model")
+
     # ---------- helpers ----------
 
-    @staticmethod
-    def _load_pretrained(model: UNet3D, path: str, strict: bool) -> None:
+    def _print(self, *args) -> None:
+        if self.is_main:
+            print(*args, flush=True)
+
+    def _load_pretrained(self, model: UNet3D, path: str, strict: bool) -> None:
         """Initialise from a reference-layout ``.pth`` or a JAX ``.msgpack``:
         strictly, or as the JAX package's non-strict load (a missing or
         shape-mismatched key keeps the model's value)."""
         kept = ckpt.load_params_any(model, path, strict=strict)
         if strict:
-            print(f"[PRETRAINED] loaded {path} (strict)")
+            self._print(f"[PRETRAINED] loaded {path} (strict)")
         else:
-            print(f"[PRETRAINED] loaded {path} (non-strict; {len(kept)} tensors kept their "
-                  f"initial values{': ' + ', '.join(kept) if kept else ''})")
+            self._print(f"[PRETRAINED] loaded {path} (non-strict; {len(kept)} tensors kept their "
+                        f"initial values{': ' + ', '.join(kept) if kept else ''})")
 
     def _freeze(self, prefixes):
         self.state.with_mask(prefixes)
@@ -207,18 +295,14 @@ class Trainer:
             frozen = sum(p.numel() for n, p in self.state.model.named_parameters()
                          if not self.state.trainable(n))
             total = sum(p.numel() for p in self.state.model.parameters())
-            print(f"[FREEZE] frozen={frozen:,} ({frozen / total * 100:.1f}%) "
-                  f"trainable={total - frozen:,} ({(total - frozen) / total * 100:.1f}%)")
+            self._print(f"[FREEZE] frozen={frozen:,} ({frozen / total * 100:.1f}%) "
+                        f"trainable={total - frozen:,} ({(total - frozen) / total * 100:.1f}%)")
 
-    def _upload(self, *arrays):
-        """numpy batch -> device tensors, through pinned memory, non-blocking."""
-        out = []
-        for a in arrays:
-            t = torch.from_numpy(a)
-            if self.device.type == "cuda":
-                t = t.pin_memory()
-            out.append(t.to(self.device, non_blocking=True))
-        return out
+    def _upload(self, *arrays, whole: bool = False):
+        """numpy batch -> device tensors, through pinned memory, non-blocking:
+        this rank's slice on a mesh, unless ``whole`` (a step that augments
+        takes the global batch)."""
+        return upload(arrays, self.device, None if whole or self.mesh.size == 1 else self.mesh)
 
     def _step_generator(self, epoch: int, step: int) -> torch.Generator:
         return torch.Generator().manual_seed(((self.cfg.seed + 1) * 1_000_003 + epoch)
@@ -242,10 +326,10 @@ class Trainer:
         if fe is None:
             return
         if epoch == fe and not self.encoder_frozen:
-            print(f"[INFO] freezing {self.cfg.freeze_prefixes} at epoch {epoch + 1}")
+            self._print(f"[INFO] freezing {self.cfg.freeze_prefixes} at epoch {epoch + 1}")
             self._freeze(self.cfg.freeze_prefixes)
         elif epoch == fe + 1 and self.encoder_frozen:
-            print(f"[INFO] unfreezing at epoch {epoch + 1}")
+            self._print(f"[INFO] unfreezing at epoch {epoch + 1}")
             self._freeze(())
 
     # ---------- epochs ----------
@@ -254,7 +338,7 @@ class Trainer:
         total, n = None, 0
         self.train_loader.set_epoch(epoch)
         for step_idx, (images, labels) in enumerate(self.train_loader):
-            images, labels = self._upload(images, labels)
+            images, labels = self._upload(images, labels, whole=self.cfg.augment)
             gen = self._step_generator(epoch, step_idx)
             if self.teacher is not None:
                 metrics = self.train_step(self.state, self.teacher, images, labels, gen)
@@ -265,12 +349,25 @@ class Trainer:
         return self._finalize(total, n)
 
     def eval_epoch(self) -> dict:
-        total, n = None, 0
+        """Validation over distinct volumes, ``n_data`` a step: the mean of
+        the per-volume metrics. A ragged last batch is padded by repeating
+        its first volume, with weight 0."""
+        data_par = self.mesh.n_data
+        total = None
         for images, labels in self.val_loader:
-            images, labels = self._upload(images, labels)
-            total = self._accumulate(total, self.eval_step(self.state, images, labels))
-            n += 1
-        return self._finalize(total, n)
+            b = images.shape[0]
+            weights = np.ones((b,), np.float32)
+            if b < data_par:
+                pad = data_par - b
+                images = np.concatenate([images, np.repeat(images[:1], pad, 0)], 0)
+                labels = np.concatenate([labels, np.repeat(labels[:1], pad, 0)], 0)
+                weights = np.concatenate([weights, np.zeros((pad,), np.float32)])
+            images, labels, weights = self._upload(images, labels, weights)
+            total = self._accumulate(total, self.eval_step(self.state, images, labels, weights))
+        if total is None:
+            return {}
+        n = max(float(total.pop("n")), 1.0)
+        return {k: float(v) / n for k, v in total.items()}
 
     # ---------- checkpoints ----------
 
@@ -296,7 +393,10 @@ class Trainer:
 
     def save_checkpoint(self, path, epoch, train_metrics, val_metrics):
         """After epoch ``epoch`` (0-based): a ``.msgpack`` path gets the JAX
-        package's train checkpoint and sidecar, any other a ``.pth``."""
+        package's train checkpoint and sidecar, any other a ``.pth``. Rank 0
+        writes; the other ranks hold the same state."""
+        if not self.is_main:
+            return
         if str(path).endswith(".msgpack"):
             extra = {"epoch": np.asarray(epoch + 1, np.int32),
                      "best_val_dice": np.asarray(self.best_val_dice, np.float32),
@@ -321,7 +421,7 @@ class Trainer:
         if self.scheduler is not None and saved.get("scheduler_state_dict"):
             self.scheduler.load_state_dict(saved["scheduler_state_dict"])
         self.encoder_frozen = bool(saved.get("encoder_frozen", False))
-        print(f"[RESUME] from {path} at epoch {self.start_epoch}")
+        self._print(f"[RESUME] from {path} at epoch {self.start_epoch}")
         return saved
 
     def _resume_msgpack(self, path: str) -> dict:
@@ -348,19 +448,21 @@ class Trainer:
         candidates = [self.scheduler.lr] if self.scheduler is not None else []
         self.state.lr = next((c for c in (*candidates, self.cfg.lr) if np.float32(c) == lr),
                              float(lr))
-        print(f"[RESUME] from {path} at epoch {self.start_epoch}")
+        self._print(f"[RESUME] from {path} at epoch {self.start_epoch}")
         return tree
 
     # ---------- the loop ----------
 
     def _profiled_train_epoch(self, epoch: int) -> dict:
         """The epoch under torch.profiler: a Chrome trace and a kernel table
-        by device time in logs/profile/."""
+        by device time in logs/profile/ (rank 0's)."""
         from torch.profiler import ProfilerActivity, profile
 
+        if not self.is_main:
+            return self.train_epoch(epoch)
         profile_dir = os.path.join(self.paths.logs, "profile")
         os.makedirs(profile_dir, exist_ok=True)
-        print(f"[PROFILE] tracing epoch {epoch + 1} -> {profile_dir}")
+        self._print(f"[PROFILE] tracing epoch {epoch + 1} -> {profile_dir}")
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
@@ -376,6 +478,10 @@ class Trainer:
 
     def run(self) -> dict:
         cfg = self.cfg
+        if not self.mesh.member:
+            print(f"[MESH] rank {self.mesh.rank} is outside the {self.mesh.n_data}x"
+                  f"{self.mesh.n_spatial} mesh: idle", flush=True)
+            return {}
         patience_counter = 0
         run_start = time.time()
         summary = {}
@@ -388,19 +494,20 @@ class Trainer:
                 train_metrics = self.train_epoch(epoch)
             val_metrics = self.eval_epoch()
             if not val_metrics and epoch == self.start_epoch:
-                print("[WARN] validation set is empty — scheduler, best-model "
-                      "checkpointing and early stopping are disabled")
+                self._print("[WARN] validation set is empty — scheduler, best-model "
+                            "checkpointing and early stopping are disabled")
             if train_metrics.get("nonfinite", 0) > 0:
-                print(f"[WARN] {train_metrics['nonfinite'] * 100:.1f}% of steps in epoch "
-                      f"{epoch + 1} had non-finite gradients (skipped)")
+                self._print(f"[WARN] {train_metrics['nonfinite'] * 100:.1f}% of steps in epoch "
+                            f"{epoch + 1} had non-finite gradients (skipped)")
 
             if self.scheduler is not None and "dice" in val_metrics:
                 self.state.lr = self.scheduler.step(val_metrics["dice"])
-                print(f"[LR] learning rate after epoch {epoch + 1}: {self.state.lr}")
+                self._print(f"[LR] learning rate after epoch {epoch + 1}: {self.state.lr}")
 
             epoch_time = time.time() - epoch_start
             self._log_epoch(epoch, epoch_time, train_metrics, val_metrics)
-            log_device_usage(self.device_log, self.device, tag=f"epoch={epoch + 1}")
+            if self.is_main:
+                log_device_usage(self.device_log, self.device, tag=f"epoch={epoch + 1}")
 
             if (epoch + 1) % cfg.checkpoint_every == 0:
                 name = f"{cfg.ckpt_prefix}_epoch{epoch + 1}_{cfg.experiment_name}.msgpack"
@@ -416,24 +523,25 @@ class Trainer:
             elif cfg.early_stopping:
                 patience_counter += 1
                 if patience_counter >= cfg.patience:
-                    print(f"[EARLY STOPPING] no val-dice improvement for {cfg.patience} "
-                          f"epochs; stopping at epoch {epoch + 1}")
+                    self._print(f"[EARLY STOPPING] no val-dice improvement for {cfg.patience} "
+                                f"epochs; stopping at epoch {epoch + 1}")
                     break
             summary = {"train": train_metrics, "val": val_metrics, "epoch": epoch + 1}
 
-        try:
-            plot_training_metrics(self.log_file, self.paths.plots, title=cfg.plot_title)
-        except Exception as e:  # plotting must never kill a finished run
-            print(f"[WARN] plotting failed: {e}")
-        print(f"[END] training completed in {format_time(time.time() - run_start)}; "
-              f"best val dice {self.best_val_dice:.4f}")
+        if self.is_main:
+            try:
+                plot_training_metrics(self.log_file, self.paths.plots, title=cfg.plot_title)
+            except Exception as e:  # plotting must never kill a finished run
+                print(f"[WARN] plotting failed: {e}")
+        self._print(f"[END] training completed in {format_time(time.time() - run_start)}; "
+                    f"best val dice {self.best_val_dice:.4f}")
         summary["best_val_dice"] = self.best_val_dice
         return summary
 
     def _log_epoch(self, epoch, epoch_time, tm, vm):
         if not vm:  # empty validation loader: NaN columns, keep the schema
             vm = {k: float("nan") for k in ("loss", "dice", "iou", "acc")}
-        print(
+        self._print(
             f"[EPOCH] {epoch + 1}/{self.cfg.epochs} - {format_time(epoch_time)} | "
             f"Train Loss: {tm['loss']:.4f} | Val Loss: {vm['loss']:.4f} | "
             f"Train Dice: {tm['dice']:.4f} | Val Dice: {vm['dice']:.4f} | "
@@ -441,10 +549,13 @@ class Trainer:
             f"Train Acc: {tm['acc']:.4f} | Val Acc: {vm['acc']:.4f} | "
             f"Frozen: {self.encoder_frozen}"
         )
-        row = [epoch + 1, epoch_time, tm["loss"], vm["loss"], tm["dice"], vm["dice"],
-               tm["iou"], vm["iou"], tm["acc"], vm["acc"], self.encoder_frozen]
-        with open(self.log_file, "a") as f:
-            f.write(",".join(str(v) for v in row) + "\n")
+        self._append_csv([epoch + 1, epoch_time, tm["loss"], vm["loss"], tm["dice"], vm["dice"],
+                          tm["iou"], vm["iou"], tm["acc"], vm["acc"], self.encoder_frozen])
+
+    def _append_csv(self, row) -> None:
+        if self.is_main:
+            with open(self.log_file, "a") as f:
+                f.write(",".join(str(v) for v in row) + "\n")
 
 
 class DannTrainer(Trainer):
@@ -469,7 +580,8 @@ class DannTrainer(Trainer):
                                              cfg.weight_decay, cfg.grad_accum)
         super().__init__(cfg, source_dataset, val_dataset)
         self.target_loader = DataLoader(target_dataset, batch_size=cfg.batch_size, shuffle=True,
-                                        seed=cfg.seed + 1000, num_workers=cfg.num_workers)
+                                        seed=cfg.seed + 1000, num_workers=cfg.num_workers,
+                                        drop_last=self.mesh.n_data > 1)
         self.dann_step = make_dann_step(self.loss_fn, lambda_domain, nan_guard=cfg.nan_guard)
 
     def train_epoch(self, epoch: int) -> dict:
@@ -485,6 +597,9 @@ class DannTrainer(Trainer):
             total = self._accumulate(total, metrics)
             n += 1
         return self._finalize(total, n)
+
+    def _replicas(self) -> list:
+        return [self.state.model, self.disc_state.model]
 
     def _ckpt_extra(self, train_metrics, val_metrics) -> dict:
         """The discriminator beside the reference-layout ``model_state_dict``
@@ -531,14 +646,12 @@ class DannTrainer(Trainer):
         if not vm:
             vm = {k: float("nan") for k in ("loss", "dice", "iou", "acc")}
         train_total = tm["task_loss"] + self.lambda_domain * tm["domain_loss"]
-        print(
+        self._print(
             f"[EPOCH] {epoch + 1}/{self.cfg.epochs} - {format_time(epoch_time)} | "
             f"Train Loss: {train_total:.4f} | Task: {tm['task_loss']:.4f} | "
             f"Domain: {tm['domain_loss']:.4f} | Val Loss: {vm['loss']:.4f} | "
             f"Train Dice: {tm['dice']:.4f} | Val Dice: {vm['dice']:.4f}"
         )
-        row = [epoch + 1, epoch_time, train_total, tm["task_loss"], tm["domain_loss"],
-               vm["loss"], tm["dice"], vm["dice"], tm["iou"], vm["iou"], tm["acc"], vm["acc"],
-               self.encoder_frozen]
-        with open(self.log_file, "a") as f:
-            f.write(",".join(str(v) for v in row) + "\n")
+        self._append_csv([epoch + 1, epoch_time, train_total, tm["task_loss"], tm["domain_loss"],
+                          vm["loss"], tm["dice"], vm["dice"], tm["iou"], vm["iou"], tm["acc"],
+                          vm["acc"], self.encoder_frozen])

@@ -48,14 +48,19 @@ class DomainDiscriminator(nn.Module):
             layer.weight.copy_(w * std)
             layer.bias.zero_()
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                rows: tuple[int, torch.Tensor] | None = None) -> torch.Tensor:
         """Domain logits (B, 2) in fp32. In train mode the outputs of fc0 and
-        fc1 take dropout, drawn from ``generator``."""
+        fc1 take dropout, drawn from ``generator``; with ``rows`` = (global
+        rows, the indices of x's rows among them) the masks are drawn for the
+        global rows and x's taken (a data mesh's rank holds some rows)."""
         x = x.float()
+        n_rows, index = rows if rows is not None else (x.shape[0], None)
         for i, layer in enumerate((self.fc0, self.fc1, self.fc2)):
             x = torch.relu(layer(x))
             if i < 2 and self.training and self.dropout_rate > 0.0:
-                keep = _keep_mask(tuple(x.shape), self.dropout_rate, generator, x.device)
+                keep = _keep_mask((n_rows, x.shape[1]), self.dropout_rate, generator, x.device,
+                                  index)
                 x = torch.where(keep, x / (1.0 - self.dropout_rate),
                                 torch.zeros((), dtype=x.dtype, device=x.device))
         return self.out(x)

@@ -67,6 +67,20 @@ prologue dW, 4 pool forward and 4 pool backward, 1 head, 1 head-dx and 1
 head-weight-gradient launch, and the library's 7 convs and 4 transpose
 convs forward.
 
+On a multi-device mesh (``parallel/mesh.py``, one process per GPU) each
+rank runs its shard of the global batch, as the JAX package's model runs
+under its mesh: every DoubleConv takes the per-conv chain (the fused block
+is single-device, ``unet3d.py:_fused_boundary_path``); its BatchNorm takes
+the global batch's statistics (fp32 sums of y and y^2 all-reduced over the
+mesh, over the global count); under a spatial axis every 3x3x3 conv, the
+kernels' and the deep region's, in train and eval, runs on this rank's
+haloed slab of D (``ops/halo.py``); the Dropout3d masks are drawn for the
+global batch from the step's generator, the same on every rank, and each
+rank takes its rows; the bottleneck's feature mean is the slabs' sums
+all-reduced over the spatial group. Pools, upconvs and the head stay on
+their kernels, on each rank's slab. A mesh of one device, or none, is the
+single-device path.
+
 On the CPU the same ops run their plain versions. ``dtype`` is the compute
 dtype (bf16 or fp32); parameters stay fp32.
 """
@@ -81,6 +95,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from multimodal_segmentation_project_tpu_torch.ops import conv3, conv3_fused, head, pool, upconv
+from multimodal_segmentation_project_tpu_torch.ops.halo import halo_conv3
+from multimodal_segmentation_project_tpu_torch.parallel.mesh import (
+    SPATIAL_AXIS,
+    active_multi_mesh,
+    active_spatial_mesh,
+    data_rows,
+    reduce_count,
+    reduce_sum,
+)
 
 
 FLAX_MOMENTUM = 0.9  # weight of the old value in the running statistics
@@ -117,11 +140,20 @@ def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm3d) -> torch.Tensor:
     """Train-mode BatchNorm as flax computes it: fp32 batch statistics over
     (B, D, H, W), the biased variance max(E[y^2] - E[y]^2, 0), output
     (y - mean) * scale / sqrt(var + eps) + bias in fp32. Updates the running
-    statistics in place with flax's momentum and the biased variance."""
+    statistics in place with flax's momentum and the biased variance. On a
+    multi-device mesh the statistics are the global batch's: fp32 sums of y
+    and y^2, all-reduced over the mesh in one buffer, over the global count
+    (sync BatchNorm, as the JAX package's BatchNorm of a sharded batch)."""
     yf = y.float()
     dims = (0, 2, 3, 4)
-    mean = yf.mean(dims)
-    var = torch.clamp(yf.square().mean(dims) - mean.square(), min=0.0)
+    if active_multi_mesh() is None:
+        mean = yf.mean(dims)
+        var = torch.clamp(yf.square().mean(dims) - mean.square(), min=0.0)
+    else:
+        n = reduce_count(yf.numel() // yf.shape[1])
+        s1, s2 = reduce_sum(torch.stack([yf.sum(dims), yf.square().sum(dims)]))
+        mean = s1 / n
+        var = torch.clamp(s2 / n - mean.square(), min=0.0)
     _update_running(bn, mean, var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     return (yf - mean.reshape(1, -1, 1, 1, 1)) * mul.reshape(1, -1, 1, 1, 1) + bn.bias.reshape(
@@ -143,11 +175,15 @@ def batch_norm_affine(s1: torch.Tensor, s2: torch.Tensor, n: int,
 
 
 def _keep_mask(shape: tuple[int, int], rate: float, generator: torch.Generator | None,
-               device: torch.device) -> torch.Tensor:
+               device: torch.device, rows=None) -> torch.Tensor:
     """Dropout3d's keep mask per (batch, channel), drawn on the generator's
-    device and moved to ``device``."""
+    device and moved to ``device``; with ``rows``, the mask of the global
+    rows ``shape[0]`` is drawn and those rows are taken (every rank draws
+    the same mask from the step's generator)."""
     dev = generator.device if generator is not None else torch.device("cpu")
     mask = torch.rand(shape, generator=generator, device=dev) < 1.0 - rate
+    if rows is not None:
+        mask = mask[rows]
     return mask.to(device, non_blocking=True)
 
 
@@ -165,8 +201,27 @@ def dropout3d(z: torch.Tensor, rate: float, generator: torch.Generator | None) -
     scaled by 1 / (1 - rate)."""
     if rate <= 0.0:
         return z
-    mask = _keep_mask(tuple(z.shape[:2]), rate, generator, z.device)[:, :, None, None, None]
+    n_rows, rows = data_rows(z.shape[0])
+    mask = _keep_mask((n_rows, z.shape[1]), rate, generator, z.device,
+                      rows)[:, :, None, None, None]
     return torch.where(mask, z / (1.0 - rate), torch.zeros((), dtype=z.dtype, device=z.device))
+
+
+def _library_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The deep region's SAME conv, w (Cout, Cin, 3, 3, 3) in x's dtype."""
+    return F.conv3d(x, w, b, padding=1)
+
+
+def _library_conv_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.relu(F.conv3d(x, w, b, padding=1))
+
+
+def _conv(conv_fn, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``conv_fn(x, w, b)``, on a haloed slab of the volume's D axis under a
+    spatial mesh (``ops/halo.py``), as the JAX package runs every conv there
+    in a halo-exchange island."""
+    mesh = active_spatial_mesh()
+    return conv_fn(x, w, b) if mesh is None else halo_conv3(conv_fn, x, w, b, mesh)
 
 
 class DoubleConv(nn.Module):
@@ -201,18 +256,20 @@ class DoubleConv(nn.Module):
         for w, b in self.folded():
             x = x.to(dtype)
             if conv3.eval_route(dtype, w.shape[3], w.shape[4]) is not None:
-                x = conv3.conv3x3x3_cf_relu(x, w, b)
+                x = _conv(conv3.conv3x3x3_cf_relu, x, w, b)
             else:  # deep region
-                wt = w.permute(4, 3, 0, 1, 2).to(dtype)
-                x = torch.relu(F.conv3d(x, wt, b.to(dtype), padding=1))
-        return x
+                x = _conv(_library_conv_relu, x, w.permute(4, 3, 0, 1, 2).to(dtype), b.to(dtype))
+        return x.contiguous()  # a haloed slab's interior is a view
 
     def fused(self) -> bool:
         """Whether the train-mode forward takes the fused path: both convs
-        on the kernels, in either dtype, on any device."""
+        on the kernels, in either dtype, on any device, and no multi-device
+        mesh (the JAX package's fused block is single-device only,
+        ``unet3d.py:_fused_boundary_path``)."""
         c0, c1 = self.double_conv[0], self.double_conv[4]
         return (conv3.supported(c0.in_channels, c0.out_channels)
-                and conv3.supported(c1.in_channels, c1.out_channels))
+                and conv3.supported(c1.in_channels, c1.out_channels)
+                and active_multi_mesh() is None)
 
     def forward_train(self, x: torch.Tensor, dtype: torch.dtype,
                       generator: torch.Generator | None = None) -> torch.Tensor:
@@ -249,9 +306,9 @@ class DoubleConv(nn.Module):
             conv, bn = self.double_conv[ci], self.double_conv[bi]
             x = x.to(dtype)
             if conv3.supported(conv.in_channels, conv.out_channels):
-                y = conv3.conv3x3x3_cf(x, conv.weight.permute(2, 3, 4, 1, 0), conv.bias)
+                y = _conv(conv3.conv3x3x3_cf, x, conv.weight.permute(2, 3, 4, 1, 0), conv.bias)
             else:  # deep region
-                y = F.conv3d(x, conv.weight.to(dtype), conv.bias.to(dtype), padding=1)
+                y = _conv(_library_conv, x, conv.weight.to(dtype), conv.bias.to(dtype))
             z = torch.relu(batch_norm_train(y, bn))
             x = dropout3d(z, self.double_conv[di].p, generator).to(dtype)
         return x
@@ -261,6 +318,15 @@ class DoubleConv(nn.Module):
         if self.training:
             return self.forward_train(x, dtype, generator)
         return self.forward_eval(x, dtype)
+
+
+def _global_average(x: torch.Tensor) -> torch.Tensor:
+    """(B, C) fp32 mean over (D, H, W); under a spatial mesh the slabs' sums
+    all-reduced over the spatial group, over the volume's voxel count."""
+    if active_spatial_mesh() is None:
+        return x.float().mean(dim=(2, 3, 4))
+    voxels = reduce_count(x[0, 0].numel(), SPATIAL_AXIS)
+    return reduce_sum(x.float().sum(dim=(2, 3, 4)), SPATIAL_AXIS) / voxels
 
 
 class UNet3D(nn.Module):
@@ -331,7 +397,7 @@ class UNet3D(nn.Module):
             skips.append(x)
             x = pool.max_pool2x_cf(x)
         x = self.bottleneck(x, dt, generator)
-        feat = x.float().mean(dim=(2, 3, 4)) if return_features else None
+        feat = _global_average(x) if return_features else None
 
         for up, dec, skip in zip(self.upconvs, self.decoder, reversed(skips)):
             k = up.weight.permute(2, 3, 4, 0, 1)  # (Cin, Cout, 2,2,2) -> (2,2,2,Cin,Cout)

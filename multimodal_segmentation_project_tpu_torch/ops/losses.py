@@ -15,11 +15,21 @@ reference quirks it keeps on purpose:
 
 Logits are ``(B, C, *spatial)``; labels are integer class maps
 ``(B, *spatial)``. A ``(B, C)`` / ``(B,)`` pair works too.
+
+On a multi-device mesh (``parallel/mesh.py``) each rank holds its shard of
+the global batch, and each global sum is the sum all-reduced over the mesh
+(``reduce_sum``, whose backward all-reduces too): the CE sum over the
+global count, the per-class sums of Dice and Tversky, the KL mean. Every
+rank then computes the loss of the global batch, as the JAX loss sees the
+global array. ``parallel.mesh.reduction_axis`` narrows that to one axis
+(a per-sample loss, rows replicated over the spatial axis).
 """
 
 from __future__ import annotations
 
 import torch
+
+from multimodal_segmentation_project_tpu_torch.parallel.mesh import reduce_mean, reduce_sum
 
 CH = 1  # channel axis (B, C, *spatial)
 
@@ -35,7 +45,7 @@ def _per_class_fg_sums(logits: torch.Tensor, labels: torch.Tensor):
         tp.append((pc * tc).sum())
         ps.append(pc.sum())
         ts.append(tc.sum())
-    tp, ps, ts = torch.stack(tp), torch.stack(ps), torch.stack(ts)
+    tp, ps, ts = reduce_sum(torch.stack([torch.stack(tp), torch.stack(ps), torch.stack(ts)]))
     return tp, ps, ts, ps - tp, ts - tp
 
 
@@ -43,7 +53,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     """Mean softmax cross-entropy over all voxels (nn.CrossEntropyLoss)."""
     logp = torch.log_softmax(logits.float(), dim=CH)
     picked = logp.gather(CH, labels.long().unsqueeze(CH)).squeeze(CH)
-    return -picked.mean()
+    return -reduce_mean(picked)
 
 
 def soft_dice_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -84,7 +94,7 @@ def distillation_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor
     s = student_logits.float() / temperature
     t = teacher_logits.float() / temperature
     kl = torch.softmax(t, dim=CH) * (torch.log_softmax(t, dim=CH) - torch.log_softmax(s, dim=CH))
-    return alpha * seg + (1.0 - alpha) * kl.mean() * temperature**2
+    return alpha * seg + (1.0 - alpha) * reduce_mean(kl) * temperature**2
 
 
 def get_loss_fn(loss_type: str):

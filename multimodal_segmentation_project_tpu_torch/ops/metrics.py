@@ -16,35 +16,66 @@ function with the JAX one's arguments, defaults and epsilons:
 
 eps = 1e-5 on numerator and denominator elsewhere. Every multiclass metric
 reads its sums from one helper, :func:`_confusion_sums`.
+
+On a multi-device mesh (``parallel/mesh.py``) the counts are all-reduced as
+integers: the batch-pooled ones over the whole mesh, the per-sample ones
+over the spatial group (a volume's rows lie on one data rank), so every
+rank reads the metrics of the global batch, or of its own volumes.
 """
 
 from __future__ import annotations
 
 import torch
 
+from multimodal_segmentation_project_tpu_torch.parallel.mesh import (
+    MESH_AXES,
+    SPATIAL_AXIS,
+    active_multi_mesh,
+    reduce_count,
+    reduce_sum,
+)
+
 EPS = 1e-5
 
 
-def _confusion_sums(pred_classes: torch.Tensor, labels: torch.Tensor, num_classes: int):
+def _confusion_sums(pred_classes: torch.Tensor, labels: torch.Tensor, num_classes: int,
+                    axis: str = SPATIAL_AXIS):
     """Per-sample fp32 (intersection, pred_sum, target_sum) of classes
-    1..C-1 over every axis but the first: (B, C-1) each."""
+    1..C-1 over every axis but the first: (B, C-1) each; the integer counts
+    summed over the mesh's ``axis`` first."""
     spatial = tuple(range(1, pred_classes.dim()))
     inter, psum, tsum = [], [], []
     for c in range(1, num_classes):
         pm = pred_classes == c
         tm = labels == c
-        # integer counts are exact; fp32 holds them exactly below 2**24 voxels
-        inter.append((pm & tm).sum(dim=spatial).float())
-        psum.append(pm.sum(dim=spatial).float())
-        tsum.append(tm.sum(dim=spatial).float())
-    return torch.stack(inter, 1), torch.stack(psum, 1), torch.stack(tsum, 1)
+        inter.append((pm & tm).sum(dim=spatial))
+        psum.append(pm.sum(dim=spatial))
+        tsum.append(tm.sum(dim=spatial))
+    counts = reduce_sum(torch.stack([torch.stack(inter, 1), torch.stack(psum, 1),
+                                     torch.stack(tsum, 1)]), axis)
+    # integer counts are exact; fp32 holds them exactly below 2**24 voxels
+    return tuple(counts.float())
 
 
 def _global_sums(logits: torch.Tensor, labels: torch.Tensor):
-    """The argmax and its sums pooled over the whole batch: (C-1,) each."""
+    """The argmax and its sums pooled over the whole (global) batch: (C-1,)
+    each."""
     pred = logits.argmax(dim=1)
-    sums = _confusion_sums(pred.reshape(1, -1), labels.reshape(1, -1), logits.shape[1])
+    sums = _confusion_sums(pred.reshape(1, -1), labels.reshape(1, -1), logits.shape[1],
+                           MESH_AXES)
     return pred, tuple(s[0] for s in sums)
+
+
+def _accuracy(pred: torch.Tensor, labels: torch.Tensor, dims=None,
+              axis: str = MESH_AXES) -> torch.Tensor:
+    """The share of voxels whose class is right, over ``dims`` (all), the
+    counts summed over the mesh's ``axis`` first."""
+    hit = pred == labels
+    if active_multi_mesh() is None:
+        return hit.float().mean() if dims is None else hit.float().mean(dim=dims)
+    n = hit.numel() if dims is None else hit[0].numel()
+    total = hit.sum() if dims is None else hit.sum(dim=dims)
+    return reduce_sum(total, axis).float() / reduce_count(n, axis)
 
 
 def _scores(inter, psum, tsum, eps: float = EPS) -> dict[str, torch.Tensor]:
@@ -78,7 +109,7 @@ def per_class_dice_iou(
     """Per-class scores pooled over the whole batch: shape (C-1,) each."""
     flat_p = pred_classes.reshape(1, -1)
     flat_l = labels.reshape(1, -1)
-    out = per_class_dice_iou_per_sample(flat_p, flat_l, num_classes)
+    out = _scores(*_confusion_sums(flat_p, flat_l, num_classes, MESH_AXES))
     return {k: v[0] for k, v in out.items()}
 
 
@@ -100,7 +131,7 @@ def calculate_iou(logits: torch.Tensor, labels: torch.Tensor,
 
 def calculate_accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Voxel accuracy after the argmax."""
-    return (logits.argmax(dim=1) == labels).float().mean()
+    return _accuracy(logits.argmax(dim=1), labels)
 
 
 def segmentation_metrics(logits: torch.Tensor, labels: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -111,7 +142,7 @@ def segmentation_metrics(logits: torch.Tensor, labels: torch.Tensor) -> dict[str
     return {
         "dice": _present_mean(s["dice"], s["present"]),
         "iou": _present_mean(s["iou"], s["present"]),
-        "acc": (pred == labels).float().mean(),
+        "acc": _accuracy(pred, labels),
     }
 
 
@@ -124,7 +155,7 @@ def segmentation_metrics_per_sample(logits: torch.Tensor,
     return {
         "dice": _present_mean(s["dice"], s["present"]),
         "iou": _present_mean(s["iou"], s["present"]),
-        "acc": (pred == labels).float().mean(dim=tuple(range(1, pred.dim()))),
+        "acc": _accuracy(pred, labels, tuple(range(1, pred.dim())), SPATIAL_AXIS),
     }
 
 

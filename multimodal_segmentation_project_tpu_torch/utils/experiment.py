@@ -36,7 +36,10 @@ class ExperimentPaths:
     plots: str
 
     @classmethod
-    def create(cls, experiment_dir: str, experiment_name: str) -> "ExperimentPaths":
+    def create(cls, experiment_dir: str, experiment_name: str,
+               make_dirs: bool = True) -> "ExperimentPaths":
+        """The tree's paths, and its directories where ``make_dirs`` (rank 0
+        of a multi-GPU run makes them; the others write nothing)."""
         root = os.path.join(experiment_dir, experiment_name)
         paths = cls(
             root=root,
@@ -44,8 +47,9 @@ class ExperimentPaths:
             logs=os.path.join(root, "logs"),
             plots=os.path.join(root, "plots"),
         )
-        for p in (paths.root, paths.checkpoints, paths.logs, paths.plots):
-            os.makedirs(p, exist_ok=True)
+        if make_dirs:
+            for p in (paths.root, paths.checkpoints, paths.logs, paths.plots):
+                os.makedirs(p, exist_ok=True)
         return paths
 
 

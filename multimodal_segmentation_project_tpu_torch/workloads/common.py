@@ -4,6 +4,15 @@ A copy of the JAX package's ``workloads/common.py`` flags and defaults
 (the reference drivers' names, plus the JAX package's extras), so that a
 recipe written for the JAX CLI runs here unchanged, and ``--device``,
 which picks the GPU (default) or the CPU.
+
+Several GPUs: one process per GPU under ``torchrun``.
+:func:`maybe_init_multihost` initialises ``torch.distributed`` from
+torchrun's environment whenever it is present (NCCL on CUDA, gloo with
+``--device cpu``); ``--multihost`` names a multi-node torchrun launch.
+:func:`check_world` refuses the mesh flags the world cannot satisfy
+(``--n_spatial`` or ``--n_data`` asking for more ranks than exist,
+``--multihost`` without torchrun's environment), with a hint to launch
+under torchrun: a run never goes on with fewer ranks than it asked for.
 """
 
 from __future__ import annotations
@@ -11,6 +20,14 @@ from __future__ import annotations
 import argparse
 
 import torch
+
+from multimodal_segmentation_project_tpu_torch.parallel.mesh import (
+    TORCHRUN_HINT,
+    init_distributed,
+    rank,
+    torchrun_env,
+    world_size,
+)
 
 
 def parse_modalities(value):
@@ -76,13 +93,15 @@ def add_common_args(parser: argparse.ArgumentParser, lr_default: float = 1e-3):
     parser.add_argument("--early_stopping", action="store_true")
     parser.add_argument("--patience", type=int, default=10)
     parser.add_argument("--n_samples", type=int, default=None)
-    # the JAX package's extras; the mesh flags take one device only here
+    # the JAX package's extras: the mesh over torchrun's ranks
     parser.add_argument("--n_spatial", type=int, default=1,
-                        help="volume sharding over devices (only 1: one GPU)")
+                        help="spatial (D-axis halo-exchange) sharding over ranks")
     parser.add_argument("--no_auto_spatial", action="store_true",
-                        help="accepted for the JAX CLI's recipes; one GPU has no idle chips")
+                        help="do not auto-raise n_spatial to fill idle ranks "
+                             "when the global batch is smaller than the world")
     parser.add_argument("--n_data", type=int, default=None,
-                        help="data-parallel size (only 1: one GPU)")
+                        help="data-parallel axis size (default: the largest that divides "
+                             "the global batch)")
     parser.add_argument("--no_remat", action="store_true",
                         help="accepted for the JAX CLI's recipes; the port does not rematerialize")
     parser.add_argument("--resume", type=str, default=None,
@@ -95,16 +114,43 @@ def add_common_args(parser: argparse.ArgumentParser, lr_default: float = 1e-3):
     parser.add_argument("--no_nan_guard", action="store_true",
                         help="disable skip-update-on-nonfinite-gradients")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-host training (not in the port yet)")
+                        help="a multi-node torchrun launch (torch.distributed initialises "
+                             "from torchrun's environment whenever it is present)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu', which runs the plain PyTorch ops")
     return parser
 
 
-def check_one_device(args) -> None:
-    """The port trains on one GPU so far: refuse mesh flags clearly."""
-    if args.n_spatial != 1 or (args.n_data not in (None, 1)) or args.multihost:
-        raise ValueError(
-            "the port trains on one device: --n_spatial 1, --n_data 1 (or unset) and "
-            "no --multihost (multi-GPU training is a later slice)"
-        )
+def maybe_init_multihost(args) -> None:
+    """``torch.distributed`` from torchrun's environment, when it is present:
+    NCCL on CUDA, gloo on the CPU, one rank per GPU (LOCAL_RANK)."""
+    if getattr(args, "multihost", False) and not torchrun_env():
+        raise ValueError(f"--multihost needs torchrun's environment (RANK, WORLD_SIZE): "
+                         f"{TORCHRUN_HINT}")
+    if torchrun_env():
+        init_distributed(device=getattr(args, "device", "cuda"))
+
+
+def check_world(args) -> None:
+    """Refuse mesh flags that ask for more ranks than the world has."""
+    world = world_size()
+    n_spatial = getattr(args, "n_spatial", 1) or 1
+    n_data = getattr(args, "n_data", None)
+    needed = (n_data or 1) * n_spatial
+    if n_spatial < 1 or (n_data is not None and n_data < 1):
+        raise ValueError(f"--n_spatial {n_spatial} and --n_data {n_data} must be >= 1")
+    if needed > world:
+        raise ValueError(f"--n_spatial {n_spatial} and --n_data {n_data} need {needed} ranks, "
+                         f"the world has {world}: {TORCHRUN_HINT}")
+
+
+def say(*args) -> None:
+    """print on rank 0 only (every rank of a multi-GPU run runs the CLI)."""
+    if rank() == 0:
+        print(*args, flush=True)
+
+
+def init_world(args) -> None:
+    """The CLIs' start: :func:`maybe_init_multihost`, then :func:`check_world`."""
+    maybe_init_multihost(args)
+    check_world(args)

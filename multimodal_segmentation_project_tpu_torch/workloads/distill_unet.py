@@ -1,4 +1,5 @@
-"""Knowledge distillation, a frozen teacher to a student, on one GPU.
+"""Knowledge distillation, a frozen teacher to a student, on one GPU
+or several (torchrun, as ``train_unet``).
 
 Port of ``multimodal_segmentation_project_tpu/workloads/distill_unet.py``:
 the same flags and defaults, plus ``--device``. The teacher is a UNet3D of
@@ -36,12 +37,13 @@ from multimodal_segmentation_project_tpu_torch.engine.trainer import (
 from multimodal_segmentation_project_tpu_torch.ops.losses import distillation_loss
 from multimodal_segmentation_project_tpu_torch.workloads.common import (
     add_common_args,
-    check_one_device,
     experiment_name,
+    init_world,
     parse_features,
     parse_modalities,
     resolve_device,
     resolve_precision,
+    say,
 )
 
 
@@ -65,9 +67,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(args) -> dict:
-    check_one_device(args)
     precision = resolve_precision(args.mixed_precision)
     device = resolve_device(args.device, precision)
+    init_world(args)
     modalities = parse_modalities(args.modalities)
     train_dataset = CombinedDataset(os.path.join(args.data_root, "train"), modalities=modalities)
     val_dataset = CombinedDataset(os.path.join(args.data_root, "val"), modalities=modalities)
@@ -95,6 +97,9 @@ def main(args) -> dict:
         profile_first_epoch=args.profile,
         resume=args.resume,
         num_workers=args.num_workers,
+        n_spatial=args.n_spatial,
+        auto_spatial=not args.no_auto_spatial,
+        n_data=args.n_data,
         device=str(device),
         log_name="distill_log.csv",
         best_prefix="best_student",
@@ -110,7 +115,7 @@ def main(args) -> dict:
     )
     teacher = build_model(cfg)
     ckpt.load_params_any(teacher, args.teacher_model)
-    print(f"[START] knowledge distillation (teacher: {args.teacher_model})")
+    say(f"[START] knowledge distillation (teacher: {args.teacher_model})")
 
     def kd(student_logits, teacher_logits, labels):
         return distillation_loss(student_logits, teacher_logits, labels, alpha=args.alpha,

@@ -1,4 +1,5 @@
-"""Fine-tuning a pretrained UNet3D on a few labelled CT volumes, on one GPU.
+"""Fine-tuning a pretrained UNet3D on a few labelled CT volumes, on one GPU
+or several (torchrun, as ``train_unet``).
 
 Port of ``multimodal_segmentation_project_tpu/workloads/finetune_ct.py``:
 the same flags and defaults, plus ``--device``. It differs from baseline
@@ -35,12 +36,13 @@ from multimodal_segmentation_project_tpu_torch.data import CombinedDataset, seed
 from multimodal_segmentation_project_tpu_torch.engine.trainer import Trainer, TrainerConfig
 from multimodal_segmentation_project_tpu_torch.workloads.common import (
     add_common_args,
-    check_one_device,
     experiment_name,
+    init_world,
     parse_features,
     parse_modalities,
     resolve_device,
     resolve_precision,
+    say,
 )
 
 
@@ -66,9 +68,9 @@ def default_experiment_name(args) -> str:
 
 
 def main(args) -> dict:
-    check_one_device(args)
     precision = resolve_precision(args.mixed_precision)
     device = resolve_device(args.device, precision)
+    init_world(args)
     modalities = parse_modalities(args.modalities)
     train_dataset = CombinedDataset(os.path.join(args.data_root, "train"), modalities=modalities)
     val_dataset = CombinedDataset(os.path.join(args.data_root, "val"), modalities=modalities)
@@ -98,6 +100,9 @@ def main(args) -> dict:
         profile_first_epoch=args.profile,
         resume=args.resume,
         num_workers=args.num_workers,
+        n_spatial=args.n_spatial,
+        auto_spatial=not args.no_auto_spatial,
+        n_data=args.n_data,
         device=str(device),
         pretrained_model=args.pretrained_model,
         pretrained_strict=True,
@@ -107,7 +112,7 @@ def main(args) -> dict:
         plot_title="Fine-tuning Metrics (CT Data)",
         extra_config={"modalities": args.modalities, "n_samples": args.n_samples},
     )
-    print("[START] CT fine-tuning\n" + "=" * 50)
+    say("[START] CT fine-tuning\n" + "=" * 50)
     return Trainer(cfg, train_dataset, val_dataset).run()
 
 

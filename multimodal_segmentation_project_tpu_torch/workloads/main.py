@@ -14,7 +14,9 @@ and ``cyclegan`` are stubs that print, as in the reference.
 
 It runs on the GPU unless ``--device cpu`` is given; asking for the GPU
 where there is none raises. Every training experiment runs in fp32 by
-default (``--mixed_precision no``) or in bf16.
+default (``--mixed_precision no``) or in bf16. Under torchrun, one process
+per GPU, every CLI runs on the mesh of ``--n_data`` and ``--n_spatial``
+(``workloads/common.py``); only rank 0 prints this banner.
 """
 
 from __future__ import annotations
@@ -87,6 +89,8 @@ def _sub_args(module, args) -> argparse.Namespace:
 
 
 def _device_banner(name: str) -> None:
+    if int(os.environ.get("RANK", "0")) != 0:  # torchrun's other ranks
+        return
     print("\n=== Device Information ===")
     if name.startswith("cuda") and torch.cuda.is_available():
         print(f"Backend: cuda {torch.version.cuda}, torch {torch.__version__}")

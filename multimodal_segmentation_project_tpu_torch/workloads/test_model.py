@@ -25,6 +25,15 @@ conv, pool and head kernels and the library's convs and transpose convs
 with cuDNN's TF32 off, as the JAX package's fp32 policy computes it. The
 first forward is a warm-up (kernel build and load included) and is not
 timed; every timed forward is bracketed by ``torch.cuda.synchronize()``.
+
+On several GPUs (one process per GPU under torchrun), as the JAX CLI
+(``test_model.py:_eval_mesh_and_put``): a ``--batch_size`` above 1 splits
+each batch over ``min(batch, world)`` data ranks (the largest count that
+divides the batch), each rank evaluates its volumes, and rank 0 gathers
+their classes and per-sample metrics and alone writes ``metrics.json``, the
+CSV and the NIfTI and PNG files; the other ranks print nothing. Batch 1
+stays on rank 0 (the volume is not split: the JAX eval CLI shards only the
+batch). A rank outside the data axis is idle.
 """
 
 from __future__ import annotations
@@ -42,16 +51,26 @@ import numpy as np
 import torch
 
 from multimodal_segmentation_project_tpu_torch import NUM_CLASSES, ORGAN_NAMES
+import torch.distributed as dist
+
 from multimodal_segmentation_project_tpu_torch.data import (
     CombinedDataset,
     DataLoader,
     load_nifti_header,
     save_nifti,
 )
+from multimodal_segmentation_project_tpu_torch.data.pipeline import upload
 from multimodal_segmentation_project_tpu_torch.engine.checkpoint import load_params_any
 from multimodal_segmentation_project_tpu_torch.models.unet3d import UNet3D
 from multimodal_segmentation_project_tpu_torch.ops.metrics import per_class_dice_iou_per_sample
+from multimodal_segmentation_project_tpu_torch.parallel.mesh import (
+    Mesh,
+    rank,
+    set_active_mesh,
+    world_size,
+)
 from multimodal_segmentation_project_tpu_torch.workloads.common import (
+    maybe_init_multihost,
     parse_features,
     parse_modalities,
     resolve_device,
@@ -142,14 +161,14 @@ def visualize_prediction(image, label, pred, save_path):
     plt.close(fig)
 
 
-def make_predict_fn(model: UNet3D, device: torch.device):
+def make_predict_fn(model: UNet3D, device: torch.device, mesh: Mesh | None = None):
     """numpy (images, labels) -> (uint8 classes on the host, per-sample organ
-    metrics (B, C-1) on the host)."""
+    metrics (B, C-1) on the host); on a data mesh, of this rank's rows of
+    the batch."""
 
     @torch.inference_mode()
     def predict(images: np.ndarray, labels: np.ndarray):
-        x = torch.from_numpy(images).to(device)
-        y = torch.from_numpy(labels).to(device)
+        x, y = upload((images, labels), device, mesh)
         logits = model(x)
         pred = logits.argmax(dim=1)
         organ = per_class_dice_iou_per_sample(pred, y, num_classes=logits.shape[1])
@@ -162,19 +181,53 @@ def make_predict_fn(model: UNet3D, device: torch.device):
     return predict
 
 
+def _eval_mesh_and_put(batch_size: int) -> tuple[int, Mesh | None]:
+    """(n_data, the data mesh or None): batch 1 keeps the single-device path;
+    a larger batch spreads its distinct volumes over min(batch, world)
+    ranks, the largest count that divides the batch (the JAX
+    ``_eval_mesh_and_put``; the upload takes each rank's rows)."""
+    world = world_size()
+    n_data = next(d for d in range(min(batch_size, world), 0, -1) if batch_size % d == 0)
+    if n_data <= 1:
+        return 1, None
+    mesh = Mesh(n_data, 1)
+    set_active_mesh(mesh)
+    return n_data, mesh
+
+
+def _gather_rows(mesh: Mesh | None, *arrays):
+    """Each data rank's rows of ``arrays``, concatenated in rank order, on
+    rank 0 (None on the others)."""
+    if mesh is None:
+        return arrays
+    parts = [None] * mesh.size if mesh.rank == 0 else None
+    dist.gather_object(arrays, parts, dst=0, group=mesh.group)
+    if mesh.rank != 0:
+        return None
+    return tuple(np.concatenate(rows) for rows in zip(*parts))
+
+
 def test_model(model, device, test_dataset, args, results_dir) -> dict:
+    batch_size = max(1, int(args.batch_size or 1))
+    n_data, mesh = _eval_mesh_and_put(batch_size)
+    if rank() >= n_data:  # outside the data axis: idle
+        return {}
+    is_main = rank() == 0
     predictions_dir = os.path.join(results_dir, "predictions")
     metrics_dir = os.path.join(results_dir, "metrics")
     visualizations_dir = os.path.join(results_dir, "visualizations")
-    for d in (predictions_dir, metrics_dir, visualizations_dir):
-        os.makedirs(d, exist_ok=True)
+    if is_main:
+        for d in (predictions_dir, metrics_dir, visualizations_dir):
+            os.makedirs(d, exist_ok=True)
 
     visualize = not args.no_visualizations
     if visualize and importlib.util.find_spec("matplotlib") is None:
-        print("[INFO] matplotlib is not installed: no visualizations")
+        if is_main:
+            print("[INFO] matplotlib is not installed: no visualizations")
         visualize = False
-    predict = make_predict_fn(model, device)
-    batch_size = max(1, int(args.batch_size or 1))
+    predict = make_predict_fn(model, device, mesh)
+    if batch_size > 1 and is_main:
+        print(f"[EVAL] batch_size={batch_size}, sharded over {n_data} device(s)")
     loader = DataLoader(test_dataset, batch_size=batch_size, shuffle=False, num_workers=2)
 
     def export_sample(image0, label0, pred0, name, image_path):
@@ -203,7 +256,8 @@ def test_model(model, device, test_dataset, args, results_dir) -> dict:
     predict(np.repeat(img0[None], batch_size, 0), np.repeat(lbl0[None], batch_size, 0))
     _sync(device)
     warmup_time = time.time() - t0
-    print(f"[WARMUP] first forward (incl. kernel build/load) took {warmup_time:.1f}s")
+    if is_main:
+        print(f"[WARMUP] first forward (incl. kernel build/load) took {warmup_time:.1f}s")
 
     per_sample = []
     total_inference_time = 0.0
@@ -221,10 +275,13 @@ def test_model(model, device, test_dataset, args, results_dir) -> dict:
                     labels = np.concatenate([labels, np.repeat(labels[:1], pad, 0)], 0)
                 _sync(device)
                 start = time.time()
-                pred, dice, iou = predict(images, labels)
+                rows = _gather_rows(mesh, *predict(images, labels))
                 _sync(device)
                 batch_time = time.time() - start
                 total_inference_time += batch_time
+                if rows is None:  # rank 0 reports and writes
+                    continue
+                pred, dice, iou = rows
 
                 for j in range(b):
                     i = bi * batch_size + j
@@ -252,12 +309,16 @@ def test_model(model, device, test_dataset, args, results_dir) -> dict:
             except Exception as e:  # per-sample resilience, as the reference eval
                 import traceback
 
+                if mesh is not None:  # the other ranks wait in this batch's gather
+                    raise
                 print(f"Error processing batch {bi + 1}: {e}")
                 traceback.print_exc()
                 continue
         for fut in export_futures:
             fut.result()
     end_to_end_time = time.time() - loop_start
+    if not is_main:
+        return {}
 
     fieldnames = (
         ["filename"]
@@ -296,6 +357,7 @@ def test_model(model, device, test_dataset, args, results_dir) -> dict:
 
 def main(args) -> dict:
     device = resolve_device(args.device, args.precision)
+    maybe_init_multihost(args)
     model = UNet3D(
         in_channels=1, out_channels=NUM_CLASSES, features=parse_features(args.features),
         dropout_rate=0.0, dtype=DTYPES[args.precision],
@@ -308,13 +370,13 @@ def main(args) -> dict:
     )
     ts = datetime.now().strftime("%Y%m%d_%H%M%S")
     results_dir = os.path.join(args.experiment_dir, f"test_results_{args.model_name}_{ts}")
-    os.makedirs(results_dir, exist_ok=True)
-    with open(os.path.join(results_dir, "test_config.txt"), "w") as f:
-        f.write("Test Configuration:\n")
-        for k, v in vars(args).items():
-            f.write(f"{k}: {v}\n")
-
-    print(f"\n[TEST] starting testing with model: {args.model_name} on {device}")
+    if rank() == 0:
+        os.makedirs(results_dir, exist_ok=True)
+        with open(os.path.join(results_dir, "test_config.txt"), "w") as f:
+            f.write("Test Configuration:\n")
+            for k, v in vars(args).items():
+                f.write(f"{k}: {v}\n")
+        print(f"\n[TEST] starting testing with model: {args.model_name} on {device}")
     return test_model(model, device, test_dataset, args, results_dir)
 
 

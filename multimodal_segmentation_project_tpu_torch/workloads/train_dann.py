@@ -1,4 +1,5 @@
-"""DANN domain-adversarial adaptation, MRI source to CT target, on one GPU.
+"""DANN domain-adversarial adaptation, MRI source to CT target, on one GPU
+or several (torchrun, as ``train_unet``).
 
 Port of ``multimodal_segmentation_project_tpu/workloads/train_dann.py``:
 the same flags and defaults, plus ``--device``, and the same five
@@ -43,12 +44,13 @@ from multimodal_segmentation_project_tpu_torch.data import CombinedDataset, Conc
 from multimodal_segmentation_project_tpu_torch.engine.trainer import DannTrainer, TrainerConfig
 from multimodal_segmentation_project_tpu_torch.workloads.common import (
     add_common_args,
-    check_one_device,
     experiment_name,
+    init_world,
     parse_features,
     parse_modalities,
     resolve_device,
     resolve_precision,
+    say,
 )
 
 
@@ -88,9 +90,9 @@ def default_experiment_name(args) -> str:
 
 
 def main(args) -> dict:
-    check_one_device(args)
     precision = resolve_precision(args.mixed_precision)
     device = resolve_device(args.device, precision)
+    init_world(args)
     src_mod = parse_modalities(args.source_modality)
     tgt_mod = parse_modalities(args.target_modality)
 
@@ -106,7 +108,7 @@ def main(args) -> dict:
     train_tgt = _rng_subset(train_tgt, args.n_target, args.seed)
     source = _rng_subset(ConcatDataset([train_src, add_labeled]), args.n_samples, args.seed)
     target = _rng_subset(ConcatDataset([train_tgt, add_unlabeled]), args.n_samples, args.seed)
-    print(
+    say(
         f"[INFO] source: {len(train_src)} train + {len(add_labeled)} add = {len(source)}; "
         f"target: {len(train_tgt)} + {len(add_unlabeled)} = {len(target)}; "
         f"val: {len(val_ds)}"
@@ -135,6 +137,9 @@ def main(args) -> dict:
         profile_first_epoch=args.profile,
         resume=args.resume,
         num_workers=args.num_workers,
+        n_spatial=args.n_spatial,
+        auto_spatial=not args.no_auto_spatial,
+        n_data=args.n_data,
         device=str(device),
         pretrained_model=args.pretrained_model,
         pretrained_strict=False,
@@ -146,7 +151,7 @@ def main(args) -> dict:
             "n_samples": args.n_samples,
         },
     )
-    print("[START] DANN adversarial training\n" + "=" * 50)
+    say("[START] DANN adversarial training\n" + "=" * 50)
     return DannTrainer(cfg, source, target, val_ds, lambda_domain=args.lambda_domain).run()
 
 

@@ -1,4 +1,4 @@
-"""Baseline supervised 3D U-Net training on one GPU.
+"""Baseline supervised 3D U-Net training on one GPU or several.
 
 Port of ``multimodal_segmentation_project_tpu/workloads/train_unet.py``:
 the same flags and defaults (the reference driver's, plus the JAX
@@ -17,10 +17,20 @@ such a ``.msgpack`` or a ``.pth`` train checkpoint of the port.
 It runs on the GPU unless ``--device cpu`` is given; asking for the GPU
 where there is none raises. ``--mixed_precision no`` (the default, as in
 the JAX CLI) trains in fp32, on the fp32 instances of the kernels; bf16
-(or fp16, which selects bf16 compute) on the bf16 ones.
-The mesh flags take one device only (``--n_spatial 1``, ``--n_data`` 1 or
-unset, no ``--multihost``) until the port trains on several GPUs. ``--no_remat`` and ``--no_auto_spatial``
-are accepted and change nothing here.
+(or fp16, which selects bf16 compute) on the bf16 ones. ``--no_remat`` is
+accepted and changes nothing here.
+
+On several GPUs, one process per GPU under torchrun (NCCL)::
+
+    torchrun --standalone --nproc_per_node 4 \
+        -m multimodal_segmentation_project_tpu_torch.workloads.train_unet --batch_size 1 ...
+
+``--batch_size`` is the global batch. The trainer picks the mesh as the JAX
+trainer does: the largest data axis that divides the batch, then
+``--n_spatial`` raised to split the volume's D over the idle ranks
+(``--no_auto_spatial`` keeps them idle; ``--n_data`` and ``--n_spatial`` set
+the axes). Flags asking for more ranks than torchrun started are refused.
+Only rank 0 writes the experiment's files.
 """
 
 from __future__ import annotations
@@ -33,12 +43,13 @@ from multimodal_segmentation_project_tpu_torch.engine.trainer import Trainer, Tr
 from multimodal_segmentation_project_tpu_torch.utils.experiment import create_experiment_name
 from multimodal_segmentation_project_tpu_torch.workloads.common import (
     add_common_args,
-    check_one_device,
     experiment_name,
+    init_world,
     parse_features,
     parse_modalities,
     resolve_device,
     resolve_precision,
+    say,
 )
 
 
@@ -55,15 +66,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(args) -> dict:
-    check_one_device(args)
     precision = resolve_precision(args.mixed_precision)
     device = resolve_device(args.device, precision)
+    init_world(args)
     modalities = parse_modalities(args.modalities)
     train_dataset = CombinedDataset(os.path.join(args.data_root, "train"), modalities=modalities)
     val_dataset = CombinedDataset(os.path.join(args.data_root, "val"), modalities=modalities)
     train_dataset = seeded_subset(train_dataset, args.n_samples, args.seed)
     if args.n_samples is not None:
-        print(f"[INFO] limited training dataset to {len(train_dataset)} random samples")
+        say(f"[INFO] limited training dataset to {len(train_dataset)} random samples")
 
     cfg = TrainerConfig(
         experiment_dir=args.experiment_dir,
@@ -88,10 +99,13 @@ def main(args) -> dict:
         profile_first_epoch=args.profile,
         resume=args.resume,
         num_workers=args.num_workers,
+        n_spatial=args.n_spatial,
+        auto_spatial=not args.no_auto_spatial,
+        n_data=args.n_data,
         device=str(device),
         extra_config={"modalities": args.modalities, "n_samples": args.n_samples},
     )
-    print("[START] baseline training\n" + "=" * 50)
+    say("[START] baseline training\n" + "=" * 50)
     return Trainer(cfg, train_dataset, val_dataset).run()
 
 

@@ -4,6 +4,8 @@
 # The flags and variables are its JAX twin's; the entry is the port's
 # orchestrator, on the GPU.
 set -e
+# NPROC_PER_NODE: processes (one per GPU; default: the visible GPUs)
+source "$(dirname "$0")/scripts/torch_launch.sh"
 TEACHER=${TEACHER:?set TEACHER to the teacher .msgpack checkpoint}
 DATA_ROOT=${DATA_ROOT:-datasets/resampled}
 EXPERIMENT_DIR=${EXPERIMENT_DIR:-experiments/distill}

@@ -1,10 +1,12 @@
 #!/bin/bash
-# Baseline supervised training on one GPU, with the PyTorch/CUDA port
+# Baseline supervised training on one GPU or several, with the PyTorch/CUDA port
 # (run_training.sh's recipe: batch 1, grad-accum 8, lr 1e-3, wd 1e-4,
 # ce_tversky, bf16, 100 epochs).
 # The flags and variables are its JAX twin's; the entry is the port's
 # orchestrator, on the GPU.
 set -e
+# NPROC_PER_NODE: processes (one per GPU; default: the visible GPUs)
+source "$(dirname "$0")/scripts/torch_launch.sh"
 
 DATA_ROOT=${DATA_ROOT:-datasets/resampled}
 EXPERIMENT_DIR=${EXPERIMENT_DIR:-experiments}

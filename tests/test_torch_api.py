@@ -169,10 +169,10 @@ def test_two_adamw_updates_match_optax(accum):
         assert not np.array_equal(w, start[path]), f"{'/'.join(path)} did not move"
 
 
-# the JAX names the port leaves for multi-device work: the sharded eval step
-# and the mesh package
-MULTI_DEVICE = {"engine": {"make_sharded_eval_step"}}
-MULTI_DEVICE_PACKAGES = {"parallel"}
+# the JAX names the port leaves for multi-device work: none (the sharded eval
+# step and the mesh package are the port's too)
+MULTI_DEVICE: dict = {}
+MULTI_DEVICE_PACKAGES: set = set()
 
 
 def test_exports_cover_the_jax_packages():

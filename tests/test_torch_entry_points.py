@@ -5,7 +5,10 @@ quickstart and the augmentation QA script.
   ``python`` first on ``PATH`` that records its argv: the two argvs are
   equal but for the entry (``-m ..._torch.workloads.main`` against
   ``main.py``), and the port's orchestrator parses the argv.
-  ``run_ablations_torch.sh`` calls its recipe once per n.
+  ``run_ablations_torch.sh`` calls its recipe once per n. With
+  ``NPROC_PER_NODE`` above 1 (or as many devices in
+  ``CUDA_VISIBLE_DEVICES``) a recipe launches the same argv through a stub
+  ``torchrun --standalone --nproc_per_node N``; at 1, through ``python``.
 * ``examples/quickstart_torch.py --device cpu --epochs 1`` writes the JAX
   quickstart's synthetic dataset voxel for voxel, trains in bf16 (the
   kernels' plain versions) and writes a best checkpoint and the eval
@@ -55,6 +58,11 @@ def _calls(script: str, env: dict, tmp: Path) -> list:
     stub.write_text(f'#!/bin/sh\nfor a in "$@"; do printf "%s\\n" "$a"; done >> "$ARGV_LOG"\n'
                     f'echo {END} >> "$ARGV_LOG"\n')
     stub.chmod(0o755)
+    launcher = stub_dir / "torchrun"  # records its own name, then its argv
+    launcher.write_text(f'#!/bin/sh\necho torchrun >> "$ARGV_LOG"\n'
+                        f'for a in "$@"; do printf "%s\\n" "$a"; done >> "$ARGV_LOG"\n'
+                        f'echo {END} >> "$ARGV_LOG"\n')
+    launcher.chmod(0o755)
     log = tmp / f"{script}.argv"
     log.unlink(missing_ok=True)
     full_env = {**os.environ, **env, "ARGV_LOG": str(log),
@@ -84,6 +92,17 @@ def test_recipe_runs_its_jax_twins_flags_through_the_ports_orchestrator(recipe, 
         assert value in port_argv, name
     args = orchestrator.build_parser().parse_args(port_argv[2:])
     assert args.device == "cuda"  # the recipes run on the GPU
+
+
+@pytest.mark.parametrize("recipe", sorted(RECIPES))
+def test_recipe_launches_one_process_per_gpu_through_torchrun(recipe, tmp_path):
+    env = RECIPES[recipe]
+    (one,) = _calls(f"{recipe}_torch.sh", {**env, "NPROC_PER_NODE": "1"}, tmp_path)
+    (two,) = _calls(f"{recipe}_torch.sh", {**env, "NPROC_PER_NODE": "2"}, tmp_path)
+    (three,) = _calls(f"{recipe}_torch.sh", {**env, "CUDA_VISIBLE_DEVICES": "0,1,2"}, tmp_path)
+    assert one[:2] == PORT_ENTRY
+    assert two == ["torchrun", "--standalone", "--nproc_per_node", "2", *one]
+    assert three == ["torchrun", "--standalone", "--nproc_per_node", "3", *one]
 
 
 def test_ablations_recipe_calls_its_torch_recipe_once_per_n(tmp_path):

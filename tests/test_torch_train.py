@@ -392,10 +392,12 @@ def test_train_cli_checkpoints_resume_and_eval(data_root, tmp_path, capsys):
     assert np.isfinite(overall["mean_dice_overall"])
 
 
+# in a world of one (no torchrun environment): each asks for ranks that do
+# not exist, and the refusal says to launch under torchrun
 @pytest.mark.parametrize("extra,match", [
-    (("--n_spatial", "2"), "one device"),
-    (("--n_data", "4"), "one device"),
-    (("--multihost",), "one device"),
+    (("--n_spatial", "2"), "torchrun"),
+    (("--n_data", "4"), "torchrun"),
+    (("--multihost",), "torchrun"),
 ])
 def test_train_cli_refuses_mesh_flags(data_root, tmp_path, extra, match):
     with pytest.raises(ValueError, match=match):
