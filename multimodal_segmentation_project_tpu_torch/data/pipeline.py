@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from multimodal_segmentation_project_tpu_torch.parallel.mesh import shard_batch_arrays
+from multimodal_segmentation_project_tpu_torch.utils.spans import span
 
 
 def _collate(samples):
@@ -89,7 +90,9 @@ class DataLoader:
 
         if self.num_workers <= 0:
             for b in batches:
-                yield _collate([self.dataset[int(i)] for i in b])
+                with span("data.wait"):
+                    batch = _collate([self.dataset[int(i)] for i in b])
+                yield batch
             return
 
         yield from self._prefetch_iter(batches)
@@ -137,15 +140,17 @@ class DataLoader:
 
         try:
             while progress["next"] < n_batches:
-                with lock:
-                    batch = results.pop(progress["next"], None)
-                if batch is not None:
-                    if isinstance(batch, Exception):
-                        raise batch
-                    yield batch
-                    progress["next"] += 1
-                else:
-                    stop.wait(0.005)
+                with span("data.wait"):
+                    while True:
+                        with lock:
+                            batch = results.pop(progress["next"], None)
+                        if batch is not None:
+                            break
+                        stop.wait(0.005)
+                if isinstance(batch, Exception):
+                    raise batch
+                yield batch
+                progress["next"] += 1
         finally:
             stop.set()
 
@@ -157,12 +162,13 @@ def upload(arrays, device, mesh=None) -> list:
     (``parallel.mesh.batch_sharding``)."""
     device = torch.device(device)
     out = []
-    for a in arrays:
-        t = torch.from_numpy(np.ascontiguousarray(
-            a if mesh is None else shard_batch_arrays(mesh, a)))
-        if device.type == "cuda":
-            t = t.pin_memory()
-        out.append(t.to(device, non_blocking=True))
+    with span("data.upload"):
+        for a in arrays:
+            t = torch.from_numpy(np.ascontiguousarray(
+                a if mesh is None else shard_batch_arrays(mesh, a)))
+            if device.type == "cuda":
+                t = t.pin_memory()
+            out.append(t.to(device, non_blocking=True))
     return out
 
 

@@ -17,6 +17,12 @@ BatchNorm running statistics (the forward's update is undone). That is
 what the JAX package's rollback leaves. The check reads one flag on the
 host per step. The step's losses then read 0 and ``nonfinite`` 1.
 
+Under a profiler a step's host time lies in flat spans (``utils/spans.py``):
+``step.augment``, ``step.forward`` (the teacher's forward in one of its
+own), ``step.backward``, ``step.update`` (the metrics and the guard's
+launches), ``step.sync`` (the guard's read: the host blocked on the
+device) and ``step.update`` again (the rollback or the optimizer).
+
 Each step's backward runs inside ``library_precision(model.dtype)``, the
 scope the model's forward runs its library calls in: in an fp32 step
 cuDNN's backward of the deep region's convs and of the fp32 transpose
@@ -58,6 +64,7 @@ from multimodal_segmentation_project_tpu_torch.parallel.mesh import (
     reduction_axis,
     shard_batch_arrays,
 )
+from multimodal_segmentation_project_tpu_torch.utils.spans import span
 
 
 def _bn_buffers(model: torch.nn.Module) -> list[torch.Tensor]:
@@ -76,47 +83,65 @@ def _backward(loss: torch.Tensor, model: torch.nn.Module, *others: torch.nn.Modu
     off in an fp32 model's backward), then, on a multi-device mesh, the
     gradients of ``model`` and ``others`` summed over the mesh in one flat
     buffer and divided by its size."""
-    with library_precision(model.dtype):
-        loss.backward()
-    mesh = active_multi_mesh()
-    if mesh is None:
-        return
-    grads = [p.grad for m in (model, *others) for p in m.parameters() if p.grad is not None]
-    flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), mesh.group)
-    flat /= mesh.size
-    offset = 0
-    for g in grads:
-        g.copy_(flat[offset:offset + g.numel()].view_as(g))
-        offset += g.numel()
+    with span("step.backward"):
+        with library_precision(model.dtype):
+            loss.backward()
+        mesh = active_multi_mesh()
+        if mesh is None:
+            return
+        grads = [p.grad for m in (model, *others) for p in m.parameters() if p.grad is not None]
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), mesh.group)
+        flat /= mesh.size
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
 
 
 def _augment_and_shard(generator, images, labels):
     """The global batch augmented whole, then this rank's slice of it on a
     multi-device mesh."""
-    images, labels = augment_batch(generator, images, labels)
-    mesh = active_multi_mesh()
-    if mesh is not None:
-        images, labels = shard_batch_arrays(mesh, images, labels)
+    with span("step.augment"):
+        images, labels = augment_batch(generator, images, labels)
+        mesh = active_multi_mesh()
+        if mesh is not None:
+            images, labels = shard_batch_arrays(mesh, images, labels)
     return images, labels
 
 
-def _guard(metrics: dict, models: tuple, saved: list, loss_keys: tuple) -> bool:
-    """The NaN guard over the gradients of ``models``: sets
-    ``metrics['nonfinite']`` and returns whether all are finite. If not, it
-    zeroes the losses ``loss_keys``, restores the first model's BatchNorm
-    buffers from ``saved`` and drops every gradient, so no update follows."""
+def _finite_flag(models: tuple) -> torch.Tensor:
+    """The NaN guard's flag on the device: whether every gradient of
+    ``models`` is finite."""
     grads = [p.grad for m in models for p in m.parameters() if p.grad is not None]
-    finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
-    device = grads[0].device
-    metrics["nonfinite"] = torch.tensor(0.0 if finite else 1.0, device=device)
-    if not finite:
-        for k in loss_keys:
-            metrics[k] = torch.zeros((), device=device)
-        with torch.no_grad():
-            for b, old in zip(_bn_buffers(models[0]), saved):
-                b.copy_(old)
-        _zero_grads(*models)
-    return finite
+    return torch.stack([torch.isfinite(g).all() for g in grads]).all()
+
+
+def _guard(metrics: dict, states: tuple, flag, saved: list, loss_keys: tuple) -> dict:
+    """The end of a step, after its metrics: with the NaN guard's ``flag``
+    (None without the guard) the host reads it, which is the one wait on
+    the device a step (``step.sync``), and sets ``metrics['nonfinite']``.
+    A step whose gradients are not all finite zeroes the losses
+    ``loss_keys``, restores the first model's BatchNorm buffers from
+    ``saved`` and drops every gradient; any other updates each state."""
+    finite = True
+    if flag is not None:
+        with span("step.sync"):
+            finite = bool(flag)
+    models = tuple(st.model for st in states)
+    with span("step.update"):
+        if flag is not None:
+            metrics["nonfinite"] = torch.tensor(0.0 if finite else 1.0, device=flag.device)
+        if not finite:
+            for k in loss_keys:
+                metrics[k] = torch.zeros((), device=flag.device)
+            with torch.no_grad():
+                for b, old in zip(_bn_buffers(models[0]), saved):
+                    b.copy_(old)
+            _zero_grads(*models)
+            return metrics
+        for st in states:
+            st.apply_gradients()
+    return metrics
 
 
 def _supervised_step(state, images, labels, generator, nan_guard: bool, loss_fn):
@@ -124,18 +149,18 @@ def _supervised_step(state, images, labels, generator, nan_guard: bool, loss_fn)
     train-mode forward, ``loss_fn(logits, labels)``, the backward, the
     metrics, the guard and the update."""
     model = state.model
-    model.train()
-    saved = [b.clone() for b in _bn_buffers(model)] if nan_guard else None
-    _zero_grads(model)
-    logits = model(images, generator=generator)
-    loss = loss_fn(logits, labels)
+    with span("step.forward"):
+        model.train()
+        saved = [b.clone() for b in _bn_buffers(model)] if nan_guard else None
+        _zero_grads(model)
+        logits = model(images, generator=generator)
+        loss = loss_fn(logits, labels)
     _backward(loss, model)
-    metrics = segmentation_metrics(logits.detach(), labels)
-    metrics["loss"] = loss.detach()
-    if nan_guard and not _guard(metrics, (model,), saved, ("loss",)):
-        return metrics
-    state.apply_gradients()
-    return metrics
+    with span("step.update"):
+        metrics = segmentation_metrics(logits.detach(), labels)
+        metrics["loss"] = loss.detach()
+        flag = _finite_flag((model,)) if nan_guard else None
+    return _guard(metrics, (state,), flag, saved, ("loss",))
 
 
 def make_train_step(loss_fn, augment: bool = False, nan_guard: bool = False):
@@ -210,8 +235,8 @@ def make_distill_step(kd_loss_fn, augment: bool = False, nan_guard: bool = False
     def distill_step(state, teacher, images, labels, generator=None):
         if augment:
             images, labels = _augment_and_shard(generator, images, labels)
-        teacher.eval()
-        with torch.no_grad():
+        with span("step.forward"), torch.no_grad():
+            teacher.eval()
             teacher_logits = teacher(images)
         return _supervised_step(
             state, images, labels, generator, nan_guard,
@@ -260,34 +285,33 @@ def make_dann_step(loss_fn, lambda_domain: float, nan_guard: bool = False):
 
     def dann_step(seg_state, disc_state, src_images, src_labels, tgt_images, generator=None):
         model, disc = seg_state.model, disc_state.model
-        model.train()
-        disc.train()
-        g_src, g_tgt, g_disc = _split_generator(generator, 3)
-        saved = [b.clone() for b in _bn_buffers(model)] if nan_guard else None
-        _zero_grads(model, disc)
-        src_logits, src_feat = model(src_images, return_features=True, generator=g_src)
-        task_loss = loss_fn(src_logits, src_labels)
-        tgt_feat = model(tgt_images, return_features=True, generator=g_tgt)[1]
-        feats = torch.cat([grad_reverse(src_feat, lambda_domain),
-                           grad_reverse(tgt_feat, lambda_domain)])
-        domain_logits = disc(feats, generator=g_disc, rows=_domain_rows(src_feat.shape[0]))
-        domain_labels = torch.cat([
-            torch.zeros(src_feat.shape[0], dtype=torch.long, device=feats.device),
-            torch.ones(tgt_feat.shape[0], dtype=torch.long, device=feats.device),
-        ])
-        # the features' rows are replicated over the spatial axis
-        with reduction_axis(DATA_AXIS):
-            domain_loss = cross_entropy_loss(domain_logits, domain_labels)
-        total = task_loss + lambda_domain * domain_loss
+        with span("step.forward"):
+            model.train()
+            disc.train()
+            g_src, g_tgt, g_disc = _split_generator(generator, 3)
+            saved = [b.clone() for b in _bn_buffers(model)] if nan_guard else None
+            _zero_grads(model, disc)
+            src_logits, src_feat = model(src_images, return_features=True, generator=g_src)
+            task_loss = loss_fn(src_logits, src_labels)
+            tgt_feat = model(tgt_images, return_features=True, generator=g_tgt)[1]
+            feats = torch.cat([grad_reverse(src_feat, lambda_domain),
+                               grad_reverse(tgt_feat, lambda_domain)])
+            domain_logits = disc(feats, generator=g_disc, rows=_domain_rows(src_feat.shape[0]))
+            domain_labels = torch.cat([
+                torch.zeros(src_feat.shape[0], dtype=torch.long, device=feats.device),
+                torch.ones(tgt_feat.shape[0], dtype=torch.long, device=feats.device),
+            ])
+            # the features' rows are replicated over the spatial axis
+            with reduction_axis(DATA_AXIS):
+                domain_loss = cross_entropy_loss(domain_logits, domain_labels)
+            total = task_loss + lambda_domain * domain_loss
         _backward(total, model, disc)  # the discriminator's matmuls are full fp32 already
-        metrics = segmentation_metrics(src_logits.detach(), src_labels)
-        metrics.update(task_loss=task_loss.detach(), domain_loss=domain_loss.detach(),
-                       loss=total.detach())
-        if nan_guard and not _guard(metrics, (model, disc), saved,
-                                    ("task_loss", "domain_loss", "loss")):
-            return metrics
-        seg_state.apply_gradients()
-        disc_state.apply_gradients()
-        return metrics
+        with span("step.update"):
+            metrics = segmentation_metrics(src_logits.detach(), src_labels)
+            metrics.update(task_loss=task_loss.detach(), domain_loss=domain_loss.detach(),
+                           loss=total.detach())
+            flag = _finite_flag((model, disc)) if nan_guard else None
+        return _guard(metrics, (seg_state, disc_state), flag, saved,
+                      ("task_loss", "domain_loss", "loss"))
 
     return dann_step

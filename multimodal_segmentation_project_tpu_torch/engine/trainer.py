@@ -42,6 +42,14 @@ guard reads one flag per step). ``logs/device_usage.log`` gets the CUDA
 allocator's statistics at the start and after every epoch. The plots need
 matplotlib; a failed plot warns and does not end the run.
 
+Under ``torch.profiler`` (the CLIs' ``--profile`` traces the first epoch to
+``logs/profile/trace.json``) a train epoch's host time lies in flat named
+spans (``utils/spans.py``): ``data.wait`` and ``data.upload`` in
+``data/pipeline.py``, ``step.augment``, ``step.forward``, ``step.backward``,
+``step.update`` and ``step.sync`` in the step (``engine/steps.py``). Each
+carries its step's id, ``"<epoch>:<step>"``, in the Chrome trace's
+``args``; with no profiler on they cost a flag read each.
+
 Several GPUs (one process per GPU, ``torch.distributed`` initialised by the
 CLI, ``workloads/common.py``): the trainer picks the mesh as the JAX
 trainer does (:func:`parallel.mesh.choose_mesh`: the largest data axis
@@ -105,6 +113,7 @@ from multimodal_segmentation_project_tpu_torch.utils.experiment import (
     write_config,
 )
 from multimodal_segmentation_project_tpu_torch.utils.plotting import plot_training_metrics
+from multimodal_segmentation_project_tpu_torch.utils.spans import numbered
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -337,7 +346,7 @@ class Trainer:
     def train_epoch(self, epoch: int) -> dict:
         total, n = None, 0
         self.train_loader.set_epoch(epoch)
-        for step_idx, (images, labels) in enumerate(self.train_loader):
+        for step_idx, (images, labels) in numbered(epoch, self.train_loader):
             images, labels = self._upload(images, labels, whole=self.cfg.augment)
             gen = self._step_generator(epoch, step_idx)
             if self.teacher is not None:
@@ -455,7 +464,8 @@ class Trainer:
 
     def _profiled_train_epoch(self, epoch: int) -> dict:
         """The epoch under torch.profiler: a Chrome trace and a kernel table
-        by device time in logs/profile/ (rank 0's)."""
+        by device time in logs/profile/ (rank 0's). The profiler records
+        inputs, so that each span of the trace carries its step's id."""
         from torch.profiler import ProfilerActivity, profile
 
         if not self.is_main:
@@ -466,7 +476,7 @@ class Trainer:
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
+        with profile(activities=activities, record_shapes=True) as prof:
             metrics = self.train_epoch(epoch)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
@@ -588,8 +598,8 @@ class DannTrainer(Trainer):
         total, n = None, 0
         self.train_loader.set_epoch(epoch)
         self.target_loader.set_epoch(epoch)
-        for step_idx, ((src_img, src_lbl), (tgt_img, _)) in enumerate(
-                zip(self.train_loader, self.target_loader)):
+        for step_idx, ((src_img, src_lbl), (tgt_img, _)) in numbered(
+                epoch, zip(self.train_loader, self.target_loader)):
             src_img, src_lbl = self._upload(src_img, src_lbl)
             (tgt_img,) = self._upload(tgt_img)
             metrics = self.dann_step(self.state, self.disc_state, src_img, src_lbl, tgt_img,

@@ -110,7 +110,10 @@ def add_common_args(parser: argparse.ArgumentParser, lr_default: float = 1e-3):
     parser.add_argument("--features", type=str, default="16,32,64,128",
                         help="encoder widths (bottleneck = 2x last)")
     parser.add_argument("--profile", action="store_true",
-                        help="torch.profiler trace of the first epoch -> logs/profile")
+                        help="torch.profiler trace of the first epoch -> logs/profile: the "
+                             "Chrome trace holds the training path's spans by name (data.wait, "
+                             "data.upload, step.augment/forward/backward/update/sync), each "
+                             "with its step's id 'epoch:step' in its args")
     parser.add_argument("--no_nan_guard", action="store_true",
                         help="disable skip-update-on-nonfinite-gradients")
     parser.add_argument("--multihost", action="store_true",
