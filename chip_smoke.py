@@ -68,14 +68,21 @@ Phases, each printing one line per check; any failure exits non-zero:
    runs the port's train CLI (``workloads.train_unet``) as
    ``run_training.sh`` does (batch 1, bf16, ce_tversky, augmentation on)
    for two epochs, checks finite losses and the launches of every kernel
-   per train step (the fused DoubleConv's kernels in enc0-enc2, dec2 and
-   dec3, the per-conv chain in dec1) and per validation forward, that the
+   from the host per eager train step (the fused DoubleConv's kernels in
+   enc0-enc2, dec2 and dec3, the per-conv chain in dec1; the two steps
+   after the two eager ones replay as CUDA graphs, which launch nothing
+   from the host) and per validation forward, that the
    checkpoints are the JAX CLI's files (``best_model_<name>.msgpack`` and
    its JSON sidecar), evaluates the best checkpoint with the eval CLI;
    then times the train step (median over distinct inputs, host clock
    around ``torch.cuda.synchronize()``),
-   reports the peak allocated memory, and breaks a few steps' device time
-   down from a ``torch.profiler`` trace;
+   reports the peak allocated and reserved memory (a replayed step's
+   activations lie in its graphs' pool, which only the reserved peak
+   sees), and breaks a few steps' device time down from a
+   ``torch.profiler`` trace; every step alone (6b, 8, 8b too) has its
+   kernels counted on the device over an eager and a replayed call, from
+   the profiler's trace, and the replay must run the eager call's kernels
+   of the port;
 6b. fp32 train: the train CLI on phase 6's data and recipe with no
    ``--mixed_precision`` flag (fp32, the JAX CLIs' default): the fused
    block where bf16 takes it, on its fp32 instances, exact launches of the
@@ -1980,7 +1987,12 @@ F32_PARITY_ARGMAX_MIN = 0.999  # share of voxels with the same class
 @contextlib.contextmanager
 def _counting_library():
     """The model's library convs and transpose convs (``unet3d.F.conv3d``,
-    ``conv_transpose3d``) counted while the block runs; yields the counts."""
+    ``conv_transpose3d``) called from the host while the block runs; yields
+    the counts. As the kernel ops' counters do, it leaves out a call that a
+    CUDA graph's capture records (``engine/steps.py:_Replay``): its kernels
+    run at the graph's replays, on the device alone."""
+    import torch
+
     from multimodal_segmentation_project_tpu_torch.models import unet3d
 
     counts = dict.fromkeys(LIBRARY_PER_FP32_FORWARD, 0)
@@ -1993,7 +2005,8 @@ def _counting_library():
                 return fn
 
             def call(*args, **kwargs):
-                counts[name] += 1
+                if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+                    counts[name] += 1
                 return fn(*args, **kwargs)
             return call
 
@@ -2002,6 +2015,47 @@ def _counting_library():
         yield counts
     finally:
         unet3d.F = real
+
+
+def _replayed() -> int:
+    """The train steps replayed as CUDA graphs so far, over every step
+    (``engine/steps.py:_Replay``): their kernels run with no launch from the
+    host, so the host's launch counters leave them out."""
+    from multimodal_segmentation_project_tpu_torch.engine.steps import _Replay
+
+    return _Replay.replayed
+
+
+# name prefixes of the port's own kernels (csrc/*.cu) in the profiler's trace
+PORT_KERNELS = ("conv3_", "head1x1_", "pool2x_", "upconv_d2s_")
+
+
+def _device_kernels(run, args) -> dict:
+    """The kernels that one call ``run(*args)`` runs on the device, by name,
+    counted in the profiler's trace: CUPTI records a replayed CUDA graph's
+    kernels as it does kernels launched one by one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(*args)
+        torch.cuda.synchronize()
+    counts: dict = {}
+    for evt in prof.events():
+        if ("cuda" not in str(getattr(evt, "device_type", "")).lower()
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        counts[evt.name] = counts.get(evt.name, 0) + 1
+    return counts
+
+
+def _of_port(kernels: dict) -> dict:
+    return {k: n for k, n in kernels.items() if any(p in k for p in PORT_KERNELS)}
+
+
+def _of_library(kernels: dict) -> int:
+    return sum(n for k, n in kernels.items()
+               if _kernel_category(k).startswith(("cuDNN", "matmul")))
 
 
 def _library_calls(model, x) -> dict:
@@ -2171,7 +2225,7 @@ def phase_train(size: int = 192) -> dict:
 
     from multimodal_segmentation_project_tpu_torch import ops
     from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
-    from multimodal_segmentation_project_tpu_torch.engine.steps import make_train_step
+    from multimodal_segmentation_project_tpu_torch.engine.steps import _Replay, make_train_step
     from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
     from multimodal_segmentation_project_tpu_torch.workloads import train_unet
 
@@ -2189,19 +2243,24 @@ def phase_train(size: int = 192) -> dict:
     ])
     args.experiment_name = "smoke_train"
     ops.reset_launch_counts()
+    replayed = _replayed()
     t0 = time.perf_counter()
     train_unet.main(args)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = ops.launch_counts()
+    replayed = _replayed() - replayed
     steps = TRAIN_SPLITS["train"] * TRAIN_EPOCHS
     evals = TRAIN_SPLITS["val"] * TRAIN_EPOCHS
-    print(f"[train] CLI: {TRAIN_EPOCHS} epochs, {steps} steps and {evals} validation forwards "
-          f"in {secs:.2f} s; launches {counts}", flush=True)
+    print(f"[train] CLI: {TRAIN_EPOCHS} epochs, {steps} steps ({replayed} replayed as CUDA "
+          f"graphs) and {evals} validation forwards in {secs:.2f} s; launches from the host "
+          f"{counts}", flush=True)
+    fail_unless(replayed == steps - _Replay.WARM_UP,
+                f"{replayed} of the CLI's {steps} steps replayed, want all but the warm-up's")
     for name, n in counts.items():
-        want = PER_STEP.get(name, 0) * steps + PER_FORWARD.get(name, 0) * evals
+        want = PER_STEP.get(name, 0) * (steps - replayed) + PER_FORWARD.get(name, 0) * evals
         fail_unless(n == want, f"{name}: {n} launches, want {want} ({PER_STEP.get(name, 0)}"
-                               f"/step, {PER_FORWARD.get(name, 0)}/forward)")
+                               f"/eager step, {PER_FORWARD.get(name, 0)}/forward)")
     with open(exp / "smoke_train" / "logs" / "train_log.csv") as f:
         rows = list(csv.DictReader(f))
     fail_unless(len(rows) == TRAIN_EPOCHS, f"train_log.csv has {len(rows)} rows")
@@ -2242,15 +2301,18 @@ def phase_train(size: int = 192) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         fail_unless(math.isfinite(float(metrics["loss"])), f"timed step {i}: non-finite loss")
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     step(state, *batch(200))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.max_memory_reserved() / 2**30
     med = statistics.median(times)
     print(f"[train] step at {size}^3, batch 1, bf16, ce_tversky, augmentation on: median "
           f"{med:.3f} ms over {N_STEPS_TIMED} distinct inputs (host clock around "
-          f"synchronize; all {[round(t, 3) for t in times]}) | peak allocated {peak:.2f} GiB",
-          flush=True)
+          f"synchronize; all {[round(t, 3) for t in times]}) | peak allocated {peak:.2f} GiB, "
+          f"reserved {reserved:.2f} GiB (the replayed step's activations lie in its graphs' "
+          f"pool, which only the reserved peak sees)", flush=True)
     _profile_steps(lambda *args: step(state, *args),
                    [batch(300 + i) for i in range(N_STEPS_PROFILED)])
     return counts
@@ -2272,7 +2334,7 @@ def phase_fp32_train(size: int = 192) -> dict:
     from multimodal_segmentation_project_tpu_torch import ops
     from multimodal_segmentation_project_tpu_torch.engine import checkpoint as ckpt
     from multimodal_segmentation_project_tpu_torch.engine.state import TrainState
-    from multimodal_segmentation_project_tpu_torch.engine.steps import make_train_step
+    from multimodal_segmentation_project_tpu_torch.engine.steps import _Replay, make_train_step
     from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
     from multimodal_segmentation_project_tpu_torch.workloads import train_unet
 
@@ -2286,22 +2348,27 @@ def phase_fp32_train(size: int = 192) -> dict:
     fail_unless(args.mixed_precision == "no", f"the CLI's default is {args.mixed_precision}")
     args.experiment_name = "smoke_train_fp32"
     ops.reset_launch_counts()
+    replayed = _replayed()
     t0 = time.perf_counter()
     with _counting_library() as lib:
         train_unet.main(args)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = ops.launch_counts()
+    replayed = _replayed() - replayed
     steps = TRAIN_SPLITS["train"] * TRAIN_EPOCHS
     evals = TRAIN_SPLITS["val"] * TRAIN_EPOCHS
     print(f"[train-fp32] CLI, no --mixed_precision flag (fp32): {TRAIN_EPOCHS} epochs, {steps} "
-          f"steps and {evals} validation forwards in {secs:.2f} s; launches {counts}; library "
-          f"calls {lib}", flush=True)
+          f"steps ({replayed} replayed as CUDA graphs) and {evals} validation forwards in "
+          f"{secs:.2f} s; launches from the host {counts}; library calls {lib}", flush=True)
+    fail_unless(replayed == steps - _Replay.WARM_UP,
+                f"{replayed} of the CLI's {steps} steps replayed, want all but the warm-up's")
     for name, n in counts.items():
-        want = PER_FP32_STEP.get(name, 0) * steps + PER_FP32_FORWARD.get(name, 0) * evals
+        want = (PER_FP32_STEP.get(name, 0) * (steps - replayed)
+                + PER_FP32_FORWARD.get(name, 0) * evals)
         fail_unless(n == want, f"{name}: {n} launches, want {want} ({PER_FP32_STEP.get(name, 0)}"
-                               f"/step, {PER_FP32_FORWARD.get(name, 0)}/forward)")
-    want_lib = {k: n * (steps + evals) for k, n in LIBRARY_PER_FP32_FORWARD.items()}
+                               f"/eager step, {PER_FP32_FORWARD.get(name, 0)}/forward)")
+    want_lib = {k: n * (steps - replayed + evals) for k, n in LIBRARY_PER_FP32_FORWARD.items()}
     fail_unless(lib == want_lib, f"library calls {lib}, want {want_lib}")
     with open(exp / "smoke_train_fp32" / "logs" / "train_log.csv") as f:
         rows = list(csv.DictReader(f))
@@ -2393,16 +2460,19 @@ def _run_workload(experiment: str, argv: list, steps: int, per_step: dict, evals
 
     exp = SCRATCH / f"{experiment}{tag}_exp"
     ops.reset_launch_counts()
+    replayed = _replayed()
     t0 = time.perf_counter()
     orchestrator.main(["--experiment", experiment, "--experiment_dir", str(exp),
                        "--device", DEVICE, *argv])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = ops.launch_counts()
-    print(f"[{experiment}{tag}] main.py --experiment {experiment}: {steps} steps and {evals} "
-          f"validation forwards in {secs:.2f} s; launches {counts}", flush=True)
+    replayed = _replayed() - replayed
+    print(f"[{experiment}{tag}] main.py --experiment {experiment}: {steps} steps ({replayed} "
+          f"replayed as CUDA graphs) and {evals} validation forwards in {secs:.2f} s; launches "
+          f"from the host {counts}", flush=True)
     for name, n in counts.items():
-        want = per_step.get(name, 0) * steps + per_forward.get(name, 0) * evals
+        want = per_step.get(name, 0) * (steps - replayed) + per_forward.get(name, 0) * evals
         fail_unless(n == want, f"{experiment}: {name}: {n} launches, want {want} ("
                                f"{per_step.get(name, 0)}/step, {per_forward.get(name, 0)}/forward)")
     (run,) = [p for p in exp.iterdir() if p.is_dir()]
@@ -2418,23 +2488,38 @@ def _run_workload(experiment: str, argv: list, steps: int, per_step: dict, evals
 
 def _time_step(label: str, step, batch, per_step: dict, size: int,
                precision: str = "bf16") -> None:
-    """A step alone: its launches counted over one call, then the median of
-    N_STEPS_TIMED calls on distinct device-resident inputs after two warm-up
-    calls (host clock around synchronize), the peak allocated memory, and
-    a profiled breakdown of N_STEPS_PROFILED calls."""
+    """A step alone. Its launches counted from the host over an eager call
+    (the second: a step the profiler records does not capture), and its
+    kernels counted on the device over that call and over the fourth, which
+    replays where the step replays as CUDA graphs (the third captures): the
+    port's kernels must be the same, and the replay must launch none from
+    the host. Then the median of N_STEPS_TIMED calls on distinct
+    device-resident inputs (host clock around synchronize), the peak memory
+    allocated and reserved over one call (a replayed step's activations lie
+    in its graphs' pool, which only the reserved peak sees; the allocator's
+    cache is emptied first), and a profiled breakdown of N_STEPS_PROFILED
+    calls."""
     import torch
 
     from multimodal_segmentation_project_tpu_torch import ops
 
-    for i in range(2):  # warm-up: cuDNN's algorithm choice, allocator growth
-        step(*batch(i))
-    inputs = batch(50)
+    step(*batch(0))  # warm-up: cuDNN's algorithm choice, allocator growth, the masks' plan
     ops.reset_launch_counts()
-    step(*inputs)
-    torch.cuda.synchronize()
+    eager = _device_kernels(step, batch(1))
     counts = {k: n for k, n in ops.launch_counts().items() if n}
     fail_unless(counts == {k: n for k, n in per_step.items() if n},
                 f"{label} step launches {counts}, want {per_step}")
+    step(*batch(2))
+    replayed = _replayed()
+    ops.reset_launch_counts()
+    kernels = _device_kernels(step, batch(50))
+    replayed = _replayed() - replayed
+    host = {k: n for k, n in ops.launch_counts().items() if n}
+    fail_unless(host == ({} if replayed else counts),
+                f"{label} step ({replayed} replays) launched {host} from the host")
+    fail_unless(_of_port(kernels) == _of_port(eager),
+                f"{label} step's kernels of the port on the device: {_of_port(kernels)} "
+                f"({replayed} replays), {_of_port(eager)} eagerly")
     times = []
     for i in range(N_STEPS_TIMED):
         inputs = batch(100 + i)
@@ -2444,15 +2529,20 @@ def _time_step(label: str, step, batch, per_step: dict, size: int,
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         fail_unless(math.isfinite(float(metrics["loss"])), f"timed {label} step {i}: loss")
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     step(*batch(200))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.max_memory_reserved() / 2**30
     print(f"[{label}] step at {size}^3, batch 1, {precision}: median "
           f"{statistics.median(times):.3f} ms "
           f"over {N_STEPS_TIMED} distinct inputs (host clock around synchronize; all "
-          f"{[round(t, 3) for t in times]}) | peak allocated {peak:.2f} GiB | launches per step "
-          f"{sum(counts.values())}: {counts}", flush=True)
+          f"{[round(t, 3) for t in times]}) | peak allocated {peak:.2f} GiB, reserved "
+          f"{reserved:.2f} GiB | launches per eager step {sum(counts.values())}: {counts} | "
+          f"on the device, {'a replayed' if replayed else 'an eager'} step ran "
+          f"{sum(_of_port(kernels).values())} kernels of the port as the eager one did, and "
+          f"{_of_library(kernels)} of the library's ({_of_library(eager)} eagerly)", flush=True)
     _profile_steps(step, [batch(300 + i) for i in range(N_STEPS_PROFILED)])
 
 
@@ -2818,18 +2908,21 @@ def _phase_quickstart() -> None:
     quickstart = _load_script("examples/quickstart_torch.py")
     workdir = SCRATCH / "quickstart"
     ops.reset_launch_counts()
+    replayed = _replayed()
     t0 = time.perf_counter()
     out = quickstart.main(["--workdir", str(workdir), "--epochs", "1"])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = ops.launch_counts()
+    replayed = _replayed() - replayed
     steps = QS_SPLITS["train"] // QS_BATCH
     forwards = QS_SPLITS["val"] + 1 + QS_SPLITS["test"]
     print(f"[entry] quickstart_torch.main --epochs 1 in {secs:.2f} s: {steps} train steps at "
-          f"batch {QS_BATCH}, {forwards} eval forwards; launches "
-          f"{ {k: n for k, n in counts.items() if n} }", flush=True)
+          f"batch {QS_BATCH} ({replayed} replayed as CUDA graphs), {forwards} eval forwards; "
+          f"launches from the host { {k: n for k, n in counts.items() if n} }", flush=True)
     for name, n in counts.items():
-        want = QS_PER_STEP.get(name, 0) * steps + QS_PER_FORWARD.get(name, 0) * forwards
+        want = (QS_PER_STEP.get(name, 0) * (steps - replayed)
+                + QS_PER_FORWARD.get(name, 0) * forwards)
         fail_unless(n == want, f"quickstart: {name}: {n} launches, want {want} ("
                                f"{QS_PER_STEP.get(name, 0)}/step, "
                                f"{QS_PER_FORWARD.get(name, 0)}/forward)")
@@ -3261,12 +3354,14 @@ def _resume_continuity(label: str, make, attr: str, per_step: dict, steps_per_ep
         losses: list = []
         _recorded(trainer, attr, losses)
         ops.reset_launch_counts()
+        replayed = _replayed()
         trainer.run()
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        replayed = _replayed() - replayed
         for name, n in counts.items():
-            want = (per_step.get(name, 0) * steps_per_epoch
-                    + PER_FORWARD.get(name, 0) * evals_per_epoch) * epochs_run
+            want = (per_step.get(name, 0) * (steps_per_epoch * epochs_run - replayed)
+                    + PER_FORWARD.get(name, 0) * evals_per_epoch * epochs_run)
             fail_unless(n == want, f"{label}: {name}: {n} launches, want {want}")
         return losses
 
@@ -4203,8 +4298,10 @@ def main() -> int:
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     import torch
 
-    # launches: the count of each kernel over the train CLI's run (its
-    # train steps and its validation forwards); of the fp32 eval instances,
+    # launches: the count of each kernel from the host over the train CLI's
+    # run (its eager steps, the first two: the others replay as CUDA graphs,
+    # whose kernels phase 6's step alone counts on the device; and its
+    # validation forwards); of the fp32 eval instances,
     # over the fp32 eval CLI's run; of the fp32 training instances, over the
     # fp32 train CLI's run, this slice's main path
     launches = {**launches, **{k: f32_launches[k] for k in F32_KERNELS},

@@ -23,6 +23,19 @@ own), ``step.backward``, ``step.update`` (the metrics and the guard's
 launches), ``step.sync`` (the guard's read: the host blocked on the
 device) and ``step.update`` again (the rollback or the optimizer).
 
+On one CUDA device the train and DANN steps replay their device work as
+a CUDA graph (:class:`_Replay`), from the BatchNorm save through the
+guard's flag: the same function the eager step runs (``_supervised_body``,
+``_dann_body``), on static inputs, with the Dropout masks drawn ahead by
+the host from the step's generators. The augmentation, the guard's read,
+the rollback and the update (the accumulator's fold and AdamW) stay
+eager. A replayed step's spans: ``step.augment``, ``step.forward`` (the
+masks' draw and the copies into the static inputs), ``step.replay`` (the
+graph's launch alone), ``step.update``, ``step.sync`` and
+``step.update``. The distillation step (its loss closes over the
+teacher's logits of the step), the eval steps and every step on a
+multi-device mesh run eagerly.
+
 Each step's backward runs inside ``library_precision(model.dtype)``, the
 scope the model's forward runs its library calls in: in an fp32 step
 cuDNN's backward of the deep region's convs and of the fp32 transpose
@@ -44,9 +57,19 @@ take this rank's slice. :func:`make_sharded_eval_step` evaluates
 
 from __future__ import annotations
 
-import torch
+import contextlib
+import itertools
+import math
+from collections import OrderedDict
 
-from multimodal_segmentation_project_tpu_torch.models.unet3d import library_precision
+import torch
+import torch.nn.modules.module as nn_module
+
+from multimodal_segmentation_project_tpu_torch.models.unet3d import (
+    MaskSource,
+    draw_masks,
+    library_precision,
+)
 from multimodal_segmentation_project_tpu_torch.ops.augment import augment_batch
 from multimodal_segmentation_project_tpu_torch.ops.grl import grad_reverse
 from multimodal_segmentation_project_tpu_torch.ops.losses import cross_entropy_loss
@@ -144,23 +167,220 @@ def _guard(metrics: dict, states: tuple, flag, saved: list, loss_keys: tuple) ->
     return metrics
 
 
-def _supervised_step(state, images, labels, generator, nan_guard: bool, loss_fn):
-    """The train and distillation steps after their augmentation: the
-    train-mode forward, ``loss_fn(logits, labels)``, the backward, the
-    metrics, the guard and the update."""
-    model = state.model
-    with span("step.forward"):
-        model.train()
-        saved = [b.clone() for b in _bn_buffers(model)] if nan_guard else None
-        _zero_grads(model)
-        logits = model(images, generator=generator)
-        loss = loss_fn(logits, labels)
-    _backward(loss, model)
-    with span("step.update"):
-        metrics = segmentation_metrics(logits.detach(), labels)
-        metrics["loss"] = loss.detach()
-        flag = _finite_flag((model,)) if nan_guard else None
-    return _guard(metrics, (state,), flag, saved, ("loss",))
+def _eager(body, states: tuple, inputs: tuple, sources, loss_keys: tuple) -> dict:
+    """``body``'s step run eagerly, then the guard and the update."""
+    metrics, flag, saved = body(tuple(st.model for st in states), inputs, sources)
+    return _guard(metrics, states, flag, saved, loss_keys)
+
+
+def _supervised_body(loss_fn, nan_guard: bool):
+    """The train and distillation steps' device work after their
+    augmentation, ``body((model,), (images, labels), (masks,)) -> (metrics,
+    flag, saved)``: the train-mode forward with its Dropout masks from
+    ``masks`` (a generator or a ``MaskSource``), ``loss_fn(logits,
+    labels)``, the backward, the metrics and the guard's flag."""
+
+    def body(models, inputs, sources):
+        (model,), (images, labels), (masks,) = models, inputs, sources
+        with span("step.forward"):
+            model.train()
+            saved = [b.clone() for b in _bn_buffers(model)] if nan_guard else None
+            _zero_grads(model)
+            logits = model(images, generator=masks)
+            loss = loss_fn(logits, labels)
+        _backward(loss, model)
+        with span("step.update"):
+            metrics = segmentation_metrics(logits.detach(), labels)
+            metrics["loss"] = loss.detach()
+            flag = _finite_flag((model,)) if nan_guard else None
+        return metrics, flag, saved
+
+    return body
+
+
+_GLOBAL_HOOKS = ("_global_forward_pre_hooks", "_global_forward_hooks",
+                 "_global_backward_pre_hooks", "_global_backward_hooks")
+
+
+def _hooks_replayable(model: torch.nn.Module) -> bool:
+    """Whether a replay can stand for the model's forward and backward: it
+    has no hooks but plain forward hooks of its own, which the step calls
+    with each replay's outputs. A pre-hook, a hook that takes the kwargs, a
+    backward hook, a submodule's hook or a global one would not run."""
+    if any(getattr(nn_module, name, None) for name in _GLOBAL_HOOKS):
+        return False
+    if (model._forward_pre_hooks or model._forward_hooks_with_kwargs or model._backward_hooks
+            or model._backward_pre_hooks):
+        return False
+    return not any(m._forward_pre_hooks or m._forward_hooks or m._backward_hooks
+                   or m._backward_pre_hooks for m in model.modules() if m is not model)
+
+
+def _replays(states: tuple, inputs: tuple, generators) -> bool:
+    """Whether a step's device work may replay as a CUDA graph: its inputs
+    on a CUDA device, no multi-device mesh, its generators on the CPU (or
+    None, the CPU's default one) and hooks a replay can honour."""
+    return (inputs[0].device.type == "cuda" and active_multi_mesh() is None
+            and all(g is None or g.device.type == "cpu" for g in generators)
+            and all(_hooks_replayable(st.model) for st in states))
+
+
+def _identity(states: tuple) -> tuple:
+    """What a capture holds on to of the states: each optimizer (a freeze
+    or an unfreeze builds a fresh one), the compute dtype and the address
+    of every parameter and buffer."""
+    return tuple((st.optimizer, getattr(st.model, "dtype", None),
+                  tuple(t.data_ptr() for t in itertools.chain(st.model.parameters(),
+                                                               st.model.buffers())))
+                 for st in states)
+
+
+@contextlib.contextmanager
+def _hooks_held(models: tuple):
+    """Each model's forward hooks held aside while a capture runs its
+    forward, and in their place one that notes each call's (module, args,
+    output): the capture runs none of the caller's hooks, and the step
+    calls them after each replay."""
+    calls = []
+    held = [m._forward_hooks for m in models]
+    for m in models:
+        m._forward_hooks = OrderedDict()
+        m.register_forward_hook(lambda module, args, output: calls.append((module, args, output)))
+    try:
+        yield calls
+    finally:
+        for m, hooks in zip(models, held):
+            m._forward_hooks = hooks
+
+
+def _copied(metrics: dict) -> dict:
+    """The metrics as views of one fresh stacked copy: the next replay
+    overwrites the graph's, and the caller keeps them across steps."""
+    values = torch.stack(list(metrics.values()))
+    return dict(zip(metrics, values.unbind()))
+
+
+class _Replay:
+    """A one-card step whose device work replays as a CUDA graph.
+
+    ``body(models, inputs, sources) -> (metrics, flag, saved)`` is the
+    step's device work from the BatchNorm save through the NaN guard's flag,
+    which the graph captures on static inputs, with a ``MaskSource`` handing
+    out its Dropout masks from a static buffer (one per generator of the
+    step, in ``sources``' order).
+
+    A replayed step copies its inputs into the static ones, draws its masks
+    from its generators as the forward would have (after the augmentation's
+    draws) and copies them in with one non-blocking copy from pinned
+    memory, launches the graph, copies the metrics out, calls each model's
+    forward hooks with the replay's outputs, reads the flag and, if it is
+    finite, updates each state eagerly (the accumulator's fold, AdamW where
+    it is due); else it rolls the step back as the eager step does.
+
+    The graph engages where :func:`_replays` holds; any other step runs
+    ``body`` eagerly. The first two steps that engage run eagerly too: the
+    first notes the masks' plan, the second runs on the capture's stream,
+    where the capture finds what a step sets up lazily (cuBLAS's workspace
+    of the stream). The third captures; no capture runs while a profiler
+    records. A step whose inputs differ in shape or dtype from the
+    capture's runs eagerly. A change of :func:`_identity` (a freeze or an
+    unfreeze resets the optimizer) drops the graph, and the step captures
+    anew. A replay's kernels run on the device alone: the kernel ops'
+    launch counters (``ops.launch_counts``), which count launches from the
+    host, count none of them, nor a capture's. ``replayed`` counts the steps
+    that replayed, over every instance."""
+
+    WARM_UP = 2
+    replayed = 0
+
+    def __init__(self, body, loss_keys: tuple):
+        self.body, self.loss_keys = body, loss_keys
+        self.warm = 0
+        self.plans = self.signature = self.stream = None
+        self._drop()
+
+    def _drop(self) -> None:
+        self.graph = self.key = self.out = self.calls = None
+        self.inputs, self.masks, self.grads = None, None, None
+
+    def __call__(self, states: tuple, inputs: tuple, generators) -> dict:
+        if not _replays(states, inputs, generators):
+            return _eager(self.body, states, inputs, generators, self.loss_keys)
+        signature = [(t.shape, t.dtype) for t in inputs]
+        key = _identity(states)
+        if self.graph is not None and key != self.key:
+            self._drop()
+            _zero_grads(*(st.model for st in states))
+        if self.graph is None:
+            if (self.warm < self.WARM_UP or signature != self.signature
+                    or torch.autograd.profiler._is_profiler_enabled):
+                return self._warm_up(states, inputs, generators, signature)
+            self._capture(states, inputs)
+            self.key = key
+        elif signature != self.signature:
+            return _eager(self.body, states, inputs, generators, self.loss_keys)
+        return self._replay(states, inputs, generators)
+
+    def _warm_up(self, states, inputs, generators, signature) -> dict:
+        """An eager step that notes the masks' plan; after the first, on the
+        capture's stream."""
+        sources = [MaskSource(g) for g in generators]
+        if self.warm == 0:
+            out = _eager(self.body, states, inputs, sources, self.loss_keys)
+        else:
+            stream, current = self._capture_stream(inputs[0].device), torch.cuda.current_stream()
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                out = _eager(self.body, states, inputs, sources, self.loss_keys)
+            current.wait_stream(stream)
+        self.warm += 1
+        self.plans, self.signature = [src.plan for src in sources], signature
+        return out
+
+    def _capture_stream(self, device) -> torch.cuda.Stream:
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device)
+        return self.stream
+
+    def _capture(self, states, inputs) -> None:
+        models = tuple(st.model for st in states)
+        stream = self._capture_stream(inputs[0].device)
+        self.inputs = [torch.empty_like(t) for t in inputs]
+        sizes = [sum(math.prod(shape) for shape, _ in plan) for plan in self.plans]
+        self.masks = torch.empty(sum(sizes), dtype=torch.bool, device=inputs[0].device)
+        sources = [MaskSource(buffer=b, plan=p) for b, p in zip(self.masks.split(sizes), self.plans)]
+        self.graph = torch.cuda.CUDAGraph()
+        with _hooks_held(models) as self.calls, torch.cuda.graph(self.graph, stream=stream):
+            self.out = self.body(models, self.inputs, sources)
+        if not all(src.exhausted() for src in sources):
+            raise RuntimeError("the forward took fewer Dropout masks than its plan")
+        self.grads = [(p, p.grad) for m in models for p in m.parameters() if p.grad is not None]
+
+    def _replay(self, states, inputs, generators) -> dict:
+        models = tuple(st.model for st in states)
+        with span("step.forward"):
+            for m in models:
+                m.train()
+            for static, t in zip(self.inputs, inputs):
+                static.copy_(t)
+            if self.masks.numel():
+                drawn = torch.cat([draw_masks(p, g) for p, g in zip(self.plans, generators)])
+                self.masks.copy_(drawn.pin_memory(), non_blocking=True)
+        with span("step.replay"):
+            self.graph.replay()
+        _Replay.replayed += 1
+        metrics, flag, saved = self.out
+        with span("step.update"):
+            metrics = _copied(metrics)
+            for p, g in self.grads:
+                p.grad = g
+            for module, args, output in self.calls:
+                for hook in tuple(module._forward_hooks.values()):
+                    if hook(module, args, output) is not None:
+                        raise RuntimeError(
+                            "a forward hook returned a value: a replayed step cannot use it "
+                            "in place of the model's output")
+        return _guard(metrics, states, flag, saved, self.loss_keys)
 
 
 def make_train_step(loss_fn, augment: bool = False, nan_guard: bool = False):
@@ -168,12 +388,14 @@ def make_train_step(loss_fn, augment: bool = False, nan_guard: bool = False):
     on the device: dice, iou, acc, loss, and nonfinite with the guard).
     ``generator`` draws the augmentation and the dropout masks; on a mesh it
     is the same on every rank. With ``augment`` on a mesh, ``images`` and
-    ``labels`` are the global batch; else this rank's slice."""
+    ``labels`` are the global batch; else this rank's slice. On one CUDA
+    device the step's device work replays as a CUDA graph (:class:`_Replay`)."""
+    step = _Replay(_supervised_body(loss_fn, nan_guard), ("loss",))
 
     def train_step(state, images, labels, generator=None):
         if augment:  # rebinding frees the batch from before the augmentation
             images, labels = _augment_and_shard(generator, images, labels)
-        return _supervised_step(state, images, labels, generator, nan_guard, loss_fn)
+        return step((state,), (images, labels), (generator,))
 
     return train_step
 
@@ -238,9 +460,9 @@ def make_distill_step(kd_loss_fn, augment: bool = False, nan_guard: bool = False
         with span("step.forward"), torch.no_grad():
             teacher.eval()
             teacher_logits = teacher(images)
-        return _supervised_step(
-            state, images, labels, generator, nan_guard,
-            lambda logits, labels: kd_loss_fn(logits, teacher_logits, labels))
+        body = _supervised_body(lambda logits, labels: kd_loss_fn(logits, teacher_logits, labels),
+                                nan_guard)
+        return _eager(body, (state,), (images, labels), (generator,), ("loss",))
 
     return distill_step
 
@@ -280,15 +502,34 @@ def make_dann_step(loss_fn, lambda_domain: float, nan_guard: bool = False):
     statistics take the source batch and then the target batch, the
     decoder's included, as the JAX package's ``mut_t`` does. The target's
     logits are dropped at once: no decoder backward runs for them, and
-    their activations are freed. The NaN guard covers both states' gradients
-    and undoes both forwards' statistics."""
+    their activations are freed (a replayed step keeps the logits among its
+    graph's outputs, for the model's forward hooks). The NaN guard covers
+    both states' gradients and undoes both forwards' statistics. On one
+    CUDA device the step's device work replays as a CUDA graph
+    (:class:`_Replay`); the masks are drawn ahead from the three streams."""
+
+    step = _Replay(_dann_body(loss_fn, lambda_domain, nan_guard),
+                   ("task_loss", "domain_loss", "loss"))
 
     def dann_step(seg_state, disc_state, src_images, src_labels, tgt_images, generator=None):
-        model, disc = seg_state.model, disc_state.model
+        return step((seg_state, disc_state), (src_images, src_labels, tgt_images),
+                    _split_generator(generator, 3))
+
+    return dann_step
+
+
+def _dann_body(loss_fn, lambda_domain: float, nan_guard: bool):
+    """The DANN step's device work, ``body((model, disc), (src_images,
+    src_labels, tgt_images), (g_src, g_tgt, g_disc)) -> (metrics, flag,
+    saved)``: both forwards, the discriminator, the losses, the backward,
+    the metrics and the guard's flag."""
+
+    def body(models, inputs, sources):
+        (model, disc), (src_images, src_labels, tgt_images), (g_src, g_tgt, g_disc) = (
+            models, inputs, sources)
         with span("step.forward"):
             model.train()
             disc.train()
-            g_src, g_tgt, g_disc = _split_generator(generator, 3)
             saved = [b.clone() for b in _bn_buffers(model)] if nan_guard else None
             _zero_grads(model, disc)
             src_logits, src_feat = model(src_images, return_features=True, generator=g_src)
@@ -311,7 +552,6 @@ def make_dann_step(loss_fn, lambda_domain: float, nan_guard: bool = False):
             metrics.update(task_loss=task_loss.detach(), domain_loss=domain_loss.detach(),
                            loss=total.detach())
             flag = _finite_flag((model, disc)) if nan_guard else None
-        return _guard(metrics, (seg_state, disc_state), flag, saved,
-                      ("task_loss", "domain_loss", "loss"))
+        return metrics, flag, saved
 
-    return dann_step
+    return body

@@ -46,9 +46,12 @@ Under ``torch.profiler`` (the CLIs' ``--profile`` traces the first epoch to
 ``logs/profile/trace.json``) a train epoch's host time lies in flat named
 spans (``utils/spans.py``): ``data.wait`` and ``data.upload`` in
 ``data/pipeline.py``, ``step.augment``, ``step.forward``, ``step.backward``,
-``step.update`` and ``step.sync`` in the step (``engine/steps.py``). Each
+``step.update``, ``step.sync`` and, where the step replays as a CUDA graph,
+``step.replay`` in the step (``engine/steps.py``). Each
 carries its step's id, ``"<epoch>:<step>"``, in the Chrome trace's
-``args``; with no profiler on they cost a flag read each.
+``args``; with no profiler on they cost a flag read each. A step does not
+capture a CUDA graph while a profiler records, so the ``--profile`` epoch's
+steps run eagerly, and the steps replay from the next epoch on.
 
 Several GPUs (one process per GPU, ``torch.distributed`` initialised by the
 CLI, ``workloads/common.py``): the trainer picks the mesh as the JAX

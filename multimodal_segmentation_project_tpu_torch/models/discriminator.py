@@ -51,7 +51,8 @@ class DomainDiscriminator(nn.Module):
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
                 rows: tuple[int, torch.Tensor] | None = None) -> torch.Tensor:
         """Domain logits (B, 2) in fp32. In train mode the outputs of fc0 and
-        fc1 take dropout, drawn from ``generator``; with ``rows`` = (global
+        fc1 take dropout, drawn from ``generator`` (or handed out by a
+        ``MaskSource`` in its place); with ``rows`` = (global
         rows, the indices of x's rows among them) the masks are drawn for the
         global rows and x's taken (a data mesh's rank holds some rows)."""
         x = x.float()

@@ -54,7 +54,9 @@ fused one takes its statistics as sums of the conv's rounded output. The
 variance is the biased max(E[y^2] - E[y]^2, 0), and the running statistics
 update as flax's do (momentum 0.9 on the old value, the biased variance).
 Dropout3d draws one keep mask per (batch, channel) from the ``generator``
-passed to :meth:`UNet3D.forward`, in the same order on both paths. A 192^3
+passed to :meth:`UNet3D.forward`, in the same order on both paths (or takes
+it from a :class:`MaskSource` passed in its place, which a CUDA graph of the
+train step replays from masks drawn ahead by the host). A 192^3
 train step at default widths launches 5 conv+stats, 5 boundary conv+stats,
 1 conv forward (dec1's conv1), 5 dx, 5 dx-epilogue, 6 dW, 5 prologue dW, 4
 pool forward, 4 pool backward, 3 upconv, 1 head, 1 head-dx and 1
@@ -88,6 +90,7 @@ dtype (bf16 or fp32); parameters stay fp32.
 from __future__ import annotations
 
 import contextlib
+import math
 from collections.abc import Sequence
 
 import torch
@@ -174,17 +177,71 @@ def batch_norm_affine(s1: torch.Tensor, s2: torch.Tensor, n: int,
     return a, bn.bias - mean * a
 
 
-def _keep_mask(shape: tuple[int, int], rate: float, generator: torch.Generator | None,
-               device: torch.device, rows=None) -> torch.Tensor:
+def _draw_keep(shape: tuple[int, ...], rate: float,
+               generator: torch.Generator | None) -> torch.Tensor:
+    """A keep mask of ``shape`` drawn on the generator's device (the CPU's
+    default generator for None)."""
+    dev = generator.device if generator is not None else torch.device("cpu")
+    return torch.rand(shape, generator=generator, device=dev) < 1.0 - rate
+
+
+def _keep_mask(shape: tuple[int, int], rate: float, generator, device: torch.device,
+               rows=None) -> torch.Tensor:
     """Dropout3d's keep mask per (batch, channel), drawn on the generator's
     device and moved to ``device``; with ``rows``, the mask of the global
     rows ``shape[0]`` is drawn and those rows are taken (every rank draws
-    the same mask from the step's generator)."""
-    dev = generator.device if generator is not None else torch.device("cpu")
-    mask = torch.rand(shape, generator=generator, device=dev) < 1.0 - rate
+    the same mask from the step's generator). A :class:`MaskSource` in the
+    generator's place hands the mask out."""
+    if isinstance(generator, MaskSource):
+        return generator.keep(shape, rate, device, rows)
+    mask = _draw_keep(shape, rate, generator)
     if rows is not None:
         mask = mask[rows]
     return mask.to(device, non_blocking=True)
+
+
+class MaskSource:
+    """A train-mode forward's Dropout keep masks, passed in place of its
+    ``generator``.
+
+    ``MaskSource(generator)`` draws each mask inline, exactly as
+    ``generator`` itself would, and notes its (shape, rate) in ``plan``: the
+    sequence one forward asks for. ``MaskSource(buffer=..., plan=...)`` hands
+    the plan's masks out as views of ``buffer``, a flat bool tensor on the
+    forward's device that :func:`draw_masks` filled ahead from the same
+    generator: the same masks, with no draw and no host copy inside the
+    forward, so that a CUDA graph can capture it."""
+
+    def __init__(self, generator: torch.Generator | None = None,
+                 buffer: torch.Tensor | None = None, plan: list | None = None):
+        self.generator, self.buffer = generator, buffer
+        self.plan = [] if plan is None else plan
+        self._next = self._offset = 0
+
+    def keep(self, shape, rate: float, device: torch.device, rows=None) -> torch.Tensor:
+        shape = tuple(shape)
+        if self.buffer is None:
+            self.plan.append((shape, rate))
+            return _keep_mask(shape, rate, self.generator, device, rows)
+        if self._next == len(self.plan) or self.plan[self._next] != (shape, rate):
+            raise RuntimeError(f"the forward asks for mask {self._next} of shape {shape} at rate "
+                               f"{rate}; the masks drawn ahead follow the plan {self.plan}")
+        n = math.prod(shape)
+        mask = self.buffer[self._offset:self._offset + n].view(shape)
+        self._next += 1
+        self._offset += n
+        return mask if rows is None else mask[rows]
+
+    def exhausted(self) -> bool:
+        """Whether the forward took every mask of the plan."""
+        return self._next == len(self.plan)
+
+
+def draw_masks(plan: list, generator: torch.Generator | None) -> torch.Tensor:
+    """The plan's keep masks drawn from ``generator`` in its order, flat:
+    what a forward given ``generator`` would draw inline."""
+    return torch.cat([_draw_keep(shape, rate, generator).reshape(-1) for shape, rate in plan]
+                     or [torch.zeros(0, dtype=torch.bool)])
 
 
 def dropout_scale(shape: tuple[int, int], rate: float, generator: torch.Generator | None,
@@ -382,7 +439,8 @@ class UNet3D(nn.Module):
                 generator: torch.Generator | None = None):
         """Logits (and the bottleneck's global-average feature vector with
         ``return_features``). In train mode ``generator`` draws the
-        Dropout3d masks."""
+        Dropout3d masks (a :class:`MaskSource` in its place hands them
+        out)."""
         with library_precision(self.dtype):
             return self._forward(x, return_features, generator)
 

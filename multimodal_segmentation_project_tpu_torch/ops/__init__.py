@@ -1,6 +1,8 @@
 """Ops of the port. Each kernel op launches a hand-written CUDA kernel on
 CUDA tensors and runs its plain PyTorch version on CPU tensors; each counts
-its kernel launches in a ``launches`` attribute. The differentiable ops
+its kernel launches from the host in a ``launches`` attribute (not those a
+CUDA graph's capture records: they run at its replays, ``_build.count``).
+The differentiable ops
 (the training conv, the fused DoubleConv's convs, the pool, the upconv and
 the head) count their forward launches on themselves and their backward
 kernels on the wrappers named here; the eval conv, the pool and the head

@@ -217,6 +217,17 @@ def run(name: str, call: Launch, t):
     return call.result
 
 
+def count(op) -> None:
+    """One launch more on ``op``'s counter (``ops.launch_counts``): the
+    wrappers count a launch where it runs from the host. One that a CUDA
+    graph's capture records runs only at the graph's replays, on the device,
+    and is not counted."""
+    import torch
+
+    if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+        op.launches += 1
+
+
 def launch(name: str, entry: str, t, *args) -> None:
     """Call the C entry point ``entry`` with ``args`` and the current stream,
     on the device of ``t``; raise if the launch reported a CUDA error."""

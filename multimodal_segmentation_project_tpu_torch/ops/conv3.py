@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_segmentation_project_tpu_torch.ops import _build
-from multimodal_segmentation_project_tpu_torch.ops._build import Launch, run
+from multimodal_segmentation_project_tpu_torch.ops._build import Launch, count, run
 
 MAX_CHANNELS = 64  # the kernels' channel cap (supported_conv in the JAX package)
 
@@ -178,7 +178,7 @@ def conv3x3x3_cf_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torc
     if x.dtype == torch.float32:
         return conv3x3x3_cf_relu_f32(x, w, b)
     out = run("conv3x3x3_cf_relu", relu_call(x, w, b), x)
-    conv3x3x3_cf_relu.launches += 1
+    count(conv3x3x3_cf_relu)
     return out
 
 
@@ -317,7 +317,7 @@ def conv3x3x3_cf_relu_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> 
     if x.device.type == "cpu":
         return conv3x3x3_cf_relu_reference(x, w, b)
     out = run("conv3x3x3_cf_relu_f32", relu_f32_call(x, w, b), x)
-    conv3x3x3_cf_relu_f32.launches += 1
+    count(conv3x3x3_cf_relu_f32)
     return out
 
 
@@ -329,7 +329,7 @@ def _conv_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     if x.dtype == torch.float32:
         return conv3x3x3_cf_f32(x, w, b)
     out = run("conv3x3x3_cf", conv_call(x, w, b), x)
-    conv3x3x3_cf.launches += 1
+    count(conv3x3x3_cf)
     return out
 
 
@@ -339,7 +339,7 @@ def conv3x3x3_cf_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch
     if x.device.type == "cpu":
         return conv3x3x3_cf_reference(x, w, b)
     out = run("conv3x3x3_cf_f32", conv_f32_call(x, w, b), x)
-    conv3x3x3_cf_f32.launches += 1
+    count(conv3x3x3_cf_f32)
     return out
 
 
@@ -352,7 +352,7 @@ def conv3x3x3_cf_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if g.dtype == torch.float32:
         return conv3x3x3_cf_dx_f32(g, w)
     out = run("conv3x3x3_cf_dx", dx_call(g, w), g)
-    conv3x3x3_cf_dx.launches += 1
+    count(conv3x3x3_cf_dx)
     return out
 
 
@@ -362,7 +362,7 @@ def conv3x3x3_cf_dx_f32(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if g.device.type == "cpu":
         return conv3x3x3_cf_dx_reference(g, w)
     out = run("conv3x3x3_cf_dx_f32", dx_f32_call(g, w), g)
-    conv3x3x3_cf_dx_f32.launches += 1
+    count(conv3x3x3_cf_dx_f32)
     return out
 
 
@@ -420,7 +420,7 @@ def conv3x3x3_cf_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         return conv3x3x3_cf_dw_f32(x, g)
     dw = run("conv3x3x3_cf_dw", dw_call(x, g), x)
-    conv3x3x3_cf_dw.launches += 1
+    count(conv3x3x3_cf_dw)
     return dw
 
 
@@ -492,7 +492,7 @@ def conv3x3x3_cf_dw_f32(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv3x3x3_cf_dw_reference(x, g)
     dw = run("conv3x3x3_cf_dw_f32", dw_f32_call(x, g), x)
-    conv3x3x3_cf_dw_f32.launches += 1
+    count(conv3x3x3_cf_dw_f32)
     return dw
 
 

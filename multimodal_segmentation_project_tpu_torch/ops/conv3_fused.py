@@ -221,7 +221,7 @@ def _run(name: str, call: conv3.Launch, t: torch.Tensor, op, op_f32):
     """Launch ``call`` on t's device; count it on op_f32 for an fp32 t,
     else on op."""
     out = conv3.run(name, call, t)
-    (op_f32 if _f32(t) else op).launches += 1
+    _build.count(op_f32 if _f32(t) else op)
     return out
 
 

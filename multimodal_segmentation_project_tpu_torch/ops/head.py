@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from multimodal_segmentation_project_tpu_torch.ops import _build
-from multimodal_segmentation_project_tpu_torch.ops._build import Launch, run
+from multimodal_segmentation_project_tpu_torch.ops._build import Launch, count, run
 
 MAX_CLASSES = 8  # the forward kernel's register budget for logits per voxel
 MAX_DX_CHANNELS = 64  # the dx and weight-gradient kernels: feature channels
@@ -217,7 +217,7 @@ def _head_fwd(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torc
     if x.dtype == torch.float32:
         return head1x1_cf_f32(x, kernel, bias)
     out = run("head1x1_cf", head_call(x, kernel, bias), x)
-    head1x1_cf.launches += 1
+    count(head1x1_cf)
     return out
 
 
@@ -227,7 +227,7 @@ def head1x1_cf_f32(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) ->
     if x.device.type == "cpu":
         return head1x1_cf_reference(x, kernel, bias)
     out = run("head1x1_cf_f32", head_f32_call(x, kernel, bias), x)
-    head1x1_cf_f32.launches += 1
+    count(head1x1_cf_f32)
     return out
 
 
@@ -243,7 +243,7 @@ def head1x1_cf_dx(ct: torch.Tensor, kernel: torch.Tensor, dtype: torch.dtype) ->
         raise TypeError(f"head1x1_cf_dx: the CUDA kernels write bfloat16 or float32, asked for "
                         f"{dtype}")
     out = run("head1x1_cf_dx", dx_call(ct, kernel), ct)
-    head1x1_cf_dx.launches += 1
+    count(head1x1_cf_dx)
     return out
 
 
@@ -253,7 +253,7 @@ def head1x1_cf_dx_f32(ct: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     if ct.device.type == "cpu":
         return head1x1_cf_dx_reference(ct, kernel, torch.float32)
     out = run("head1x1_cf_dx_f32", dx_f32_call(ct, kernel), ct)
-    head1x1_cf_dx_f32.launches += 1
+    count(head1x1_cf_dx_f32)
     return out
 
 
@@ -274,7 +274,7 @@ def head1x1_cf_dw(x: torch.Tensor, ct: torch.Tensor) -> tuple[torch.Tensor, torc
     if x.dtype == torch.float32:
         return head1x1_cf_dw_f32(x, ct)
     out = run("head1x1_cf_dw", dw_call(x, ct), x)
-    head1x1_cf_dw.launches += 1
+    count(head1x1_cf_dw)
     return out
 
 
@@ -284,7 +284,7 @@ def head1x1_cf_dw_f32(x: torch.Tensor, ct: torch.Tensor) -> tuple[torch.Tensor, 
     if x.device.type == "cpu":
         return head1x1_cf_dw_reference(x, ct)
     out = run("head1x1_cf_dw_f32", dw_f32_call(x, ct), x)
-    head1x1_cf_dw_f32.launches += 1
+    count(head1x1_cf_dw_f32)
     return out
 
 

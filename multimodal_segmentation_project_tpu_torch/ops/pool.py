@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from multimodal_segmentation_project_tpu_torch.ops import _build
-from multimodal_segmentation_project_tpu_torch.ops._build import Launch, run
+from multimodal_segmentation_project_tpu_torch.ops._build import Launch, count, run
 
 POOL_THREADS = 256  # csrc/pool2x.cu THREADS: pooled voxels per block
 
@@ -122,7 +122,7 @@ def _pool_fwd(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         return max_pool2x_cf_f32(x)
     out = run("max_pool2x_cf", pool_call(x), x)
-    max_pool2x_cf.launches += 1
+    count(max_pool2x_cf)
     return out
 
 
@@ -132,7 +132,7 @@ def max_pool2x_cf_f32(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return max_pool2x_cf_reference(x)
     out = run("max_pool2x_cf_f32", pool_f32_call(x), x)
-    max_pool2x_cf_f32.launches += 1
+    count(max_pool2x_cf_f32)
     return out
 
 
@@ -145,7 +145,7 @@ def max_pool2x_cf_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> torc
     if x.dtype == torch.float32:
         return max_pool2x_cf_bwd_f32(x, y, g)
     dx = run("max_pool2x_cf_bwd", bwd_call(x, y, g), x)
-    max_pool2x_cf_bwd.launches += 1
+    count(max_pool2x_cf_bwd)
     return dx
 
 
@@ -155,7 +155,7 @@ def max_pool2x_cf_bwd_f32(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> 
     if x.device.type == "cpu":
         return max_pool2x_cf_bwd_reference(x, y, g)
     dx = run("max_pool2x_cf_bwd_f32", bwd_f32_call(x, y, g), x)
-    max_pool2x_cf_bwd_f32.launches += 1
+    count(max_pool2x_cf_bwd_f32)
     return dx
 
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from multimodal_segmentation_project_tpu_torch.ops import _build
-from multimodal_segmentation_project_tpu_torch.ops._build import Launch, run
+from multimodal_segmentation_project_tpu_torch.ops._build import Launch, count, run
 
 MAX_OUT_CHANNELS = 64  # wider upconvs (the deep region) use the plain torch op
 
@@ -121,7 +121,7 @@ def _upconv_fwd(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> to
     if x.device.type == "cpu":
         return upconv2x_cf_reference(x, kernel, bias)
     out = run("upconv2x_cf", upconv_call(x, kernel, bias), x)
-    upconv2x_cf.launches += 1
+    count(upconv2x_cf)
     return out
 
 

@@ -20,10 +20,15 @@ operation, falls to one span. Spans of one name inside one step add up.
 ``data.upload``    ``pin_memory`` and the non-blocking copy to the device
 ``step.augment``   the augmentation and, on a mesh, the slice
 ``step.forward``   the train-mode forward(s) and the loss; the distillation
-                   teacher's forward in a span of its own
+                   teacher's forward in a span of its own; in a replayed step
+                   the Dropout masks' draw and the copies into the graph's
+                   static inputs
+``step.replay``    a CUDA graph's launch and nothing else: the step's device
+                   work from the forward through the NaN guard's flag
 ``step.backward``  ``loss.backward()`` and the mesh's gradient all-reduce
 ``step.update``    the metrics and the NaN guard's launches before
-                   ``step.sync``; the rollback or the optimizer after it
+                   ``step.sync`` (in a replayed step the metrics' copy and
+                   the forward hooks); the rollback or the optimizer after it
 ``step.sync``      the host's blocking read of the NaN guard's finite flag
 =================  ===========================================================
 

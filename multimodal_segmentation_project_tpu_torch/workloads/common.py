@@ -113,7 +113,9 @@ def add_common_args(parser: argparse.ArgumentParser, lr_default: float = 1e-3):
                         help="torch.profiler trace of the first epoch -> logs/profile: the "
                              "Chrome trace holds the training path's spans by name (data.wait, "
                              "data.upload, step.augment/forward/backward/update/sync), each "
-                             "with its step's id 'epoch:step' in its args")
+                             "with its step's id 'epoch:step' in its args. The profiled "
+                             "epoch's train steps run eagerly: on one GPU the steps replay as "
+                             "CUDA graphs only from the first step after it")
     parser.add_argument("--no_nan_guard", action="store_true",
                         help="disable skip-update-on-nonfinite-gradients")
     parser.add_argument("--multihost", action="store_true",
