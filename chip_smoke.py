@@ -150,7 +150,7 @@ Phases, each printing one line per check; any failure exits non-zero:
    CLI on its 192^3 result; the card's image against the same function on
    the CPU within 1e-5 * max |x|, the labels equal; the seconds per case and
    the peak device memory;
-11. multi-device (run last): (a) the train CLI under ``torchrun
+11. multi-device: (a) the train CLI under ``torchrun
    --standalone --nproc_per_node 1`` (NCCL, one rank) writes phase 6's
    files, and in this process a world-1 step gives the bits of the step
    with no process group (cuDNN deterministic); (b) two processes of this
@@ -173,6 +173,24 @@ Phases, each printing one line per check; any failure exits non-zero:
    through host memory, must not, checked in a pair of processes of its
    own).
 
+12. window attention (``ops/window_attn.py``, SwinUNETR's W-MSA and
+   SW-MSA): its three Triton kernels against the plain version at the
+   four Swin stages' 192^3 shapes (96^3 x 48 channels, 3 heads; 48^3 x 96,
+   6; 24^3 x 192, 12; 12^3 x 384, 24), unshifted and shifted by 3, and at
+   a clipped window (4^3), batch 2 and a ragged 9 x 12 x 16 volume: the
+   output within two bf16 ulps plus 2^-8 max |v|, the gradients of qkv,
+   the qkv bias and the position table within 1.5e-2 of the plain
+   version's norm; the forward and forward + backward timed beside their
+   bound, the plain version and SDPA (with the bias as its float mask, the
+   library's yardstick, which the port never calls); then SwinUNETR's bf16
+   train step at 192^3 on the one-card step's CUDA graph: the forward
+   kernel's launches from the host over six steps (24: 8 blocks in each of
+   the two eager steps and the capture; the replays launch none from the
+   host), the window_attn kernels a replayed step runs, counted on the
+   device (24: 8 blocks, a forward and two backward kernels each), the
+   step's seconds and the allocator's peaks.
+
+``python3 chip_smoke.py --window-attn`` runs phase 12 alone.
 ``python3 chip_smoke.py --multi-gpu`` instead runs (b)-(e) across the
 machine's N > 1 cards over NCCL, at 1 x N, N x 1 and, for an even N >= 4,
 (N/2) x 2, with each rank's step time and halo bytes.
@@ -4226,6 +4244,199 @@ def multi_gpu(size: int = MESH_SIZE) -> None:
     print(f"[multi] --multi-gpu in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---- window attention (SwinUNETR's W-MSA, ops/window_attn.py) ----------------
+
+# (volume side, channels, heads) of SwinUNETR's four stages at 192^3, batch 1
+WINDOW_ATTN_STAGES = ((96, 48, 3), (48, 96, 6), (24, 192, 12), (12, 384, 24))
+# further shapes: a clipped window, batch 2, a ragged volume padded on every axis
+WINDOW_ATTN_EXTRA = (((1, 4, 4, 4), 48, 3), ((2, 12, 12, 12), 96, 6), ((1, 9, 12, 16), 48, 3))
+WINDOW_ATTN_GRAD_REL = 1.5e-2  # norm-relative: the kernels round P and dS to bf16 for the products
+
+
+def _window_attn_case(shape, c, heads, shift, seed):
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.ops import window_attn as wa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(*shape, 3 * c, generator=gen, device="cuda").to(torch.bfloat16)
+    bias = 0.5 * torch.randn(3 * c, generator=gen, device="cuda")
+    table = 0.5 * torch.randn((2 * wa.MAX_WINDOW - 1) ** 3, heads, generator=gen, device="cuda")
+    index = wa.relative_position_index().cuda()
+    dout = torch.randn(*shape, c, generator=gen, device="cuda").to(torch.bfloat16)
+    return qkv, bias, table, index, dout
+
+
+def _window_attn_check(shape, c, heads, shift, seed) -> dict:
+    """The kernels against the plain version on one case: the output within
+    two bf16 ulps plus 2^-8 max |v| (the kernel rounds P to bf16 before P v),
+    the gradients of qkv, the bias and the table norm-relative within
+    WINDOW_ATTN_GRAD_REL."""
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.ops import window_attn as wa
+
+    qkv, bias, table, index, dout = _window_attn_case(shape, c, heads, shift, seed)
+    win, sft = wa.window_and_shift(shape[1:4], wa.MAX_WINDOW, shift)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (qkv, bias, table)]
+    got = wa.window_attention(leaves[0], leaves[1], leaves[2], index, heads, wa.MAX_WINDOW, shift)
+    g_got = torch.autograd.grad(got, leaves, dout)
+    got = got.detach()
+    plain = [t.detach().clone().requires_grad_(True) for t in (qkv, bias, table)]
+    want = wa.window_attention_reference(plain[0], plain[1], plain[2], index, heads, win, sft)
+    g_want = torch.autograd.grad(want, plain, dout)
+    torch.cuda.synchronize()
+    vmax = qkv[..., 2 * c:].float().abs().max()
+    allowed = 2 * _bf16_ulp(torch.maximum(got.float().abs(), want.float().abs())) + vmax / 256
+    err = (got.float() - want.float()).abs()
+    # a gradient the plain version gives as 0 (the bias where no token is
+    # padded) is held absolutely: 0 / max(0, tiny)
+    rel = [float((a.float() - b.float()).norm() / max(float(b.float().norm()), 1e-30))
+           for a, b in zip(g_got, g_want)]
+    ok = bool((err <= allowed).all()) and all(math.isfinite(r) and r <= WINDOW_ATTN_GRAD_REL
+                                              for r in rel)
+    print(f"[window_attn] {tuple(shape)} C={c} heads={heads} shift={shift}: out max err "
+          f"{float(err.max()):.4g} (worst share of allowance {float((err / allowed).max()):.3f}); "
+          f"grad rel qkv {rel[0]:.3g} bias {rel[1]:.3g} (norm {float(g_want[1].norm()):.4g}, "
+          f"kernel's {float(g_got[1].norm()):.4g}) table {rel[2]:.3g} (limit "
+          f"{WINDOW_ATTN_GRAD_REL}) {'ok' if ok else 'FAIL'}", flush=True)
+    fail_unless(ok, f"window_attn {tuple(shape)} shift {shift} misses its bound")
+    return {"out_err": float(err.max()), "grad_rel": rel}
+
+
+def _window_attn_bound_ms(shape, c) -> tuple:
+    """(forward, backward) least ms: the larger of the FLOPs at 989 TFLOP/s
+    and the bytes at 3.35 TB/s. Queries over the real tokens, keys and
+    values over the whole 343-token window: forward 4 N 343 C FLOPs,
+    backward 10 N 343 C; bytes q, k, v and o (forward), and q, k, v, o, dO,
+    dq, dk, dv (backward), bf16, on the real tokens."""
+    n_tok = math.prod(shape[:4])
+    win = min(7, min(shape[1:4])) ** 3
+    fwd = max(4 * n_tok * win * c / 989e12, 4 * n_tok * c * 2 / 3.35e12) * 1e3
+    bwd = max(10 * n_tok * win * c / 989e12, 8 * n_tok * c * 2 / 3.35e12) * 1e3
+    return fwd, bwd
+
+
+def _time_window_attn(shape, c, heads, shift, seed) -> None:
+    """Kernel forward and forward + backward, the plain version's, and SDPA
+    on the same windows with the bias and mask as a float mask (the
+    library's yardstick; the port never calls it), CUDA events, median of
+    five; beside the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_segmentation_project_tpu_torch.ops import window_attn as wa
+
+    cases = [_window_attn_case(shape, c, heads, shift, seed + i) for i in range(5)]
+    win, sft = wa.window_and_shift(shape[1:4], wa.MAX_WINDOW, shift)
+
+    def kern(qkv, bias, table, index, dout):
+        return wa.window_attention(qkv, bias, table, index, heads, wa.MAX_WINDOW, shift)
+
+    def kern_bwd(qkv, bias, table, index, dout):
+        leaves = [t.detach().requires_grad_(True) for t in (qkv, bias, table)]
+        out = wa.window_attention(leaves[0], leaves[1], leaves[2], index, heads, wa.MAX_WINDOW,
+                                  shift)
+        torch.autograd.grad(out, leaves, dout)
+
+    def plain(qkv, bias, table, index, dout):
+        return wa.window_attention_reference(qkv, bias, table, index, heads, win, sft)
+
+    qkv0, bias0, table0, index0, _ = cases[0]
+    pad = wa.padded(shape[1:4], win)
+    full = bias0.to(qkv0.dtype).expand(shape[0], *pad, 3 * c).clone()
+    full[:, :shape[1], :shape[2], :shape[3]] = qkv0
+    windows = wa._partition(full, win)
+    n = windows.shape[1]
+    q, k, v = windows.view(-1, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+    mask = wa.dense_bias(table0, index0, n)[None].to(torch.bfloat16).expand(q.shape[0], -1, -1, -1)
+
+    def sdpa(*_):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    ms = {name: _time_ms(fn, cases) for name, fn in (("kernel", kern), ("kernel fwd+bwd", kern_bwd),
+                                                      ("plain", plain), ("sdpa", sdpa))}
+    fwd_b, bwd_b = _window_attn_bound_ms(shape, c)
+    print(f"[window_attn] time {tuple(shape)} C={c} shift={shift}: kernel {ms['kernel']:.3f} ms "
+          f"(bound {fwd_b:.3f}, {100 * fwd_b / ms['kernel']:.1f} %), fwd+bwd "
+          f"{ms['kernel fwd+bwd']:.3f} ms (bound {fwd_b + bwd_b:.3f}, "
+          f"{100 * (fwd_b + bwd_b) / ms['kernel fwd+bwd']:.1f} %), plain {ms['plain']:.3f} ms, "
+          f"sdpa (bias only, no mask) {ms['sdpa']:.3f} ms", flush=True)
+
+
+def _window_attn_step(size: int = 192) -> None:
+    """SwinUNETR's bf16 train step at ``size``^3 on the one-card step's CUDA
+    graph: the forward kernel's launches from the host over six steps (the
+    two eager steps and the capture run the forward from the host, 8 blocks
+    each; the four replays, the capture's own included, launch none), the
+    window-attention kernels a replayed step runs, counted on the device (8
+    blocks: 8 forwards and 16 backward launches), its time and the
+    allocator's reserved peak."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_segmentation_project_tpu_torch.engine import steps
+    from multimodal_segmentation_project_tpu_torch.engine.state import create_train_state
+    from multimodal_segmentation_project_tpu_torch.models.swin_unetr import SwinUNETR
+    from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
+    from multimodal_segmentation_project_tpu_torch.ops.window_attn import window_attention
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = SwinUNETR(dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED)).cuda()
+    state = create_train_state(model, 1e-3, 1e-4, 8)
+    step = steps.make_train_step(get_loss_fn("ce_tversky"), augment=True, nan_guard=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.rand((1, 1, size, size, size), generator=gen, device="cuda")
+    y = torch.randint(0, 4, (1, size, size, size), generator=gen, device="cuda")
+    times = []
+    window_attention.launches = 0
+    replayed = steps._Replay.replayed
+    for i in range(6):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(state, x, y, torch.Generator().manual_seed(i))
+        float(m["loss"])
+        times.append(time.perf_counter() - t)
+    replayed = steps._Replay.replayed - replayed
+    launches = window_attention.launches
+    fail_unless(replayed == 4, f"{replayed} of the six SwinUNETR steps replayed, not 4")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        float(step(state, x, y, torch.Generator().manual_seed(99))["loss"])
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "cuda" in str(getattr(e, "device_type", "")).lower()]
+    n_attn = sum(name.startswith("window_attn") for name in names)
+    print(f"[window_attn] SwinUNETR {size}^3 bf16 step: seconds {[round(t, 4) for t in times]}; "
+          f"a replayed step runs {n_attn} window_attn kernels of {len(names)} device ops; "
+          f"forward launches from the host over the six steps {launches} (two eager steps and "
+          f"the capture, 8 blocks each); peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, reserved "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB", flush=True)
+    fail_unless(n_attn == 24, f"a replayed step ran {n_attn} window_attn kernels, not 24")
+    fail_unless(launches == 8 * 3, f"the host launched the forward kernel {launches} times over "
+                                   f"two eager steps and the capture, not 24")
+    del model, state, step
+    torch.cuda.empty_cache()
+
+
+def phase_window_attn() -> None:
+    """12. window attention: the kernels against the plain version at the
+    four stages' 192^3 shapes, shifted and unshifted, and at a clipped
+    window, batch 2 and a ragged volume; timed beside their bound, the
+    plain version and SDPA; then SwinUNETR's replayed train step."""
+    t0 = time.perf_counter()
+    for i, (side, c, heads) in enumerate(WINDOW_ATTN_STAGES):
+        for shift in (0, 3):
+            _window_attn_check((1, side, side, side), c, heads, shift, 100 + 10 * i + shift)
+    for i, (shape, c, heads) in enumerate(WINDOW_ATTN_EXTRA):
+        for shift in (0, 3):
+            _window_attn_check(shape, c, heads, shift, 200 + 10 * i + shift)
+    for side, c, heads in WINDOW_ATTN_STAGES:
+        _time_window_attn((1, side, side, side), c, heads, 3, 300)
+    _window_attn_step()
+    print(f"[window_attn] phase in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase 11, started by _mesh_world
@@ -4262,6 +4473,17 @@ def main() -> int:
                 print(f"[FAIL] {type(e).__name__}: {e}", flush=True)
                 return 1
             return 0
+    if "--window-attn" in sys.argv[1:]:
+        try:
+            phase_device()
+            phase_window_attn()
+        except Exception as e:
+            import traceback
+
+            traceback.print_exc()
+            print(f"[FAIL] {type(e).__name__}: {e}", flush=True)
+            return 1
+        return 0
     if "--time-scipy-resample" in sys.argv[1:]:
         try:
             phase_device()
@@ -4289,6 +4511,7 @@ def main() -> int:
         phase_fp32_train_parity()
         phase_checkpoints()
         phase_multi()
+        phase_window_attn()
     except Exception as e:  # every phase's failure fails the run
         import traceback
 

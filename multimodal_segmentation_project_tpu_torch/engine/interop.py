@@ -18,7 +18,10 @@ numpy) become a state dict that the port loads with ``strict=True``, and
   head_kernel (Cin,Co), head_bias        final_conv.weight (Co,Cin,1,1,1), final_conv.bias
 
 ``num_batches_tracked`` has no JAX counterpart: it reads as 0 and is not
-written. The DANN discriminator maps the same way: a Dense
+written. SwinUNETR, which the JAX package does not have, keeps its own
+(MONAI's) names: ``swinViT.layers1.0.blocks.0.attn.qkv.weight`` is the path
+``swinViT/layers1/0/blocks/0/attn/qkv/weight``, each leaf in the torch
+layout, so its checkpoints nest the state dict as it stands. The DANN discriminator maps the same way: a Dense
 ``{fc0,fc1,fc2,out}/kernel`` (in, out) is ``{name}.weight`` (out, in), and
 its ``bias`` ``{name}.bias``. The per-parameter mapping
 (:func:`jax_path`, :func:`named_to_tree`, :func:`tree_to_named`) also
@@ -45,7 +48,9 @@ _FIELDS = {
     "w": {"weight": "kernel", "bias": "bias"},
     "s": {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"},
 }
-_ANY = {"i": r"\d+", "fc": r"fc\d+|out"}  # the same on both sides
+# the same on both sides; a SwinUNETR name (MONAI's) is its own path
+_ANY = {"i": r"\d+", "fc": r"fc\d+|out", "swin": r"swinViT|encoder(?:[1-4]|10)|decoder[1-5]|out",
+        "rest": r"\w+(?:\.\w+)+"}
 _RULES = (
     ("final_conv.weight", "head_kernel"),
     ("final_conv.bias", "head_bias"),
@@ -56,6 +61,7 @@ _RULES = (
     ("decoder.{i}.double_conv.{bn}.{s}", "dec{i}.conv.{bn}.{s}"),
     ("bottleneck.double_conv.{conv}.{w}", "bottleneck.{conv}.{w}"),
     ("bottleneck.double_conv.{bn}.{s}", "bottleneck.{bn}.{s}"),
+    ("{swin}.{rest}", "{swin}.{rest}"),  # SwinUNETR: no JAX counterpart, the torch layout
     ("{fc}.{w}", "{fc}.{w}"),  # a discriminator Dense
 )
 STATS = ("mean", "var")  # the batch_stats leaves

@@ -158,17 +158,42 @@ class TrainerConfig:
     auto_spatial: bool = True
     n_data: int | None = None  # the data axis (None: the largest that divides the batch)
     device: str = "cuda"
+    # "unet3d" (``features`` are its widths) or "swin_unetr" (MONAI's
+    # published widths; one device, bf16 on CUDA, the supervised step only,
+    # no freeze)
+    model: str = "unet3d"
     plot_title: str = "Training Metrics"
     extra_config: dict = field(default_factory=dict)
 
 
-def build_model(cfg: TrainerConfig) -> UNet3D:
-    """UNet3D with weights drawn from a generator seeded by ``cfg.seed``."""
-    return UNet3D(
-        in_channels=1, out_channels=NUM_CLASSES, features=cfg.features,
-        dropout_rate=cfg.dropout_rate, dtype=DTYPES[cfg.precision],
-        generator=torch.Generator().manual_seed(cfg.seed),
-    )
+MODELS = ("unet3d", "swin_unetr")
+
+
+def make_model(name: str, features=(16, 32, 64, 128), precision: str = "bf16",
+               device: str = "cuda", dropout_rate: float = 0.1, seed: int = 42) -> torch.nn.Module:
+    """Model ``name`` with weights drawn from a generator seeded by ``seed``:
+    UNet3D at ``features``, or SwinUNETR at its published widths (imported
+    here, so that a UNet3D run never loads its window attention), which on
+    CUDA runs in bf16 alone."""
+    if name not in MODELS:
+        raise ValueError(f"unknown model {name!r}: choose one of {MODELS}")
+    generator = torch.Generator().manual_seed(seed)
+    if name == "swin_unetr":
+        from multimodal_segmentation_project_tpu_torch.models.swin_unetr import SwinUNETR
+
+        if torch.device(device).type == "cuda" and precision != "bf16":
+            raise ValueError("swin_unetr runs on CUDA in bf16 only: its window-attention "
+                             "kernel has a bf16 body alone")
+        return SwinUNETR(in_channels=1, out_channels=NUM_CLASSES, dtype=DTYPES[precision],
+                         generator=generator)
+    return UNet3D(in_channels=1, out_channels=NUM_CLASSES, features=features,
+                  dropout_rate=dropout_rate, dtype=DTYPES[precision], generator=generator)
+
+
+def build_model(cfg: TrainerConfig) -> torch.nn.Module:
+    """The configuration's model (:func:`make_model`), seeded by ``cfg.seed``."""
+    return make_model(cfg.model, cfg.features, cfg.precision, cfg.device, cfg.dropout_rate,
+                      cfg.seed)
 
 
 class Trainer:
@@ -184,6 +209,16 @@ class Trainer:
     def __init__(self, cfg: TrainerConfig, train_dataset, val_dataset,
                  teacher: UNet3D | None = None, kd_loss_fn=None):
         self.cfg = cfg
+        if cfg.model == "swin_unetr":
+            if teacher is not None:
+                raise ValueError("distillation runs on UNet3D: swin_unetr takes the supervised "
+                                 "train step only")
+            if world_size() > 1:
+                raise ValueError("swin_unetr runs on one device: a spatial mesh would need a halo "
+                                 "for its windows, and a data mesh is not wired for it")
+            if cfg.freeze_at_start or cfg.freeze_encoder_epoch is not None:
+                raise ValueError("swin_unetr takes no encoder freeze: the freeze prefixes name "
+                                 "UNet3D's encoder, and SwinUNETR's is swinViT")
         self.device = torch.device(cfg.device)
         # every write is rank 0's: the other ranks hold the same state
         self.is_main = rank() == 0
@@ -585,6 +620,9 @@ class DannTrainer(Trainer):
 
     def __init__(self, cfg: TrainerConfig, source_dataset, target_dataset, val_dataset,
                  lambda_domain: float = 0.1):
+        if cfg.model != "unet3d":
+            raise ValueError(f"DANN runs on UNet3D, whose bottleneck features feed the "
+                             f"discriminator; {cfg.model} has none")
         self.lambda_domain = lambda_domain
         # built before Trainer.__init__, which may resume into it
         disc = DomainDiscriminator(2 * cfg.features[-1],

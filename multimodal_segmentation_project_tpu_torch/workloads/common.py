@@ -126,6 +126,16 @@ def add_common_args(parser: argparse.ArgumentParser, lr_default: float = 1e-3):
     return parser
 
 
+def add_model_arg(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """``--model``: the train and eval CLIs' architecture."""
+    parser.add_argument("--model", type=str, default="unet3d", choices=["unet3d", "swin_unetr"],
+                        help="unet3d (--features are its widths) or swin_unetr: MONAI's SwinUNETR "
+                             "at its published widths (feature size 48; --features ignored), on "
+                             "one device, in bf16 on a GPU, volume sides multiples of 32, no "
+                             "--freeze_encoder_epoch")
+    return parser
+
+
 def maybe_init_multihost(args) -> None:
     """``torch.distributed`` from torchrun's environment, when it is present:
     NCCL on CUDA, gloo on the CPU, one rank per GPU (LOCAL_RANK)."""

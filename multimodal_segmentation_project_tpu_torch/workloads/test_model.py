@@ -34,6 +34,9 @@ their classes and per-sample metrics and alone writes ``metrics.json``, the
 CSV and the NIfTI and PNG files; the other ranks print nothing. Batch 1
 stays on rank 0 (the volume is not split: the JAX eval CLI shards only the
 batch). A rank outside the data axis is idle.
+
+``--model swin_unetr`` evaluates a SwinUNETR checkpoint (one device; bf16
+on a GPU).
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ from datetime import datetime
 import numpy as np
 import torch
 
-from multimodal_segmentation_project_tpu_torch import NUM_CLASSES, ORGAN_NAMES
+from multimodal_segmentation_project_tpu_torch import ORGAN_NAMES
 import torch.distributed as dist
 
 from multimodal_segmentation_project_tpu_torch.data import (
@@ -61,6 +64,7 @@ from multimodal_segmentation_project_tpu_torch.data import (
 )
 from multimodal_segmentation_project_tpu_torch.data.pipeline import upload
 from multimodal_segmentation_project_tpu_torch.engine.checkpoint import load_params_any
+from multimodal_segmentation_project_tpu_torch.engine.trainer import make_model
 from multimodal_segmentation_project_tpu_torch.models.unet3d import UNet3D
 from multimodal_segmentation_project_tpu_torch.ops.metrics import per_class_dice_iou_per_sample
 from multimodal_segmentation_project_tpu_torch.parallel.mesh import (
@@ -70,6 +74,7 @@ from multimodal_segmentation_project_tpu_torch.parallel.mesh import (
     world_size,
 )
 from multimodal_segmentation_project_tpu_torch.workloads.common import (
+    add_model_arg,
     maybe_init_multihost,
     parse_features,
     parse_modalities,
@@ -77,7 +82,6 @@ from multimodal_segmentation_project_tpu_torch.workloads.common import (
 )
 
 ORGAN_COLORS = {1: (1.0, 0.0, 0.0), 2: (1.0, 0.65, 0.0), 3: (0.0, 0.5, 0.0)}
-DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -97,7 +101,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="encoder widths of the trained model")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default) or 'cpu', which runs the plain PyTorch ops")
-    return parser
+    return add_model_arg(parser)
 
 
 def _sync(device: torch.device) -> None:
@@ -358,10 +362,10 @@ def test_model(model, device, test_dataset, args, results_dir) -> dict:
 def main(args) -> dict:
     device = resolve_device(args.device, args.precision)
     maybe_init_multihost(args)
-    model = UNet3D(
-        in_channels=1, out_channels=NUM_CLASSES, features=parse_features(args.features),
-        dropout_rate=0.0, dtype=DTYPES[args.precision],
-    )
+    if args.model == "swin_unetr" and world_size() > 1:
+        raise ValueError("swin_unetr evaluates on one device: launch it without torchrun")
+    model = make_model(args.model, parse_features(args.features), args.precision, str(device),
+                       dropout_rate=0.0)
     load_params_any(model, args.model_path)
     model.to(device).eval()
 

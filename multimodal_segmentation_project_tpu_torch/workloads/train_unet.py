@@ -31,6 +31,10 @@ trainer does: the largest data axis that divides the batch, then
 (``--no_auto_spatial`` keeps them idle; ``--n_data`` and ``--n_spatial`` set
 the axes). Flags asking for more ranks than torchrun started are refused.
 Only rank 0 writes the experiment's files.
+
+``--model swin_unetr`` trains SwinUNETR (``models/swin_unetr.py``) at its
+published widths instead of UNet3D, on one GPU in bf16 (or on the CPU);
+its checkpoints nest its state dict's names.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from multimodal_segmentation_project_tpu_torch.engine.trainer import Trainer, Tr
 from multimodal_segmentation_project_tpu_torch.utils.experiment import create_experiment_name
 from multimodal_segmentation_project_tpu_torch.workloads.common import (
     add_common_args,
+    add_model_arg,
     experiment_name,
     init_world,
     parse_features,
@@ -56,6 +61,7 @@ from multimodal_segmentation_project_tpu_torch.workloads.common import (
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Train UNet3D model (PyTorch/CUDA)")
     add_common_args(parser)
+    add_model_arg(parser)
     parser.add_argument("--modalities", type=str, default="all")
     parser.add_argument("--freeze_encoder_epoch", type=int, default=None)
     parser.add_argument(
@@ -103,6 +109,7 @@ def main(args) -> dict:
         auto_spatial=not args.no_auto_spatial,
         n_data=args.n_data,
         device=str(device),
+        model=args.model,
         extra_config={"modalities": args.modalities, "n_samples": args.n_samples},
     )
     say("[START] baseline training\n" + "=" * 50)

@@ -107,13 +107,15 @@ def test_eval_cli_refuses_cuda_without_a_gpu():
 
 def test_train_cli_takes_the_jax_clis_flags_and_defaults():
     """The JAX train CLI's flags parse here with the same defaults, plus
-    --device (default cuda)."""
+    --device (default cuda) and --model (default unet3d, the JAX CLI's only
+    model)."""
     from multimodal_segmentation_project_tpu.workloads import train_unet as jax_train
 
     argv = ["--data_root", "d"]
     mine = vars(train_unet.build_parser().parse_args(argv))
     ref = vars(jax_train.build_parser().parse_args(argv))
     assert mine.pop("device") == "cuda"
+    assert mine.pop("model") == "unet3d"
     assert mine == ref
 
 
