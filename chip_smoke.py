@@ -190,7 +190,23 @@ Phases, each printing one line per check; any failure exits non-zero:
    device (24: 8 blocks, a forward and two backward kernels each), the
    step's seconds and the allocator's peaks.
 
-``python3 chip_smoke.py --window-attn`` runs phase 12 alone.
+13. InstanceNorm with the residual block's tail (``ops/instance_norm.py``,
+   SwinUNETR's 25 norms): its six Triton kernels against the plain version
+   at every shape and tail of a 192^3 step (192^3 and 96^3 x 48 channels,
+   48^3 x 96, 24^3 x 192, 12^3 x 384, 6^3 x 768; no tail, LeakyReLU,
+   residual and LeakyReLU) in bf16: the output, dx and dresidual within
+   two bf16 ulps plus 1e-5 of the largest magnitude; each timed forward and
+   forward + backward as called, by CUDA events, median of five, beside its
+   device time (the profiler), its bound (bytes at 3.35 TB/s), the plain
+   version and the library's composition (``torch.group_norm``, the add,
+   ``F.leaky_relu``, which the port no longer calls), and summed over the
+   step; then SwinUNETR's train step: the instance_norm kernels a replayed
+   step runs, counted on the device (150: 25 norms, six kernels each), and
+   the op's launches from the host over six steps (300: the two eager
+   steps; a capture counts none).
+
+``python3 chip_smoke.py --window-attn`` runs phase 12 alone,
+``python3 chip_smoke.py --instance-norm`` phase 13.
 ``python3 chip_smoke.py --multi-gpu`` instead runs (b)-(e) across the
 machine's N > 1 cards over NCCL, at 1 x N, N x 1 and, for an even N >= 4,
 (N/2) x 2, with each rank's step time and halo bytes.
@@ -4364,14 +4380,12 @@ def _time_window_attn(shape, c, heads, shift, seed) -> None:
           f"sdpa (bias only, no mask) {ms['sdpa']:.3f} ms", flush=True)
 
 
-def _window_attn_step(size: int = 192) -> None:
+def _swin_step(counters, size: int = 192) -> tuple:
     """SwinUNETR's bf16 train step at ``size``^3 on the one-card step's CUDA
-    graph: the forward kernel's launches from the host over six steps (the
-    two eager steps and the capture run the forward from the host, 8 blocks
-    each; the four replays, the capture's own included, launch none), the
-    window-attention kernels a replayed step runs, counted on the device (8
-    blocks: 8 forwards and 16 backward launches), its time and the
-    allocator's reserved peak."""
+    graph: six steps (two eager, the capture, three more replays), then one
+    replayed step under the profiler. (Each of ``counters``' launches from
+    the host over the six steps, the names of the profiled step's device
+    ops.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4379,7 +4393,6 @@ def _window_attn_step(size: int = 192) -> None:
     from multimodal_segmentation_project_tpu_torch.engine.state import create_train_state
     from multimodal_segmentation_project_tpu_torch.models.swin_unetr import SwinUNETR
     from multimodal_segmentation_project_tpu_torch.ops.losses import get_loss_fn
-    from multimodal_segmentation_project_tpu_torch.ops.window_attn import window_attention
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4390,7 +4403,8 @@ def _window_attn_step(size: int = 192) -> None:
     x = torch.rand((1, 1, size, size, size), generator=gen, device="cuda")
     y = torch.randint(0, 4, (1, size, size, size), generator=gen, device="cuda")
     times = []
-    window_attention.launches = 0
+    for c in counters:
+        c.launches = 0
     replayed = steps._Replay.replayed
     for i in range(6):
         torch.cuda.synchronize()
@@ -4399,24 +4413,37 @@ def _window_attn_step(size: int = 192) -> None:
         float(m["loss"])
         times.append(time.perf_counter() - t)
     replayed = steps._Replay.replayed - replayed
-    launches = window_attention.launches
+    launches = [c.launches for c in counters]
     fail_unless(replayed == 4, f"{replayed} of the six SwinUNETR steps replayed, not 4")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         float(step(state, x, y, torch.Generator().manual_seed(99))["loss"])
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if "cuda" in str(getattr(e, "device_type", "")).lower()]
-    n_attn = sum(name.startswith("window_attn") for name in names)
-    print(f"[window_attn] SwinUNETR {size}^3 bf16 step: seconds {[round(t, 4) for t in times]}; "
-          f"a replayed step runs {n_attn} window_attn kernels of {len(names)} device ops; "
-          f"forward launches from the host over the six steps {launches} (two eager steps and "
-          f"the capture, 8 blocks each); peak allocated "
+    print(f"[swin step] SwinUNETR {size}^3 bf16 step: seconds {[round(t, 4) for t in times]}; "
+          f"{len(names)} device ops a replayed step; peak allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, reserved "
           f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB", flush=True)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return launches, names
+
+
+def _window_attn_step(size: int = 192) -> None:
+    """The forward kernel's launches from the host over six SwinUNETR steps
+    (the two eager steps and the capture run the forward from the host, 8
+    blocks each; the replays launch none) and the window-attention kernels
+    a replayed step runs, counted on the device (8 blocks: 8 forwards and
+    16 backward launches)."""
+    from multimodal_segmentation_project_tpu_torch.ops.window_attn import window_attention
+
+    (launches,), names = _swin_step([window_attention], size)
+    n_attn = sum(name.startswith("window_attn") for name in names)
+    print(f"[window_attn] a replayed step runs {n_attn} window_attn kernels; forward launches "
+          f"from the host over the six steps {launches} (two eager steps and the capture, 8 "
+          f"blocks each)", flush=True)
     fail_unless(n_attn == 24, f"a replayed step ran {n_attn} window_attn kernels, not 24")
     fail_unless(launches == 8 * 3, f"the host launched the forward kernel {launches} times over "
                                    f"two eager steps and the capture, not 24")
-    del model, state, step
-    torch.cuda.empty_cache()
 
 
 def phase_window_attn() -> None:
@@ -4435,6 +4462,185 @@ def phase_window_attn() -> None:
         _time_window_attn((1, side, side, side), c, heads, 3, 300)
     _window_attn_step()
     print(f"[window_attn] phase in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ---- InstanceNorm with the residual block's tail (ops/instance_norm.py) --------
+
+# (volume side, channels, tail, norms of that tail in a 192^3 SwinUNETR step):
+# each residual block runs act(IN(conv1)) and act(IN(conv2) + r), and r is
+# IN(conv1x1) (no tail) where the block widens, but for encoder1's closed form
+IN_SLOPE = 0.01
+IN_TAILS = {"none": (False, None), "act": (False, IN_SLOPE), "res+act": (True, IN_SLOPE)}
+IN_SHAPES = (
+    (192, 48, "act", 2), (192, 48, "res+act", 2), (192, 48, "none", 1),  # encoder1, decoder1
+    (96, 48, "act", 2), (96, 48, "res+act", 2), (96, 48, "none", 1),  # encoder2, decoder2
+    (48, 96, "act", 2), (48, 96, "res+act", 2), (48, 96, "none", 1),  # encoder3, decoder3
+    (24, 192, "act", 2), (24, 192, "res+act", 2), (24, 192, "none", 1),  # encoder4, decoder4
+    (12, 384, "act", 1), (12, 384, "res+act", 1), (12, 384, "none", 1),  # decoder5
+    (6, 768, "act", 1), (6, 768, "res+act", 1),  # encoder10
+)
+IN_KERNELS_A_NORM = 6  # three forward kernels, three backward
+
+
+def _in_case(side, c, tail, seed):
+    import torch
+
+    shape = (1, c, side, side, side)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (3 + 2 * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+    res = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+           if IN_TAILS[tail][0] else None)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    return x, res, dy
+
+
+def _in_kernel(x, res, dy, slope, backward=True):
+    import torch
+
+    from multimodal_segmentation_project_tpu_torch.ops.instance_norm import instance_norm_act
+
+    if not backward:
+        return (instance_norm_act(x, res, slope),)
+    leaves = [t.detach().requires_grad_(True) for t in (x, res) if t is not None]
+    y = instance_norm_act(leaves[0], leaves[1] if res is not None else None, slope)
+    return (y.detach(), *torch.autograd.grad(y, leaves, dy))
+
+
+def _in_plain(x, res, dy, slope, out=None):
+    """The plain version's output, and with ``out`` (whose sign gates the
+    backward) dx and dresidual."""
+    from multimodal_segmentation_project_tpu_torch.ops import instance_norm as inorm
+
+    stats = inorm.plain_stats(x)
+    y = inorm.plain_forward(x, res, slope, stats)
+    if out is None:
+        return (y,)
+    dx, g = inorm.plain_backward(x, out, dy, stats, slope)
+    return (y, dx, *(() if res is None else (g.to(dy.dtype),)))
+
+
+def _in_library(x, res, dy, slope, backward=True):
+    """What the port ran before the kernels: group_norm, the add, LeakyReLU."""
+    import torch
+    import torch.nn.functional as F
+
+    leaves = [t.detach().requires_grad_(backward) for t in (x, res) if t is not None]
+    y = torch.group_norm(leaves[0], x.shape[1], None, None, 1e-5, True)
+    if res is not None:
+        y = y + leaves[1]
+    if slope is not None:
+        y = F.leaky_relu(y, slope)
+    return torch.autograd.grad(y, leaves, dy) if backward else (y,)
+
+
+def _in_check(side, c, tail, seed) -> None:
+    """The kernels against the plain version: the output, dx and dresidual
+    within two bf16 ulps plus 1e-5 of the largest magnitude (both take
+    their sums in fp32 and round once; the plain backward gates on the
+    kernel's output)."""
+    import torch
+
+    x, res, dy = _in_case(side, c, tail, seed)
+    slope = IN_TAILS[tail][1]
+    got = _in_kernel(x, res, dy, slope)
+    want = _in_plain(x, res, dy, slope, got[0])
+    torch.cuda.synchronize()
+    worst = []
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        allowed = 2 * _bf16_ulp(torch.maximum(a.abs(), b.abs())) + 1e-5 * b.abs().max()
+        worst.append(float(((a - b).abs() / allowed).max()))
+    ok = len(got) == len(want) and all(w <= 1 for w in worst)
+    print(f"[instance_norm] {side}^3 x {c} {tail}: worst share of allowance (out, dx, dres) "
+          f"{[round(w, 3) for w in worst]} {'ok' if ok else 'FAIL'}", flush=True)
+    fail_unless(ok, f"instance_norm {side}^3 x {c} {tail} misses its bound")
+
+
+def _in_bytes(side, c, tail) -> tuple:
+    """(forward, backward) bytes, each input read once and each output written
+    once, bf16: forward x (and r) in, out; backward x, dy (and out for the
+    gate) in, dx (and dr) out."""
+    has_res, slope = IN_TAILS[tail]
+    vol = 2 * c * side ** 3
+    return vol * (2 + has_res), vol * (3 + (slope is not None) + has_res)
+
+
+def _in_device_ms(cases, slope) -> tuple:
+    """(forward, backward) device ms a call of the instance_norm kernels,
+    from the profiler over one fwd+bwd call of each case."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for x, res, dy in cases:
+            _in_kernel(x, res, dy, slope)
+        torch.cuda.synchronize()
+    fwd = bwd = 0.0
+    for e in prof.events():
+        if "cuda" in str(getattr(e, "device_type", "")).lower() and "instance_norm" in e.name:
+            ms = (e.time_range.end - e.time_range.start) * 1e-3
+            if "bwd" in e.name:
+                bwd += ms
+            else:
+                fwd += ms
+    return fwd / len(cases), bwd / len(cases)
+
+
+def _time_in(side, c, tail, seed) -> dict:
+    """As called (CUDA events, median of five distinct inputs): the kernels'
+    forward and forward + backward, the plain version's, the library's;
+    the kernels' device time; the bound."""
+    cases = [_in_case(side, c, tail, seed + i) for i in range(N_TIMED)]
+    slope = IN_TAILS[tail][1]
+    ms = {
+        "fwd": _time_ms(lambda x, r, dy: _in_kernel(x, r, dy, slope, False), cases),
+        "fwd+bwd": _time_ms(lambda x, r, dy: _in_kernel(x, r, dy, slope), cases),
+        "plain fwd": _time_ms(lambda x, r, dy: _in_plain(x, r, dy, slope), cases),
+        "plain fwd+bwd": _time_ms(lambda x, r, dy: _in_plain(
+            x, r, dy, slope, _in_plain(x, r, dy, slope)[0]), cases),
+        "library fwd": _time_ms(lambda x, r, dy: _in_library(x, r, dy, slope, False), cases),
+        "library fwd+bwd": _time_ms(lambda x, r, dy: _in_library(x, r, dy, slope), cases),
+    }
+    ms["device fwd"], ms["device bwd"] = _in_device_ms(cases, slope)
+    fwd_b, bwd_b = (b / HBM_BYTES_PER_S * 1e3 for b in _in_bytes(side, c, tail))
+    ms["bound fwd"], ms["bound fwd+bwd"] = fwd_b, fwd_b + bwd_b
+    dev = ms["device fwd"] + ms["device bwd"]
+    print(f"[instance_norm] time {side}^3 x {c} {tail}: fwd {ms['fwd']:.3f} ms, fwd+bwd "
+          f"{ms['fwd+bwd']:.3f} ms as called; device {ms['device fwd']:.3f} + "
+          f"{ms['device bwd']:.3f} ms (bound {fwd_b:.3f} + {bwd_b:.3f}, "
+          f"{100 * (fwd_b + bwd_b) / dev:.1f} %); plain {ms['plain fwd']:.3f}, "
+          f"{ms['plain fwd+bwd']:.3f}; library (group_norm) {ms['library fwd']:.3f}, "
+          f"{ms['library fwd+bwd']:.3f}", flush=True)
+    return ms
+
+
+def phase_instance_norm() -> None:
+    """13. InstanceNorm with the residual block's tail: the kernels against
+    the plain version at every shape and tail of a 192^3 SwinUNETR step;
+    each timed beside its bound, the plain version and the library's
+    composition, summed over the step; then the replayed step's kernels."""
+    from multimodal_segmentation_project_tpu_torch.ops.instance_norm import instance_norm_act
+
+    t0 = time.perf_counter()
+    for i, (side, c, tail, _) in enumerate(IN_SHAPES):
+        _in_check(side, c, tail, 500 + i)
+    total = {}
+    for i, (side, c, tail, n) in enumerate(IN_SHAPES):
+        for k, v in _time_in(side, c, tail, 600 + 10 * i).items():
+            total[k] = total.get(k, 0.0) + n * v
+    norms = sum(n for *_, n in IN_SHAPES)
+    print(f"[instance_norm] a 192^3 step's {norms} norms, ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in total.items()), flush=True)
+    (launches,), names = _swin_step([instance_norm_act])
+    n_in = sum("instance_norm" in name for name in names)
+    print(f"[instance_norm] a replayed step runs {n_in} instance_norm kernels; launches from "
+          f"the host over the six steps {launches} (the two eager steps; a capture counts "
+          f"none)", flush=True)
+    a_step = IN_KERNELS_A_NORM * norms
+    fail_unless(n_in == a_step, f"a replayed step ran {n_in} instance_norm kernels, not {a_step}")
+    fail_unless(launches == 2 * a_step, f"the host launched {launches} instance_norm kernels over "
+                                        f"two eager steps, not {2 * a_step}")
+    print(f"[instance_norm] phase in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -4473,10 +4679,13 @@ def main() -> int:
                 print(f"[FAIL] {type(e).__name__}: {e}", flush=True)
                 return 1
             return 0
-    if "--window-attn" in sys.argv[1:]:
+    for flag, phase in (("--window-attn", phase_window_attn),
+                        ("--instance-norm", phase_instance_norm)):
+        if flag not in sys.argv[1:]:
+            continue
         try:
             phase_device()
-            phase_window_attn()
+            phase()
         except Exception as e:
             import traceback
 
@@ -4512,6 +4721,7 @@ def main() -> int:
         phase_checkpoints()
         phase_multi()
         phase_window_attn()
+        phase_instance_norm()
     except Exception as e:  # every phase's failure fails the run
         import traceback
 

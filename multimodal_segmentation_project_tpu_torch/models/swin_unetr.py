@@ -40,8 +40,11 @@ Routing, as the UNet3D's: a 3x3x3 conv of at most 64 channels in and out
 -> ``ops.conv3.conv3x3x3_cf`` (a zero bias), wider ones the library's
 conv; a transpose conv with at most 64 channels out -> ``ops.upconv``
 (a zero bias) in bf16, else the library's; the head ->
-``ops.head.head1x1_cf``; the patch embedding, the 1x1x1 residual convs,
-the Linears, the norms and the activations are plain PyTorch in the
+``ops.head.head1x1_cf``; every InstanceNorm, with the LeakyReLU and the
+residual add that follow it in a residual block, ->
+``ops.instance_norm.instance_norm_act`` (a block is act(IN(conv1(x))),
+then act(IN(conv2(.)) + r)); the patch embedding, the 1x1x1 residual
+convs, the Linears, the LayerNorms and GELU are plain PyTorch in the
 working dtype, but for encoder1's 1 -> 48 residual IN(conv1x1(x)), which
 is its closed form on the one input channel, in fp32
 (``UnetResBlock._residual``). At 192^3: the 48-channel convs at 192^3 and 96^3 take the
@@ -62,6 +65,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from multimodal_segmentation_project_tpu_torch.ops import conv3, head, upconv
+from multimodal_segmentation_project_tpu_torch.ops.instance_norm import instance_norm_act
 from multimodal_segmentation_project_tpu_torch.ops.window_attn import (
     relative_position_index,
     window_attention,
@@ -83,13 +87,6 @@ def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm | None, dt: torch.dtype) -> 
     if norm is None:
         return F.layer_norm(x, (x.shape[-1],), eps=EPS)
     return F.layer_norm(x, (x.shape[-1],), norm.weight.to(dt), norm.bias.to(dt), EPS)
-
-
-def instance_norm(x: torch.Tensor) -> torch.Tensor:
-    """InstanceNorm with no affine, per sample and channel: GroupNorm with a
-    group a channel. The aten op, since the functional forms refuse a 1^3
-    volume in training (hs4 of a 32^3 input), which it normalises to 0."""
-    return torch.group_norm(x, x.shape[1], None, None, EPS, torch.backends.cudnn.enabled)
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dt: torch.dtype) -> torch.Tensor:
@@ -131,12 +128,10 @@ class UnetResBlock(nn.Module):
             self.conv3 = _Conv(nn.Conv3d(cin, cout, 1, bias=False))
 
     def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-        y = F.leaky_relu(instance_norm(conv3x3x3(x, self.conv1.conv.weight, dt)),
-                         NEGATIVE_SLOPE)
-        y = instance_norm(conv3x3x3(y, self.conv2.conv.weight, dt))
-        if hasattr(self, "conv3"):
-            x = self._residual(x, dt)
-        return F.leaky_relu(y + x, NEGATIVE_SLOPE)
+        y = instance_norm_act(conv3x3x3(x, self.conv1.conv.weight, dt), slope=NEGATIVE_SLOPE)
+        y = conv3x3x3(y, self.conv2.conv.weight, dt)
+        r = self._residual(x, dt) if hasattr(self, "conv3") else x
+        return instance_norm_act(y, residual=r, slope=NEGATIVE_SLOPE)
 
     def _residual(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
         """IN(conv1x1(x)). With one input channel (encoder1) it is the closed
@@ -148,7 +143,7 @@ class UnetResBlock(nn.Module):
         no cancellation."""
         w = self.conv3.conv.weight
         if x.shape[1] != 1:
-            return instance_norm(F.conv3d(x, w.to(dt)))
+            return instance_norm_act(F.conv3d(x, w.to(dt)))
         z = x.float()
         z = z - z.mean((2, 3, 4), keepdim=True)
         var = z.square().mean((2, 3, 4), keepdim=True)
